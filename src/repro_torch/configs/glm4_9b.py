@@ -1,0 +1,24 @@
+"""glm4-9b [dense] — RoPE, extreme GQA (kv=2).
+
+40L d_model=4096 32H (GQA kv=2) d_ff=13696 vocab=151552 [hf:THUDM/glm-4-9b;
+hf].
+"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="glm4-9b",
+    family="dense",
+    n_layers=40,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=2,
+    head_dim=128,
+    d_ff=13696,
+    vocab=151_552,
+    mlp="swiglu",
+    rope_theta=5e5,
+)
+
+SMOKE = CONFIG.scaled(
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128, vocab=512
+)

@@ -1,0 +1,100 @@
+"""Build the CUDA kernels in ``csrc/`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C function and is compiled on its
+own by ``nvcc`` into ``build/repro_torch_kernels/<name>-<hash>.so`` at the
+repository root (listed in ``.gitignore``):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -Xptxas -v -o <lib> <source>
+
+The hash covers the source and the flags, so a changed kernel rebuilds and
+an unchanged one is reused.  Building happens at first use, or for all
+sources at once (one ``nvcc`` per source, started together) through
+:func:`build_all`.  A failed build raises; nothing falls back.  ``ptxas``'s
+register and spill report is kept beside each library as ``<lib>.log``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["BUILD_DIR", "SOURCES", "build_all", "load", "ptxas_report"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+SOURCES = ("coded_decode", "gaussian_encode")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _lib_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{h[:16]}.so"
+
+
+def build_all(names: tuple[str, ...] = SOURCES) -> float:
+    """Compile every missing library in ``names`` in parallel; returns the
+    wall seconds spent.  Raises RuntimeError with nvcc's output on failure."""
+    todo = [n for n in names if not _lib_path(n).exists()]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    for n in todo:
+        lib = _lib_path(n)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs.append((n, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    errors = []
+    for n, lib, tmp, p in procs:
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"nvcc failed for {n}.cu (exit {p.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+            continue
+        lib.with_suffix(".so.log").write_text(log)
+        os.replace(tmp, lib)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return time.perf_counter() - t0
+
+
+def ptxas_report(name: str) -> str:
+    """ptxas's resource report (registers, shared memory, spills) of a built library."""
+    log = _lib_path(name).with_suffix(".so.log")
+    return log.read_text() if log.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build_all((name,))
+        lib = _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
+    return lib
