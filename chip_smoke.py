@@ -6,18 +6,31 @@
 
 Phases, one JSON line each; any failure exits non-zero before the last line:
 
-1. device: name, ``nvidia-smi`` name and power limit, kernel build seconds;
-2. kernels: each hand-written kernel against its plain PyTorch version on the
+1. device: name, ``nvidia-smi`` name and power limit, kernel build seconds
+   (one ``nvcc`` per source, started together);
+2. kernels: the serving kernels against their plain PyTorch versions on the
    card, at the serving path's shapes (glm4-9b head at B = 1 and B = 4, the
    (13, 3) parity re-encode) and at ragged shapes; max error against the
-   stated tolerance, kernel / plain / torch.matmul times and the bound;
-3. head: glm4-9b's coded head at full width under the full mask and under 2
-   erasures, held to the uncoded ``last @ head``;
-4. serve: glm4-9b at full width and depth (seeded init on the card), 4 slots,
-   6 requests of 16 prompt tokens and 8 new tokens, the fused head kernel
-   and on-device parity re-encode, 3 persistent stragglers forcing one
-   (14, 2) -> (13, 3) raise; launch counts read around the run;
-5. a ``kernels`` line for every ported kernel, then the device line.
+   stated tolerance, kernel / plain / library times and the bound;
+3. task, LT: the paper's coded task form (§5.1 scenario 1: r = 5,000, five
+   EC2 workers, m = 500,000) through ``ClusterEmulator.run_task`` — Algorithm
+   1, LT encode with the reserve rows encoded on the card by ``lt_encode``,
+   adaptive top-ups under churn (worker 0 dies, worker 1 slows 5x), the
+   streaming peeling decode — held to A·x in float64 and to a host-encode
+   run of the same seed; then ``lt_encode`` against its plain version at
+   that call's shapes and at ragged ones.  The reserve is encoded with
+   ``TaskSpec``'s default ``encode_mode`` ('device': the card).  m is cut
+   only if host memory is short, and the cut is printed;
+4. task, Gaussian: the same at r = 500 (scenario 2's r/20, ten workers),
+   m = 200,000, ``code="gaussian"``, the reserve encoded by
+   ``gaussian_encode`` (printed as a cut: the host's dense static encode,
+   run twice, sets the size);
+5. head and serve: glm4-9b's coded head at full width under 0 and 2
+   erasures; glm4-9b at full width and depth (seeded init on the card),
+   4 slots, 6 requests of 16 prompt tokens and 8 new tokens, 3 persistent
+   stragglers forcing one (14, 2) -> (13, 3) raise;
+6. a ``kernels`` line with every kernel on every path it runs (launch
+   counts read around that path's run), then the device line.
 
 It imports nothing of JAX, and exits non-zero without CUDA or without the
 repository's ``src/repro_torch`` beside it.
@@ -25,16 +38,23 @@ repository's ``src/repro_torch`` beside it.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
+import resource
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12           # H100 SXM fp32 outside the tensor cores (data sheet)
+PAPER_M = 500_000            # the paper's width of A (benchmarks/paper_ec2.py)
+GAUSSIAN_TASK_M = 200_000    # the Gaussian task's cut width (phase_task_gaussian)
+TASK_TIME_SCALE = 10.0       # wall seconds per model second of the paced task runs
 
 
 def emit(obj: dict) -> None:
@@ -175,6 +195,288 @@ def phase_kernels(torch, gen, results: dict) -> None:
     gaussian_encode_cuda.launches = 0
 
 
+def _reset_launches() -> None:
+    from repro_torch.kernels.coded_decode import coded_matvec_decode_cuda
+    from repro_torch.kernels.lt_encode import gaussian_encode_cuda, lt_encode_cuda
+
+    for fn in (coded_matvec_decode_cuda, gaussian_encode_cuda, lt_encode_cuda):
+        fn.launches = 0
+
+
+def _launches() -> dict:
+    from repro_torch.kernels.coded_decode import coded_matvec_decode_cuda
+    from repro_torch.kernels.lt_encode import gaussian_encode_cuda, lt_encode_cuda
+
+    return {"coded_matvec_decode": coded_matvec_decode_cuda.launches,
+            "gaussian_encode": gaussian_encode_cuda.launches,
+            "lt_encode": lt_encode_cuda.launches}
+
+
+def _host_peak_gb() -> float:
+    """Peak resident memory of this process so far (Linux reports KiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def _mem_available_gb() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    raise RuntimeError("MemAvailable not in /proc/meminfo")
+
+
+def _task_inputs(torch, r: int, m: int, seed: int):
+    """A [r, m] and x [m], fp32, drawn on the card from ``seed``; A·x in
+    float64 on the card (in row pieces); all three copied to the host."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a_dev = torch.randn(r, m, device=dev, generator=gen)
+    x_dev = torch.randn(m, device=dev, generator=gen)
+    x64 = x_dev.double()
+    step = max(1, (1 << 30) // (8 * m))
+    y = torch.cat([a_dev[s:s + step].double() @ x64 for s in range(0, r, step)])
+    out = a_dev.cpu().numpy(), x_dev.cpu().numpy(), y.cpu().numpy()
+    del a_dev, x_dev, x64, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def _churn(r: int):
+    """Worker 0 dies and worker 1 slows 5x: the reference's executor test,
+    with its times scaled by r / 400."""
+    from repro_torch.core.adaptive import ChurnEvent, ChurnSchedule
+
+    s = r / 400
+    return ChurnSchedule((ChurnEvent(t=0.01 * s, worker=0, kind="death"),
+                          ChurnEvent(t=0.008 * s, worker=1, kind="rate", factor=5.0)))
+
+
+def _run_task(torch, a, x, y_ref, workers, code: str, encode_mode,
+              seed: int) -> tuple[dict, object, object]:
+    """One ``run_task`` of the adaptive task form, its launches counted around
+    it; returns (row, result, emulator)."""
+    from repro_torch.cluster import ClusterEmulator, TaskSpec
+    from repro_torch.core.adaptive import ReallocationPolicy
+
+    spec = TaskSpec(scheme="bpcc", code=code, adaptive=ReallocationPolicy(),
+                    churn=_churn(a.shape[0]), encode_mode=encode_mode)
+    em = ClusterEmulator(workers, time_scale=TASK_TIME_SCALE, seed=seed)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = em.run_task(a, x, spec)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    rel = float(np.abs(res.y - y_ref).max() / np.abs(y_ref).max())
+    row = {"encode_mode": encode_mode, "ok": res.ok, "max_rel_err": rel,
+           "t_complete": res.t_complete, "t_decode": res.t_decode,
+           "t_decode_ingest": res.t_decode_ingest, "t_wall": res.t_wall,
+           "run_task_wall_s": wall, "rows_assigned": res.rows_assigned,
+           "rows_received": res.rows_received, "reallocations": len(res.reallocations),
+           "launches": launches, "host_peak_gb": _host_peak_gb(),
+           "device_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    enc = em.last_encode
+    if enc is not None:
+        row["encode"] = {k: enc[k] for k in ("kind", "rows", "nonzeros", "h2d_s",
+                                             "encode_s", "d2h_s", "static_host_s")}
+    return row, res, em
+
+
+def _same_trajectory(dev_res, host_res) -> bool:
+    return (dev_res.arrivals == host_res.arrivals
+            and dev_res.reallocations == host_res.reallocations
+            and dev_res.rows_assigned == host_res.rows_assigned)
+
+
+def phase_task_lt(torch, args, results: dict, smi: str) -> None:
+    """The paper's task form at scenario 1 through the port's run_task, the
+    reserve rows LT-encoded on the card by TaskSpec's default encode_mode;
+    then lt_encode at that call's shapes."""
+    from repro_torch.cluster import ec2_scenario
+
+    r, workers = ec2_scenario(1)
+    m, cut = PAPER_M, None
+    # host bytes per A byte, the process's peak on this path: A, the coded
+    # rows (capacity ~1.75 r) held once by the master and once spread over
+    # the workers, the static encode's buffer, and room for the reference
+    # copy of y and the encode's pieces
+    need_per_col = 6.0 * r * 4 / 1e9
+    avail = _mem_available_gb()
+    if need_per_col * m > 0.9 * avail:
+        cut = {"m": int(0.9 * avail / need_per_col), "of_m": m,
+               "reason": f"host memory: {avail:.1f} GB available, "
+                         f"{need_per_col * m:.1f} GB reckoned at m = {m}"}
+        emit({"phase": "cut", "task": "lt", **cut})
+        m = cut["m"]
+    t0 = time.perf_counter()
+    a, x, y_ref = _task_inputs(torch, r, m, args.seed)
+    inputs_s = time.perf_counter() - t0
+    dev_row, dev_res, em = _run_task(torch, a, x, y_ref, workers, "lt", "device",
+                                     args.seed)
+    enc = em.last_encode
+    check(enc is not None, "no device encode ran: the top-ups drew no reserve rows")
+    plan = enc["plan"]
+    static_total = dev_row["rows_assigned"] - enc["rows"]
+    del em
+    host_row, host_res, em = _run_task(torch, a, x, y_ref, workers, "lt", None,
+                                       args.seed)
+    del em
+    row = {"phase": "task", "code": "lt", "scenario": 1, "r": r, "m": m,
+           "cut": cut, "workers": [w.name for w in workers],
+           "time_scale": TASK_TIME_SCALE, "inputs_s": inputs_s, "static_rows": static_total,
+           "device_encode": dev_row, "host_encode": host_row,
+           "same_trajectory": _same_trajectory(dev_res, host_res),
+           "y_max_abs_diff_device_vs_host": float(np.abs(dev_res.y - host_res.y).max()),
+           "card": smi}
+    emit(row)
+    results["task_lt"] = row
+    check(dev_res.ok, "LT task (device encode) did not decode")
+    check(dev_row["max_rel_err"] <= 2e-3, f"LT task rel err {dev_row['max_rel_err']} > 2e-3")
+    check(dev_row["rows_assigned"] > static_total, "top-ups drew no reserve rows")
+    check(dev_row["launches"]["lt_encode"] == 1, f"lt_encode launches {dev_row['launches']}")
+    check(host_res.ok and host_row["max_rel_err"] <= 2e-3,
+          f"LT task (host encode) rel err {host_row['max_rel_err']}")
+    check(row["same_trajectory"], "device and host encode runs differ in arrivals, "
+                                  "reallocations or rows assigned")
+    del dev_res, host_res
+    gc.collect()
+
+    kernel_lt_encode(torch, a, plan, results)
+    del a, x, y_ref, plan
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def kernel_lt_encode(torch, a_host, plan, results: dict) -> None:
+    """lt_encode on the card against ref_lt_encode: the task phase's own call
+    (A [r, m], its reserve slice of the plan) in full, and ragged shapes."""
+    from repro_torch.core.encoding import LTCode
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lt_encode import lt_encode_cuda
+
+    dev = torch.device("cuda")
+    rtol = 1e-4  # |kernel - plain| <= rtol * max(1, max|plain|)
+    gen = np.random.default_rng(7)
+    shapes = [("task reserve slice", torch.as_tensor(a_host, device=dev),
+               plan.indices, plan.coeffs)]
+    # ragged: M % 4 != 0 (scalar loads); zeros mid-row with non-unit
+    # coefficients and a degree-0 row; q = 1 with d_max = 1
+    lt = LTCode(300, seed=3).plan(420)
+    shapes.append(("ragged M % 4 != 0", torch.randn(300, 4097, device=dev),
+                   lt.indices[300:], lt.coeffs[300:]))
+    idx = gen.integers(0, 200, (70, 9)).astype(np.int32)
+    cof = gen.standard_normal((70, 9)).astype(np.float32)
+    cof[gen.random((70, 9)) < 0.4] = 0.0
+    cof[5] = 0.0
+    shapes.append(("ragged zeros mid-row", torch.randn(200, 1030, device=dev), idx, cof))
+    shapes.append(("ragged q = 1, d_max = 1", torch.randn(3, 4100, device=dev),
+                   np.array([[2]], np.int32), np.array([[0.5]], np.float32)))
+    for label, a, idx, cof in shapes:
+        i_t = torch.as_tensor(idx, device=dev)
+        c_t = torch.as_tensor(cof, device=dev)
+        got = lt_encode_cuda(a, i_t, c_t)
+        want = ref.ref_lt_encode(a, i_t, c_t)
+        torch.cuda.synchronize()
+        err, scale = max_err(torch, got, want)
+        tol = rtol * max(1.0, scale)
+        nnz = int(np.count_nonzero(cof))
+        q, d_max = idx.shape
+        row = {"phase": "kernel", "kernel": "lt_encode", "shape": label,
+               "a": list(a.shape), "q": q, "d_max": d_max, "nonzeros": nnz,
+               "max_degree": int((cof != 0).sum(1).max()),
+               "max_abs_err": err, "tol": tol}
+        del got, want
+        if label.startswith("task"):
+            m = a.shape[1]
+            row["ms"] = time_ms(torch, lambda: lt_encode_cuda(a, i_t, c_t), 5)
+            row["plain_ms"] = time_ms(torch, lambda: ref.ref_lt_encode(a, i_t, c_t), 2, warmup=1)
+            nz = c_t != 0
+            csr = torch.sparse_csr_tensor(
+                torch.nn.functional.pad(nz.sum(1).cumsum(0), (1, 0)),
+                i_t[nz].long(), c_t[nz], size=(q, a.shape[0]), check_invariants=False)
+            row["library_ms"] = time_ms(torch, lambda: torch.sparse.mm(csr, a), 3, warmup=1)
+            row["library_call"] = "torch.sparse.mm(CSR generator [q, r], A)"
+            # each input read once: the rows of A the table references, the
+            # padded table; the output written once
+            used_rows = int(torch.unique(i_t[nz]).numel())
+            n_bytes = 4 * used_rows * m + 8 * q * d_max + 4 * q * m
+            row["bound_ms"], row["bound_by"] = bound(n_bytes, 2 * nnz * m)
+            row["a_rows_used"] = used_rows
+            # the same, had every nonzero entry to stream its row of A anew
+            row["bound_no_reuse_ms"] = bound(n_bytes + 4 * (nnz - used_rows) * m, 0)[0]
+            results.setdefault("lt_encode", {})["task"] = row
+            del csr
+        emit(row)
+        check(err <= tol, f"lt_encode {label}: {err} > {tol}")
+        del a, i_t, c_t
+        torch.cuda.empty_cache()
+    lt_encode_cuda.launches = 0  # comparison launches are not the path's
+
+
+def phase_task_gaussian(torch, args, results: dict, smi: str) -> None:
+    """The task form with the Gaussian code at a stated cut, the reserve rows
+    encoded by gaussian_encode on the card; then gaussian_encode at that
+    call's shape."""
+    from repro_torch.cluster import ec2_scenario
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lt_encode import gaussian_encode_cuda
+
+    r_full, workers = ec2_scenario(2)
+    r, m = r_full // 20, GAUSSIAN_TASK_M
+    cut = {"r": r, "of_r": r_full, "m": m, "of_m": PAPER_M,
+           "reason": "the host's static dense encode (numpy gather and einsum, "
+                     "static rows x r x m multiply-adds, once in each of the two "
+                     "runs): r/20 as benchmarks/paper_ec2.py, and m as wide as "
+                     "keeps the phase within its share of the time limit"}
+    emit({"phase": "cut", "task": "gaussian", **cut})
+    a, x, y_ref = _task_inputs(torch, r, m, args.seed + 1)
+    dev_row, dev_res, em = _run_task(torch, a, x, y_ref, workers, "gaussian", "device",
+                                     args.seed)
+    enc = em.last_encode
+    check(enc is not None, "no device encode ran: the top-ups drew no reserve rows")
+    host_row, host_res, _ = _run_task(torch, a, x, y_ref, workers, "gaussian", None,
+                                      args.seed)
+    row = {"phase": "task", "code": "gaussian", "scenario": 2, "r": r, "m": m,
+           "cut": cut, "workers": [w.name for w in workers],
+           "time_scale": TASK_TIME_SCALE,
+           "device_encode": dev_row, "host_encode": host_row,
+           "same_trajectory": _same_trajectory(dev_res, host_res),
+           "y_max_abs_diff_device_vs_host": float(np.abs(dev_res.y - host_res.y).max()),
+           "card": smi}
+    emit(row)
+    results["task_gaussian"] = row
+    check(dev_res.ok and dev_row["max_rel_err"] <= 2e-3,
+          f"Gaussian task rel err {dev_row['max_rel_err']}")
+    check(dev_row["launches"]["gaussian_encode"] == 1,
+          f"gaussian_encode launches {dev_row['launches']}")
+    check(host_res.ok and host_row["max_rel_err"] <= 2e-3,
+          f"Gaussian task (host encode) rel err {host_row['max_rel_err']}")
+    check(row["same_trajectory"], "device and host encode runs differ in trajectory")
+
+    # gaussian_encode at the task's shape: G [q, r] (the plan's reserve slice) x A
+    dev = torch.device("cuda")
+    g = torch.as_tensor(np.ascontiguousarray(enc["plan"].coeffs), device=dev)
+    a_t = torch.as_tensor(a, device=dev)
+    got = gaussian_encode_cuda(g, a_t)
+    want = ref.ref_gaussian_encode(g, a_t)
+    torch.cuda.synchronize()
+    err, scale = max_err(torch, got, want)
+    q = g.shape[0]
+    krow = {"phase": "kernel", "kernel": "gaussian_encode", "shape": "task reserve slice",
+            "g": [q, r], "a": [r, m], "max_abs_err": err, "tol": 1e-4 * max(1.0, scale),
+            "ms": time_ms(torch, lambda: gaussian_encode_cuda(g, a_t), 20),
+            "plain_ms": time_ms(torch, lambda: ref.ref_gaussian_encode(g, a_t), 20),
+            "library_ms": time_ms(torch, lambda: torch.matmul(g, a_t), 20),
+            "library_call": "torch.matmul(G, A)"}
+    krow["bound_ms"], krow["bound_by"] = bound(4 * (q * r + r * m + q * m), 2 * q * r * m)
+    emit(krow)
+    check(err <= krow["tol"], f"gaussian_encode task shape: {err} > {krow['tol']}")
+    results.setdefault("gaussian_encode", {})["task"] = krow
+    gaussian_encode_cuda.launches = 0
+    del g, a_t, got, want
+    torch.cuda.empty_cache()
+
+
 def phase_head(torch, params, cfg, gen) -> None:
     from repro_torch.models.transformer import _last_logits
 
@@ -196,12 +498,8 @@ def phase_head(torch, params, cfg, gen) -> None:
 
 
 def phase_serve(torch, args, results: dict, smi: str) -> None:
-    import numpy as np
-
     from repro_torch.configs import get_config
     from repro_torch.core.adaptive import ParityController
-    from repro_torch.kernels.coded_decode import coded_matvec_decode_cuda
-    from repro_torch.kernels.lt_encode import gaussian_encode_cuda
     from repro_torch.models.registry import build_model
     from repro_torch.serve import Request, ServeEngine
 
@@ -238,15 +536,13 @@ def phase_serve(torch, args, results: dict, smi: str) -> None:
         eng.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab, prompt_len),
                            max_new_tokens=max_new))
 
-    coded_matvec_decode_cuda.launches = 0
-    gaussian_encode_cuda.launches = 0
+    _reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"coded_matvec_decode": coded_matvec_decode_cuda.launches,
-                "gaussian_encode": gaussian_encode_cuda.launches}
+    launches = _launches()
     steps, syncs = eng._steps, eng.sync_count
 
     n_tok = sum(len(r.out_tokens) for r in done)
@@ -357,22 +653,32 @@ def main() -> int:
     results: dict = {}
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     phase_kernels(torch, gen, results)
+    phase_task_lt(torch, args, results, smi)
+    phase_task_gaussian(torch, args, results, smi)
     phase_serve(torch, args, results, smi)
 
-    launches = results["serve"]["launches"]
     kernels = []
-    for name, source, replaces, shape in (
+    for name, source, replaces, path, phase, shape in (
         ("coded_matvec_decode", "src/repro_torch/kernels/csrc/coded_decode.cu",
-         "src/repro/kernels/coded_decode.py:65", "glm4-9b decode"),
+         "src/repro/kernels/coded_decode.py:65", "serve", results["serve"], "glm4-9b decode"),
         ("gaussian_encode", "src/repro_torch/kernels/csrc/gaussian_encode.cu",
-         "src/repro/kernels/lt_encode.py:107", "glm4-9b raise"),
+         "src/repro/kernels/lt_encode.py:107", "serve", results["serve"], "glm4-9b raise"),
+        ("lt_encode", "src/repro_torch/kernels/csrc/lt_encode.cu",
+         "src/repro/kernels/lt_encode.py:61", "task lt", results["task_lt"], "task"),
+        ("gaussian_encode", "src/repro_torch/kernels/csrc/gaussian_encode.cu",
+         "src/repro/kernels/lt_encode.py:107", "task gaussian", results["task_gaussian"],
+         "task"),
     ):
         r = results[name][shape]
-        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": r["max_abs_err"],
-                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "shape": shape})
+        launches = phase.get("device_encode", phase)["launches"]
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": launches[name], "max_abs_err": r["max_abs_err"],
+                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                 "path": path, "shape": r["shape"]}
+        if "cut" in phase:  # the task phases: the cut of r and m, or None
+            entry.update(r=phase["r"], m=phase["m"], cut=phase["cut"])
+        kernels.append(entry)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "results": results, "kernels": kernels}, f, indent=1)

@@ -1,1 +1,2 @@
-"""Block-MDS coded ops, mask-keyed decoding and parity control (port of ``repro.core``)."""
+"""The BPCC core (port of ``repro.core``): allocation, codes, simulator, adaptive
+control, streaming and block-MDS decoding, coded ops and parity control."""

@@ -23,11 +23,11 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "SOURCES", "build_all", "load", "ptxas_report"]
+__all__ = ["BUILD_DIR", "SOURCES", "build_all", "c_function", "load", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("coded_decode", "gaussian_encode")
+SOURCES = ("coded_decode", "gaussian_encode", "lt_encode")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -98,3 +98,14 @@ def load(name: str) -> ctypes.CDLL:
         build_all((name,))
         lib = _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
     return lib
+
+
+def c_function(source: str, symbol: str, argtypes: list):
+    """The C function ``symbol`` of ``csrc/<source>.cu``, built and loaded
+    first if needed, with its argument types declared and an int (the
+    ``cudaError_t`` of its launch) as its result."""
+    fn = getattr(load(source), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn

@@ -13,23 +13,12 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels._build import c_function
+
 __all__ = ["MAX_B", "MAX_BLOCKS", "coded_matvec_decode_cuda"]
 
 MAX_B = 16        # widest x the kernel takes (decode batch = n_slots)
 MAX_BLOCKS = 32   # most code blocks (the mask-keyed cache stops at 20)
-
-
-def _lib():
-    from repro_torch.kernels._build import load
-
-    lib = load("coded_decode")
-    fn = lib.coded_matvec_decode
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def coded_matvec_decode_cuda(
@@ -63,7 +52,10 @@ def coded_matvec_decode_cuda(
         raise ValueError(f"x has {b} columns; the kernel takes 1..{MAX_B}")
     br = rows // nb
     out = torch.empty((n_data * br, b), dtype=torch.float32, device=w_coded.device)
-    fn = _lib()
+    p = ctypes.c_void_p
+    fn = c_function("coded_decode", "coded_matvec_decode",
+                    [p, p, p, p, ctypes.c_longlong, ctypes.c_longlong,
+                     ctypes.c_int, ctypes.c_int, ctypes.c_int, p])
     with torch.cuda.device(w_coded.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(w_coded.data_ptr(), xc.data_ptr(), rec.data_ptr(), out.data_ptr(),

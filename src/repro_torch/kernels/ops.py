@@ -13,14 +13,18 @@ tensor a kernel mode launches the kernel or raises: nothing falls back.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from repro_torch import default_device
 from repro_torch.kernels import ref as _ref
 
 __all__ = [
     "coded_matvec_decode",
     "coded_head_matvec",
     "gaussian_encode",
+    "lt_encode",
+    "encode_rows",
     "encode_blocks_device",
 ]
 
@@ -85,6 +89,44 @@ def gaussian_encode(g, a, mode: str | None = None):
     from repro_torch.kernels.lt_encode import gaussian_encode_cuda
 
     return gaussian_encode_cuda(g.contiguous(), a.contiguous())
+
+
+def lt_encode(a, indices, coeffs, mode: str | None = None):
+    """Â[j] = Σ_d coeffs[j,d] · A[indices[j,d]] for a padded-sparse degree
+    table (coefficient 0 = padding); fp32 [q, M]."""
+    if resolve_mode(mode, a) == "off":
+        return _ref.ref_lt_encode(a, indices, coeffs)
+    from repro_torch.kernels.lt_encode import lt_encode_cuda
+
+    return lt_encode_cuda(a.contiguous(), indices.contiguous(), coeffs.contiguous())
+
+
+def encode_rows(a, plan, start: int, stop: int, mode: str | None = None, device=None):
+    """Encode plan rows [start, stop) on a device — the reserve top-up path.
+
+    Dense (Gaussian) plans go through ``gaussian_encode`` with the generator
+    slice ``plan.coeffs[start:stop]``; LT plans through ``lt_encode`` on the
+    degree-table slice.  ``a`` (numpy or a tensor) is cast to fp32, as the
+    reference's ``jnp.asarray`` does with x64 off.  It runs on ``device``,
+    else on ``a``'s device if ``a`` is a tensor, else on the card
+    (``repro_torch.default_device``).  Returns the [stop - start, M] fp32
+    coded rows on that device.
+    """
+    if not 0 <= start <= stop <= plan.q:
+        raise ValueError(f"bad plan row range [{start}, {stop}) for q={plan.q}")
+    if device is None and isinstance(a, torch.Tensor):
+        dev = a.device
+    else:
+        dev = default_device(device)
+    a = torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    def table(x: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(x[start:stop]), device=dev)
+
+    if plan.kind == "gaussian":
+        # a dense plan's coeffs ARE the generator (indices = arange(r))
+        return gaussian_encode(table(plan.coeffs), a, mode)
+    return lt_encode(a, table(plan.indices), table(plan.coeffs), mode)
 
 
 def encode_blocks_device(w, n_data: int, n_parity: int, mode: str | None = None):

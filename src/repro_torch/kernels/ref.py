@@ -9,7 +9,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["ref_coded_matvec_decode", "ref_gaussian_encode"]
+from repro_torch.core.encoding import ENCODE_GATHER_BYTES
+
+__all__ = ["ref_coded_matvec_decode", "ref_gaussian_encode", "ref_lt_encode"]
 
 
 def ref_coded_matvec_decode(
@@ -34,3 +36,31 @@ def ref_coded_matvec_decode(
 def ref_gaussian_encode(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """Â = G A — dense generator slice [q, r] times source [r, M]; fp32."""
     return g.to(torch.float32) @ a.to(torch.float32)
+
+
+def ref_lt_encode(
+    a: torch.Tensor, indices: torch.Tensor, coeffs: torch.Tensor
+) -> torch.Tensor:
+    """Â[j] = Σ_d coeffs[j,d] · A[indices[j,d]] — padded-sparse generator; fp32.
+
+    a [r, M], indices [q, d_max], coeffs [q, d_max] (0 = padding) -> [q, M].
+    The sum runs over d in table order, one table column at a time:
+    out[j] += coeffs[j,d] · A[indices[j,d]], product and sum each rounded
+    to fp32.  Only the rows whose entry d is nonzero are gathered, in pieces
+    of at most ``ENCODE_GATHER_BYTES`` (the host encode's bound), so no
+    [q, d_max, M] buffer is made; a padding entry adds nothing (0 · A[i] is
+    an exact zero for finite A).
+    """
+    a = a.to(torch.float32)
+    coeffs = coeffs.to(device=a.device, dtype=torch.float32)
+    indices = indices.to(device=a.device, dtype=torch.int64)
+    q, m = indices.shape[0], a.shape[1]
+    out = torch.zeros((q, m), dtype=torch.float32, device=a.device)
+    nonzero = coeffs != 0
+    step = max(1, ENCODE_GATHER_BYTES // max(1, 4 * m))
+    for d in torch.nonzero(nonzero.any(dim=0)).flatten().tolist():
+        rows = torch.nonzero(nonzero[:, d]).flatten()
+        for s in range(0, rows.numel(), step):
+            rs = rows[s : s + step]
+            out[rs] += coeffs[rs, d, None] * a[indices[rs, d]]
+    return out

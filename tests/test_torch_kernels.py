@@ -15,12 +15,16 @@ import torch
 
 from repro.core.coded_ops import encode_blocks as jax_encode_blocks
 from repro.kernels.coded_decode import coded_matvec_decode_pallas
-from repro.kernels.lt_encode import gaussian_encode_pallas
+from repro.core.encoding import GaussianCode as RefGaussianCode
+from repro.core.encoding import LTCode as RefLTCode
+from repro.kernels.lt_encode import gaussian_encode_pallas, lt_encode_pallas
 from repro.kernels.ops import encode_blocks_device as jax_encode_blocks_device
+from repro.kernels.ops import encode_rows as jax_encode_rows
 from repro_torch.core.decoding import get_decoder_cache
+from repro_torch.core.encoding import GaussianCode, LTCode
 from repro_torch.kernels import ops
 from repro_torch.kernels.coded_decode import coded_matvec_decode_cuda
-from repro_torch.kernels.lt_encode import gaussian_encode_cuda
+from repro_torch.kernels.lt_encode import gaussian_encode_cuda, lt_encode_cuda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -34,6 +38,9 @@ DECODE_SHAPES = [
 ]
 # (q, r, m): the encode's skinny K, ragged q / r / M
 ENCODE_SHAPES = [(16, 13, 700), (16, 14, 1), (5, 3, 129), (33, 40, 257), (1, 1, 4)]
+# (q, d_max, r, m, zero_frac): LT degree tables kept small (interpret mode
+# walks the whole q x M/512 x d_max grid); zeros anywhere in a row, M % 4 != 0
+LT_SHAPES = [(6, 5, 20, 64, 0.4), (9, 3, 11, 129, 0.5), (1, 1, 3, 7, 0.0), (4, 7, 30, 1030, 0.3)]
 
 
 def _masks(n_data, n_parity):
@@ -90,6 +97,49 @@ def test_plain_gaussian_encode_matches_pallas(q, r, m):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * max(1.0, np.abs(want).max()))
 
 
+def _lt_table(q, d_max, r, zero_frac, seed):
+    """A degree table with zeros anywhere in a row (and a degree-0 row when
+    q > 1), non-unit coefficients and repeated source rows."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, r, (q, d_max)).astype(np.int32)
+    cof = rng.standard_normal((q, d_max)).astype(np.float32)
+    cof[rng.random((q, d_max)) < zero_frac] = 0.0
+    if q > 1:
+        cof[q // 2] = 0.0
+    return idx, cof
+
+
+@pytest.mark.parametrize("q,d_max,r,m,zero_frac", LT_SHAPES)
+def test_plain_lt_encode_matches_pallas(q, d_max, r, m, zero_frac):
+    idx, cof = _lt_table(q, d_max, r, zero_frac, q * 100 + m)
+    a = np.random.default_rng(m).standard_normal((r, m)).astype(np.float32)
+    got = ops.lt_encode(torch.as_tensor(a), torch.as_tensor(idx), torch.as_tensor(cof)).numpy()
+    want = np.asarray(lt_encode_pallas(jnp.asarray(a), jnp.asarray(idx), jnp.asarray(cof),
+                                       interpret=True))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * max(1.0, np.abs(want).max()))
+    if q > 1:
+        assert not got[q // 2].any()  # a degree-0 row is zeros
+
+
+@pytest.mark.parametrize("code", ["lt", "gaussian"])
+def test_encode_rows_matches_reference(code):
+    """The reserve-slice encode of both plan kinds, the port's plain kernels
+    against the reference's Pallas kernels (interpret mode)."""
+    r, q, m = 30, 45, 33
+    plan, plan_ref = ((LTCode(r, seed=2).plan(q), RefLTCode(r, seed=2).plan(q)) if code == "lt"
+                      else (GaussianCode(r, seed=2).plan(q), RefGaussianCode(r, seed=2).plan(q)))
+    a = np.random.default_rng(1).standard_normal((r, m))  # float64: cast to fp32, as the reference
+    got = ops.encode_rows(a, plan, 31, 45, device="cpu")
+    assert got.dtype == torch.float32 and got.shape == (14, m)
+    want = np.asarray(jax_encode_rows(a, plan_ref, 31, 45, mode="interpret"))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+    # a tensor's own device is used, and an empty slice gives no rows
+    assert torch.equal(ops.encode_rows(torch.as_tensor(a), plan, 31, 45), got)
+    assert ops.encode_rows(a, plan, 5, 5, device="cpu").shape == (0, m)
+    with pytest.raises(ValueError, match="bad plan row range"):
+        ops.encode_rows(a, plan, 40, 46, device="cpu")
+
+
 @pytest.mark.parametrize("n_data,n_parity,out,inner", [(14, 2, 100, 24), (13, 3, 100, 24),
                                                        (4, 2, 9, 5)])
 def test_encode_blocks_device_matches_reference(n_data, n_parity, out, inner):
@@ -117,10 +167,17 @@ def test_cuda_mode_on_cpu_tensors_raises():
             ops.gaussian_encode(torch.zeros(3, 8), x, mode=mode)
         with pytest.raises(ValueError, match="CUDA"):
             ops.encode_blocks_device(torch.zeros(10, 4), 2, 1, mode=mode)
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.lt_encode(torch.zeros(3, 8), torch.zeros(2, 2, dtype=torch.int32),
+                          torch.ones(2, 2), mode=mode)
+        with pytest.raises(ValueError, match="CUDA"):
+            ops.encode_rows(torch.zeros(4, 8), LTCode(4).plan(6), 4, 6, mode=mode)
     with pytest.raises(ValueError, match="CUDA"):
         coded_matvec_decode_cuda(wc, x, rec)
     with pytest.raises(ValueError, match="CUDA"):
         gaussian_encode_cuda(torch.zeros(3, 2), torch.zeros(2, 5))
+    with pytest.raises(ValueError, match="CUDA"):
+        lt_encode_cuda(torch.zeros(3, 2), torch.zeros(2, 2, dtype=torch.int32), torch.ones(2, 2))
 
 
 def test_mode_routing():
@@ -141,6 +198,7 @@ def test_port_imports_neither_jax_nor_reference():
         "import repro_torch.kernels.ops, repro_torch.kernels.coded_decode\n"
         "import repro_torch.kernels.lt_encode, repro_torch.kernels._build\n"
         "import repro_torch.weights, repro_torch.configs, repro_torch.core.adaptive\n"
+        "import repro_torch.cluster, repro_torch.core.simulator, repro_torch.utils.prng\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
