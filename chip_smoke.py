@@ -10,8 +10,9 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    (one ``nvcc`` per source, started together);
 2. kernels: the serving kernels against their plain PyTorch versions on the
    card, at the serving path's shapes (glm4-9b head at B = 1 and B = 4, the
-   (13, 3) parity re-encode) and at ragged shapes; max error against the
-   stated tolerance, kernel / plain / library times and the bound;
+   (13, 3) parity re-encode, the mesh head's [10826, 4096] code block) and
+   at ragged, fp16 and misaligned shapes; max error against the stated
+   tolerance, kernel / plain / library times and the bound;
 3. task, LT: the paper's coded task form (§5.1 scenario 1: r = 5,000, five
    EC2 workers, m = 500,000) through ``ClusterEmulator.run_task`` — Algorithm
    1, LT encode with the reserve rows encoded on the card by ``lt_encode``,
@@ -29,7 +30,13 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    erasures; glm4-9b at full width and depth (seeded init on the card),
    4 slots, 6 requests of 16 prompt tokens and 8 new tokens, 3 persistent
    stragglers forcing one (14, 2) -> (13, 3) raise;
-6. a ``kernels`` line with every kernel on every path it runs (launch
+6. mesh head: the same head through ``coded_head_matvec(mesh=...)`` on a
+   head mesh of sixteen logical devices on the one card (printed as a
+   cut), one ``coded_matvec`` launch per code block, under 0, 1 and 2
+   erasures, held to the uncoded head and to the fused single-device head;
+7. mesh serve: ``ServeEngine(mesh=...)`` over the serve phase's params and
+   workload, its greedy tokens held to the single-device serve's;
+8. a ``kernels`` line with every kernel on every path it runs (launch
    counts read around that path's run), then the device line.
 
 It imports nothing of JAX, and exits non-zero without CUDA or without the
@@ -190,26 +197,87 @@ def phase_kernels(torch, gen, results: dict) -> None:
         check(err <= tol, f"gaussian_encode {label}: {err} > {tol}")
         del g, a
     torch.cuda.empty_cache()
+    kernel_coded_matvec(torch, gen, results)
     # launches made for these comparisons are not the main path's
-    coded_matvec_decode_cuda.launches = 0
-    gaussian_encode_cuda.launches = 0
+    _reset_launches()
+
+
+def kernel_coded_matvec(torch, gen, results: dict) -> None:
+    """coded_matvec against ref_coded_matvec: the mesh head's code block of
+    glm4-9b ([10826, 4096], B = 1 and 4; [11658, 4096] after the (13, 3)
+    raise), the whole W_c [173216, 4096] (``kernels.ops.coded_matvec``'s
+    single-device form), ragged shapes, fp16, and a misaligned block view."""
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    shapes = [  # label, rows, M, B, dtype, timed
+        ("glm4-9b block prefill", 10826, 4096, 1, torch.float32, True),
+        ("glm4-9b block decode", 10826, 4096, 4, torch.float32, True),
+        ("glm4-9b block after raise", 11658, 4096, 4, torch.float32, True),
+        ("glm4-9b whole W_c", 173216, 4096, 4, torch.float32, True),
+        ("glm4-9b block decode fp16", 10826, 4096, 4, torch.float16, True),
+        ("ragged", 513, 129, 3, torch.float32, False),
+        ("ragged", 100, 70, 1, torch.float32, False),
+        ("ragged", 1, 4096, 1, torch.float32, False),
+        ("ragged fp16", 513, 129, 3, torch.float16, False),
+        ("misaligned block view", 1001, 4097, 4, torch.float32, False),
+    ]
+    for label, rows, m, b, dtype, timed in shapes:
+        if label.startswith("misaligned"):
+            # block 3 of a 16-block coded weight with M odd: starts 4 bytes
+            # past a 16-byte boundary, so the kernel takes its scalar loads
+            whole = torch.randn(16 * rows, m, device=dev, generator=gen)
+            a = whole.chunk(16)[3]
+            check(a.data_ptr() % 16 != 0, "the misaligned view is aligned")
+        else:
+            a = torch.randn(rows, m, device=dev, generator=gen).to(dtype)
+        x = torch.randn(m, b, device=dev, generator=gen).to(dtype)
+        if b == 1:
+            x = x[:, 0]
+        got = ops.coded_matvec(a, x, mode="cuda")
+        want = ref.ref_coded_matvec(a, x)
+        torch.cuda.synchronize()
+        err, scale = max_err(torch, got, want)
+        # fp32: 1e-4 * max(1, max|plain|), another sum order; fp16 inputs
+        # (fp32 sums in both): the reference's fp16 bound, 2e-3
+        tol = (1e-4 if dtype == torch.float32 else 2e-3) * max(1.0, scale)
+        row = {"phase": "kernel", "kernel": "coded_matvec", "shape": label,
+               "a": [rows, m], "b": b, "dtype": str(dtype).removeprefix("torch."),
+               "max_abs_err": err, "tol": tol}
+        del got, want
+        if timed:
+            iters = 10 if rows > 100_000 else 50
+            row["ms"] = time_ms(torch, lambda: ops.coded_matvec(a, x, mode="cuda"), iters)
+            row["plain_ms"] = time_ms(torch, lambda: ref.ref_coded_matvec(a, x), iters)
+            row["library_ms"] = time_ms(torch, lambda: torch.matmul(a, x), iters)
+            row["library_call"] = f"torch.matmul(A, x) in {row['dtype']}"
+            n_bytes = a.element_size() * (a.numel() + x.numel()) + 4 * rows * b
+            row["bound_ms"], row["bound_by"] = bound(n_bytes, 2 * rows * m * b)
+            results.setdefault("coded_matvec", {})[label] = row
+        emit(row)
+        check(err <= tol, f"coded_matvec {label}: {err} > {tol}")
+        del a, x
+    torch.cuda.empty_cache()
+
+
+def _kernel_wrappers() -> dict:
+    from repro_torch.kernels.coded_decode import coded_matvec_decode_cuda
+    from repro_torch.kernels.coded_matvec import coded_matvec_cuda
+    from repro_torch.kernels.lt_encode import gaussian_encode_cuda, lt_encode_cuda
+
+    return {"coded_matvec": coded_matvec_cuda,
+            "coded_matvec_decode": coded_matvec_decode_cuda,
+            "gaussian_encode": gaussian_encode_cuda,
+            "lt_encode": lt_encode_cuda}
 
 
 def _reset_launches() -> None:
-    from repro_torch.kernels.coded_decode import coded_matvec_decode_cuda
-    from repro_torch.kernels.lt_encode import gaussian_encode_cuda, lt_encode_cuda
-
-    for fn in (coded_matvec_decode_cuda, gaussian_encode_cuda, lt_encode_cuda):
+    for fn in _kernel_wrappers().values():
         fn.launches = 0
 
 
 def _launches() -> dict:
-    from repro_torch.kernels.coded_decode import coded_matvec_decode_cuda
-    from repro_torch.kernels.lt_encode import gaussian_encode_cuda, lt_encode_cuda
-
-    return {"coded_matvec_decode": coded_matvec_decode_cuda.launches,
-            "gaussian_encode": gaussian_encode_cuda.launches,
-            "lt_encode": lt_encode_cuda.launches}
+    return {name: fn.launches for name, fn in _kernel_wrappers().items()}
 
 
 def _host_peak_gb() -> float:
@@ -497,7 +565,7 @@ def phase_head(torch, params, cfg, gen) -> None:
         check(rel <= 1e-3, f"coded head erased={erased}: rel err {rel} > 1e-3")
 
 
-def phase_serve(torch, args, results: dict, smi: str) -> None:
+def phase_serve(torch, args, results: dict, smi: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core.adaptive import ParityController
     from repro_torch.models.registry import build_model
@@ -525,16 +593,20 @@ def phase_serve(torch, args, results: dict, smi: str) -> None:
         lat[2] = lat[7] = lat[11] = 5e-2
         return lat
 
-    eng = ServeEngine(model, params, n_slots=4, s_max=64, latency_fn=latency_fn,
-                      parity_controller=ParityController(16, decay=0.5),
-                      parity_topup=1, topup_patience=2,
-                      head_kernel_mode="cuda", encode_mode="cuda", device=dev)
+    def make_engine(engine_params, mesh=None):
+        return ServeEngine(model, engine_params, n_slots=4, s_max=64, latency_fn=latency_fn,
+                           parity_controller=ParityController(16, decay=0.5),
+                           parity_topup=1, topup_patience=2,
+                           head_kernel_mode="cuda", encode_mode="cuda", mesh=mesh, device=dev)
+
+    eng = make_engine(params)
+    head14 = params["lm_head_coded"]  # the (14, 2) head, for the mesh serve
     del params  # the engine keeps bf16 layer weights and the fp32 heads
     rng = np.random.default_rng(args.seed)
     n_req, prompt_len, max_new = 6, 16, 8
-    for i in range(n_req):
-        eng.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab, prompt_len),
-                           max_new_tokens=max_new))
+    prompts = [rng.integers(0, cfg.vocab, prompt_len) for _ in range(n_req)]
+    for i, prompt in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=prompt, max_new_tokens=max_new))
 
     _reset_launches()
     torch.cuda.synchronize()
@@ -559,23 +631,10 @@ def phase_serve(torch, args, results: dict, smi: str) -> None:
           f"coded_matvec_decode launches {launches} != {n_req} prefills + {steps} steps")
 
     # times after the counted run.  The model's prefill call alone (B = 1,
-    # no engine around it), by CUDA events; then whole engine steps on a
-    # refilled queue, host clock: the first step admits every slot, each
-    # timed one decodes all of them (control plane, mask upload, model
-    # call, argmax and its host copy) and admits none.
+    # no engine around it), by CUDA events; then whole engine steps.
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (1, prompt_len)), device=dev)
     prefill_call_ms = time_ms(torch, lambda: eng._prefill1(prompt), 5)
-    for i in range(eng.n_slots):
-        eng.submit(Request(uid=n_req + i, prompt=rng.integers(0, cfg.vocab, prompt_len),
-                           max_new_tokens=32))
-    eng.step()
-    n_timed = 5
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_timed):
-        check(eng.step() == eng.n_slots, "a timed step did not decode every slot")
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / n_timed
+    step_ms = _timed_steps(torch, eng, rng, cfg.vocab, prompt_len)
     row = {"phase": "serve", "arch": cfg.name, "n_layers": cfg.n_layers, "n_slots": 4,
            "s_max": 64, "requests": n_req, "prompt_len": prompt_len, "max_new": max_new,
            "tokens": n_tok, "decode_steps": steps, "wall_s": wall,
@@ -589,6 +648,152 @@ def phase_serve(torch, args, results: dict, smi: str) -> None:
 
     if args.profile:
         phase_profile(torch, eng)
+    # the serve's params with the (14, 2) head, its engine factory, workload
+    # and tokens, for the mesh phases
+    return {"cfg": cfg, "params": dict(eng.params, lm_head_coded=head14),
+            "make_engine": make_engine, "prompts": prompts, "max_new": max_new,
+            "tokens": tokens, "rng": rng}
+
+
+def _timed_steps(torch, eng, rng, vocab: int, prompt_len: int, n_timed: int = 5) -> float:
+    """Mean ms of whole engine steps on a refilled queue, host clock: the
+    first step admits every slot, each timed one decodes all of them
+    (control plane, mask upload, model call, argmax and its host copy) and
+    admits none."""
+    from repro_torch.serve import Request
+
+    for i in range(eng.n_slots):
+        eng.submit(Request(uid=1000 + i, prompt=rng.integers(0, vocab, prompt_len),
+                           max_new_tokens=32))
+    eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        check(eng.step() == eng.n_slots, "a timed step did not decode every slot")
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n_timed
+
+
+def _head_mesh(torch):
+    """Sixteen logical devices on the one card: the glm4-9b head's mesh."""
+    from repro_torch.sharding import HeadMesh
+
+    dev = torch.device("cuda", 0)
+    emit({"phase": "cut", "head_mesh": "16 logical devices on cuda:0",
+          "of": "one card per code block (16 cards)",
+          "reason": f"this machine has {torch.cuda.device_count()} card(s); the head "
+                    "wants one device per code block, as the reference's tests put "
+                    "16 logical devices on one host"})
+    return HeadMesh((dev,) * 16)
+
+
+def phase_mesh_head(torch, serve: dict, mesh, gen, results: dict, smi: str) -> None:
+    """glm4-9b's coded head through coded_head_matvec(mesh=...) under 0, 1
+    and 2 erasures: 16 coded_matvec launches a call, held to the uncoded
+    head (rel 1e-3) and the fused head (1e-4 * max|y|); device time per
+    call beside the fused head's."""
+    from repro_torch.kernels import ops
+    from repro_torch.sharding import shard_coded_head
+
+    dev = torch.device("cuda")
+    cfg, params = serve["cfg"], serve["params"]
+    wc = params["lm_head_coded"]
+    placed = shard_coded_head(wc, mesh)
+    check(all(b.untyped_storage().data_ptr() == wc.untyped_storage().data_ptr()
+              for b in placed), "the placed head blocks are copies, not views")
+    hidden = torch.randn(4, cfg.d_model, device=dev, generator=gen)
+    x = hidden.T.contiguous()
+    uncoded = hidden @ params["lm_head"]
+    rows = []
+    _reset_launches()
+    for erased in ((), (5,), (5, 12)):
+        mask = torch.ones(16, device=dev)
+        mask[list(erased)] = 0.0
+        got = ops.coded_head_matvec(placed, x, mask, 14, 2, mesh=mesh, kernel_mode="cuda")
+        fused = ops.coded_head_matvec(wc, x, mask, 14, 2, kernel_mode="cuda")
+        torch.cuda.synchronize()
+        scale = float(uncoded.abs().max())
+        rel = float((got[:cfg.vocab].T - uncoded).abs().max()) / scale
+        vs_fused = float((got - fused).abs().max())
+        tol_fused = 1e-4 * float(fused.abs().max())
+        row = {"phase": "mesh_head", "arch": cfg.name, "w_coded": list(wc.shape),
+               "block": list(placed[0].shape), "devices": len(mesh.devices),
+               "erased": list(erased), "max_rel_err_vs_uncoded": rel, "tol": 1e-3,
+               "max_abs_err_vs_fused": vs_fused, "tol_fused": tol_fused,
+               "argmax_equal": bool((got[:cfg.vocab].T.argmax(-1) == uncoded.argmax(-1)).all())}
+        rows.append(row)
+        emit(row)
+        check(rel <= 1e-3, f"mesh head erased={erased}: rel err {rel} > 1e-3")
+        check(vs_fused <= tol_fused, f"mesh head erased={erased}: {vs_fused} > {tol_fused} "
+                                     "against the fused head")
+    launches = _launches()
+    check(launches["coded_matvec"] == 16 * 3 and launches["coded_matvec_decode"] == 3,
+          f"mesh head launches {launches}: want 16 coded_matvec a call")
+    mask = torch.ones(16, device=dev)
+    mask[[5, 12]] = 0.0
+    mesh_ms = time_ms(torch, lambda: ops.coded_head_matvec(placed, x, mask, 14, 2, mesh=mesh,
+                                                           kernel_mode="cuda"), 20)
+    fused_ms = time_ms(torch, lambda: ops.coded_head_matvec(wc, x, mask, 14, 2,
+                                                            kernel_mode="cuda"), 20)
+    row = {"phase": "mesh_head_time", "b": 4, "erased": [5, 12], "mesh_ms": mesh_ms,
+           "fused_ms": fused_ms, "launches": {"coded_matvec": launches["coded_matvec"]},
+           "card": smi}
+    emit(row)
+    results["mesh_head"] = {"rows": rows, **row}
+
+
+def phase_mesh_serve(torch, serve: dict, mesh, results: dict, smi: str) -> None:
+    """ServeEngine(mesh=...) over the serve phase's params and workload: its
+    greedy tokens must equal the single-device serve's, request for request,
+    through the same (14, 2) -> (13, 3) raise, placed again on the mesh."""
+    from repro_torch.serve import Request
+
+    cfg, max_new = serve["cfg"], serve["max_new"]
+    eng = serve["make_engine"](serve["params"], mesh)
+    for i, prompt in enumerate(serve["prompts"]):
+        eng.submit(Request(uid=i, prompt=prompt, max_new_tokens=max_new))
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    steps = eng._steps
+    tokens = {r.uid: r.out_tokens for r in done}
+    n_tok = sum(len(t) for t in tokens.values())
+    blocks = eng.params["lm_head_coded"]
+    step_ms = _timed_steps(torch, eng, serve["rng"], cfg.vocab, len(serve["prompts"][0]))
+    row = {"phase": "mesh_serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "devices": len(mesh.devices), "requests": len(done), "tokens": n_tok,
+           "decode_steps": steps, "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "step_ms": step_ms, "parity_events": eng.parity_events, "launches": launches,
+           "tokens_equal_single_device": tokens == serve["tokens"],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "card": smi}
+    emit(row)
+    results["mesh_serve"] = row
+    if tokens != serve["tokens"]:
+        uid = min(u for u in serve["tokens"] if tokens.get(u) != serve["tokens"][u])
+        want, got = serve["tokens"][uid], tokens.get(uid, [])
+        k = next(i for i in range(len(want)) if i >= len(got) or got[i] != want[i])
+        prefix = np.concatenate([serve["prompts"][uid], np.asarray(want[:k])])
+        logits, _ = eng.model.prefill(
+            eng.params, {"tokens": torch.as_tensor(prefix[None], device=eng.device)},
+            head_mesh=mesh)
+        top2 = torch.topk(logits[0], 2).values
+        emit({"phase": "mesh_serve_mismatch", "uid": uid, "position": k,
+              "single_device": want[k], "mesh": got[k] if k < len(got) else None,
+              "top_two_logit_gap": float(top2[0] - top2[1])})
+        check(False, f"mesh serve tokens differ from the single-device serve's (uid {uid})")
+    check(len(eng.parity_events) == 1 and eng.parity_events[0]["n_parity"] == 3,
+          f"mesh serve parity events {eng.parity_events}")
+    check(isinstance(blocks, tuple) and len(blocks) == 16
+          and all(tuple(b.shape) == (11658, cfg.d_model) for b in blocks),
+          "the raised head was not placed again on the mesh")
+    check(launches["coded_matvec"] == 16 * (len(done) + steps),
+          f"coded_matvec launches {launches} != 16 x ({len(done)} prefills + {steps} steps)")
+    check(launches["coded_matvec_decode"] == 0 and launches["gaussian_encode"] == 1,
+          f"mesh serve launches {launches}")
 
 
 def phase_profile(torch, eng) -> None:
@@ -655,7 +860,12 @@ def main() -> int:
     phase_kernels(torch, gen, results)
     phase_task_lt(torch, args, results, smi)
     phase_task_gaussian(torch, args, results, smi)
-    phase_serve(torch, args, results, smi)
+    serve = phase_serve(torch, args, results, smi)
+    mesh = _head_mesh(torch)
+    phase_mesh_head(torch, serve, mesh, torch.Generator(device="cuda").manual_seed(args.seed + 2),
+                    results, smi)
+    phase_mesh_serve(torch, serve, mesh, results, smi)
+    del serve
 
     kernels = []
     for name, source, replaces, path, phase, shape in (
@@ -668,6 +878,15 @@ def main() -> int:
         ("gaussian_encode", "src/repro_torch/kernels/csrc/gaussian_encode.cu",
          "src/repro/kernels/lt_encode.py:107", "task gaussian", results["task_gaussian"],
          "task"),
+        ("coded_matvec", "src/repro_torch/kernels/csrc/coded_matvec.cu",
+         "src/repro/kernels/coded_matvec.py:47", "mesh head", results["mesh_head"],
+         "glm4-9b block decode"),
+        ("coded_matvec", "src/repro_torch/kernels/csrc/coded_matvec.cu",
+         "src/repro/kernels/coded_matvec.py:47", "mesh serve", results["mesh_serve"],
+         "glm4-9b block decode"),
+        ("gaussian_encode", "src/repro_torch/kernels/csrc/gaussian_encode.cu",
+         "src/repro/kernels/lt_encode.py:107", "mesh serve", results["mesh_serve"],
+         "glm4-9b raise"),
     ):
         r = results[name][shape]
         launches = phase.get("device_encode", phase)["launches"]

@@ -6,9 +6,10 @@ The output rows of a weight matrix are split into ``n_data`` blocks and
 (n_data x n_data) solve.  Erasing a block never changes a shape — only the
 0/1 survivor mask — so one step program serves every erasure pattern.
 
-PyTorch port of ``repro.core.coded_ops`` (single-device part).  The
-generator search is the reference's numpy code, copied, so both packages
-encode with bit-equal generators.
+PyTorch port of ``repro.core.coded_ops``: the single-device
+``CodedLinear``, the mesh-sharded ``coded_block_matmul`` and the BPCC
+batch/row forms.  The generator search is the reference's numpy code,
+copied, so both packages encode with bit-equal generators.
 """
 from __future__ import annotations
 
@@ -22,9 +23,12 @@ __all__ = [
     "block_mds_generator",
     "block_mds_generator_np",
     "CodedLinear",
+    "bpcc_batched_matvec",
+    "coded_block_matmul",
     "encode_blocks",
     "decode_blocks",
     "decode_blocks_svd",
+    "row_coded_matvec",
     "svd_recovery",
 ]
 
@@ -222,3 +226,85 @@ class CodedLinear:
             rec = get_decoder_cache(self.n_data, self.n_parity).recovery(mask)
         mode = None if kernel_mode == "svd" else kernel_mode
         return coded_matvec_decode(w_coded, x, rec, mode=mode)[: self.out_features]
+
+
+def coded_block_matmul(
+    mesh,
+    axis: str,
+    w_coded,
+    x: torch.Tensor,
+    mask: torch.Tensor,
+    n_data: int,
+    n_parity: int,
+    kernel_mode: str | None = None,
+) -> torch.Tensor:
+    """The mesh-sharded form of ``CodedLinear.apply``, run by one
+    controller over a ``repro_torch.sharding.HeadMesh``: for each code
+    block, x goes to the block's device and the local product
+    ``kernels.ops.coded_matvec`` runs there (the hand-written kernel on a
+    CUDA tensor); the coded outputs are gathered on ``mesh.devices[0]``
+    (the reference's ``all_gather``) and decoded there by
+    :func:`decode_blocks` with the mask-keyed DecoderCache.  Erased blocks
+    are still computed, as in the reference; the decode's zero columns
+    drop them.
+
+    ``w_coded`` is the coded head [n_blocks*br, in], or its blocks as
+    ``sharding.shard_coded_head`` placed them.  A tensor is split on every
+    call: free where a block's device is the weight's own, a copy
+    elsewhere.  Returns y [n_data*br, batch] fp32 on ``mesh.devices[0]``.
+    """
+    from repro_torch.kernels.ops import coded_matvec
+    from repro_torch.sharding.policy import shard_coded_head, validate_coded_head_mesh
+
+    n_blocks = n_data + n_parity
+    validate_coded_head_mesh(mesh, n_blocks, axis)
+    blocks = shard_coded_head(w_coded, mesh) if isinstance(w_coded, torch.Tensor) else w_coded
+    if len(blocks) != n_blocks:
+        raise ValueError(f"{len(blocks)} placed blocks for a code of {n_blocks}")
+    home = mesh.devices[0]
+    ys = [coded_matvec(w, x.to(w.device), mode=kernel_mode).to(home) for w in blocks]
+    y_all = torch.cat(ys).reshape(n_blocks, blocks[0].shape[0], -1)
+    y = decode_blocks(y_all, mask.to(home), n_data, n_parity)
+    return y.reshape(n_data * blocks[0].shape[0], -1)
+
+
+# --------------------------------------------------------------------------
+# BPCC batch streaming and the row-level coded matvec
+# --------------------------------------------------------------------------
+def bpcc_batched_matvec(
+    a_rows: torch.Tensor, x: torch.Tensor, p: int, arrived: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One worker's BPCC loop: process ``p`` row-batches, mask by arrival.
+
+    a_rows [l, m] (l divisible by p), x [m] or [m, b], arrived [p] 0/1 —
+    which batches reached the master by the deadline.  Returns
+    (y [l, ...] with unarrived batches zeroed, rows_delivered scalar).
+    The reference's ``lax.scan`` over batches, as a loop.
+    """
+    l = a_rows.shape[0]
+    if l % p != 0:
+        raise ValueError(f"rows {l} not divisible by batches {p}")
+    b = l // p
+    arrived = arrived.to(x.dtype)
+    rows = torch.zeros((), dtype=x.dtype, device=x.device)
+    ys = []
+    for k, batch in enumerate(a_rows.reshape(p, b, *a_rows.shape[1:])):
+        ys.append((batch @ x) * arrived[k])
+        rows = rows + arrived[k] * b
+    return torch.cat(ys), rows
+
+
+def row_coded_matvec(
+    a_hat: torch.Tensor, x: torch.Tensor, g_full: torch.Tensor, row_mask: torch.Tensor
+) -> torch.Tensor:
+    """Fine-grained path: ŷ = Â x, recover y from the surviving rows.
+
+    a_hat [q, m], g_full [q, r] dense Gaussian generator, row_mask [q].
+    O(r²) decode — kept for fidelity and cross-validation.
+    """
+    from repro_torch.core.decoding import masked_pinv_decode
+
+    y_hat = a_hat @ x
+    if y_hat.dim() == 1:
+        return masked_pinv_decode(g_full, y_hat[:, None], row_mask)[:, 0]
+    return masked_pinv_decode(g_full, y_hat, row_mask)

@@ -34,8 +34,11 @@ __all__ = [
     "StreamingDecoder",
     "StreamingLSDecoder",
     "StreamingLTDecoder",
+    "ls_decode",
     "ls_decode_np",
+    "masked_pinv_decode",
     "peel_decode_np",
+    "peel_decode_torch",
     "MAX_LUT_BLOCKS",
     "MAX_LUT_PATTERNS",
     "DecoderCache",
@@ -396,6 +399,66 @@ def ls_decode_np(
     dec = StreamingLSDecoder(g_rows, nrhs, reg=reg, block=block)
     dec.ingest(np.arange(len(g_rows)), vals)
     return dec.finalize()
+
+
+def peel_decode_torch(coded: torch.Tensor, membership: torch.Tensor, r: int):
+    """Peeling with dense membership [n, r] (float coefficients; 0 = absent).
+
+    The counterpart of the reference's ``peel_decode_jax``: fixed shapes,
+    one source symbol per iteration, the reference's pivot choice (the
+    first degree-1 row, its first member).  The reference's
+    ``lax.while_loop`` becomes ``r`` guarded iterations with no host sync:
+    each effective iteration clears a nonzero column, so at most ``r`` do
+    anything, and once the ripple is empty or all ``r`` are known the rest
+    change nothing.  Returns (y [r, m], known [r] bool).
+    """
+    vals = coded.to(torch.float32).clone()
+    w = membership.to(torch.float32).clone()
+    y = torch.zeros((r, coded.shape[1]), dtype=coded.dtype, device=coded.device)
+    known = torch.zeros(r, dtype=torch.bool, device=coded.device)
+    for _ in range(r):
+        ones = (w != 0).sum(dim=1) == 1
+        live = ones.any() & ~known.all()
+        j = ones.to(torch.int32).argmax()          # first degree-1 row
+        wj = w[j]
+        src = (wj != 0).to(torch.int32).argmax()   # its member
+        yv = (vals[j] / wj[src]).to(y.dtype)
+        y[src] = torch.where(live & ~known[src], yv, y[src])
+        known[src] = known[src] | live
+        col = w[:, src]
+        vals = vals - torch.where(live, col[:, None] * y[src][None, :], 0.0)
+        w[:, src] = torch.where(live, 0.0, col)
+    return y, known
+
+
+def ls_decode(g_rows: torch.Tensor, coded: torch.Tensor) -> torch.Tensor:
+    """Solve G y = coded for y given >= r received rows of a dense code
+    (normal equations with a 1e-6 ridge)."""
+    gtg = g_rows.T @ g_rows
+    gty = g_rows.T @ coded
+    eye = torch.eye(gtg.shape[0], dtype=gtg.dtype, device=gtg.device)
+    return torch.linalg.solve(gtg + 1e-6 * eye, gty)
+
+
+def masked_pinv_decode(
+    g_full: torch.Tensor, coded_full: torch.Tensor, mask: torch.Tensor
+) -> torch.Tensor:
+    """Any-r-of-q recovery with a fixed-shape erasure mask.
+
+    g_full [q, r] full dense generator, coded_full [q, m] all coded results
+    (stragglers' entries are garbage), mask [q] 1.0 where the row arrived.
+    y = (Gᵀ M G + λI)⁻¹ Gᵀ M ŷ with λ = 1e-7·tr(GᵀMG)/r: erased rows get
+    zero weight, so garbage never enters the solve; one step of iterative
+    refinement recovers most of the fp32 solve error.
+    """
+    m = mask.to(g_full.dtype)[:, None]
+    gm = g_full * m
+    gtg = gm.T @ g_full
+    gty = gm.T @ (coded_full * m)
+    lam = 1e-7 * torch.trace(gtg) / gtg.shape[0]
+    a = gtg + lam * torch.eye(gtg.shape[0], dtype=gtg.dtype, device=gtg.device)
+    y = torch.linalg.solve(a, gty)
+    return y + torch.linalg.solve(a, gty - a @ y)
 
 
 

@@ -20,6 +20,7 @@ from repro_torch import default_device
 from repro_torch.kernels import ref as _ref
 
 __all__ = [
+    "coded_matvec",
     "coded_matvec_decode",
     "coded_head_matvec",
     "gaussian_encode",
@@ -46,6 +47,17 @@ def resolve_mode(mode: str | None, t: torch.Tensor) -> str:
     return resolved
 
 
+def coded_matvec(a, x, mode: str | None = None):
+    """y = A x for a [R, M] and x [M] or thin [M, B]; fp32 out.  The
+    reference's Pallas tile knobs (``block_r``, ``block_m``) have no
+    counterpart."""
+    if resolve_mode(mode, a) == "off":
+        return _ref.ref_coded_matvec(a, x)
+    from repro_torch.kernels.coded_matvec import coded_matvec_cuda
+
+    return coded_matvec_cuda(a, x.contiguous())
+
+
 def coded_matvec_decode(a, x, rec, mode: str | None = None):
     """Fused coded block matmul + erasure decode: y = R · blocked(A x).
 
@@ -67,16 +79,26 @@ def coded_head_matvec(
     n_parity: int,
     *,
     mesh=None,
+    axis: str = "model",
     kernel_mode: str | None = None,
 ):
     """The serving coded-head matvec: w_coded [(n_data+n_parity)*br, in],
-    x [in, batch], mask [n_blocks] -> y [n_data*br, batch] fp32, through
-    ``CodedLinear.apply`` (single device).  The mesh-sharded head is a
-    later slice."""
-    if mesh is not None:
-        raise NotImplementedError("the mesh-sharded coded head is not ported yet")
-    from repro_torch.core.coded_ops import CodedLinear
+    x [in, batch], mask [n_blocks] -> y [n_data*br, batch] fp32.
 
+      * ``mesh`` given (a ``repro_torch.sharding.HeadMesh``) —
+        ``core.coded_ops.coded_block_matmul``: one code block per device,
+        the local product through :func:`coded_matvec` (the hand-written
+        kernel on a CUDA tensor), a gather of the small coded outputs and
+        the mask-keyed DecoderCache decode.  Erasing a device's output is
+        zeroing its block in the mask.  ``w_coded`` may also be the blocks
+        ``sharding.shard_coded_head`` placed once.
+      * no mesh — ``CodedLinear.apply``: one fused block matmul + decode.
+    """
+    from repro_torch.core.coded_ops import CodedLinear, coded_block_matmul
+
+    if mesh is not None:
+        return coded_block_matmul(mesh, axis, w_coded, x, mask, n_data, n_parity,
+                                  kernel_mode=kernel_mode)
     br = w_coded.shape[0] // (n_data + n_parity)
     cl = CodedLinear(n_data=n_data, n_parity=n_parity, out_features=n_data * br)
     return cl.apply(w_coded, x, mask, kernel_mode=kernel_mode)

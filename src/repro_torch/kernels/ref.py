@@ -11,7 +11,17 @@ import torch
 
 from repro_torch.core.encoding import ENCODE_GATHER_BYTES
 
-__all__ = ["ref_coded_matvec_decode", "ref_gaussian_encode", "ref_lt_encode"]
+__all__ = [
+    "ref_coded_matvec",
+    "ref_coded_matvec_decode",
+    "ref_gaussian_encode",
+    "ref_lt_encode",
+]
+
+
+def ref_coded_matvec(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y = A x (x may be [M] or thin [M, B]); fp32 accumulation."""
+    return a.to(torch.float32) @ x.to(torch.float32)
 
 
 def ref_coded_matvec_decode(

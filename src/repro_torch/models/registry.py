@@ -51,14 +51,15 @@ class Model:
         return tf.lm_init_cache(self.cfg, batch, s_max, default_device(device))
 
     def prefill(self, params, batch: dict, s_max: int | None = None,
-                head_mask=None, head_kernel_mode: str | None = None):
+                head_mask=None, head_kernel_mode: str | None = None, head_mesh=None):
         return tf.lm_prefill(params, self.cfg, batch["tokens"], s_max=s_max,
-                             head_mask=head_mask, head_kernel_mode=head_kernel_mode)
+                             head_mask=head_mask, head_kernel_mode=head_kernel_mode,
+                             head_mesh=head_mesh)
 
     def decode_step(self, params, cache, tokens, head_mask=None,
-                    head_kernel_mode: str | None = None):
+                    head_kernel_mode: str | None = None, head_mesh=None):
         return tf.lm_decode_step(params, self.cfg, cache, tokens, head_mask=head_mask,
-                                 head_kernel_mode=head_kernel_mode)
+                                 head_kernel_mode=head_kernel_mode, head_mesh=head_mesh)
 
 
 def build_model(cfg: ModelConfig) -> Model:

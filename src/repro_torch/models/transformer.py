@@ -10,7 +10,10 @@ The last-position logits go through ``_last_logits``: with ``cfg.coded``
 the head matvec runs on the coded blocks (``kernels.ops.coded_head_matvec``)
 so any ``coded_parity`` erased shards (``head_mask`` zeros) still give exact
 logits.  On CUDA tensors it runs as the fused hand-written kernel
-(``head_kernel_mode`` None or ``'cuda'``).
+(``head_kernel_mode`` None or ``'cuda'``); with a ``head_mesh`` (a
+``repro_torch.sharding.HeadMesh``) it runs one code block per device.  The
+head mesh and kernel mode are explicit arguments where the reference reads
+contextvars.
 """
 from __future__ import annotations
 
@@ -124,6 +127,7 @@ def lm_prefill(
     s_max: int | None = None,                 # cache capacity (>= S; default S)
     head_mask: torch.Tensor | None = None,    # coded-head erasure mask [n_blocks]
     head_kernel_mode: str | None = None,
+    head_mesh=None,
 ) -> tuple[torch.Tensor, Params]:
     """Full forward that also emits the KV cache (zero-padded to ``s_max``)
     and the last position's logits [B, vocab] fp32."""
@@ -149,7 +153,7 @@ def lm_prefill(
         h2 = rmsnorm(x, gp["ln2_0"], cfg.norm_eps)
         x = x + mlp_apply(gp["mlp_0"], h2, cfg.mlp)
     hidden = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _last_logits(params, hidden, cfg, head_mask, head_kernel_mode), cache
+    return _last_logits(params, hidden, cfg, head_mask, head_kernel_mode, head_mesh), cache
 
 
 def lm_decode_step(
@@ -159,6 +163,7 @@ def lm_decode_step(
     tokens: torch.Tensor,                     # [B] — one new token per sequence
     head_mask: torch.Tensor | None = None,
     head_kernel_mode: str | None = None,
+    head_mesh=None,
 ) -> tuple[torch.Tensor, Params]:
     """One decoding step: (logits [B, vocab] fp32, cache).  The cache's K/V
     tensors are updated in place; the returned dict carries ``pos + 1``."""
@@ -175,7 +180,8 @@ def lm_decode_step(
         x = x + mlp_apply(gp["mlp_0"], h2, cfg.mlp)
     hidden = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     new_cache = {"pos": pos + 1, "blocks": cache["blocks"]}
-    return _last_logits(params, hidden, cfg, head_mask, head_kernel_mode), new_cache
+    return (_last_logits(params, hidden, cfg, head_mask, head_kernel_mode, head_mesh),
+            new_cache)
 
 
 def _last_logits(
@@ -184,10 +190,13 @@ def _last_logits(
     cfg: ModelConfig,
     head_mask: torch.Tensor | None = None,
     head_kernel_mode: str | None = None,
+    head_mesh=None,
 ) -> torch.Tensor:
     """Last-position logits [B, vocab] fp32.  With ``cfg.coded`` the head
     matvec runs on the coded blocks: any ``coded_parity`` erased shards
-    (``head_mask`` zeros) still yield exact logits."""
+    (``head_mask`` zeros) still yield exact logits.  With ``head_mesh`` it
+    runs one code block per device (``coded_block_matmul``); the coded head
+    may then be the blocks ``sharding.shard_coded_head`` placed."""
     last = hidden[:, -1]
     if cfg.coded and "lm_head_coded" in params:
         from repro_torch.kernels.ops import coded_head_matvec
@@ -196,14 +205,21 @@ def _last_logits(
         mask = head_mask
         if mask is None:
             mask = torch.ones(nb, dtype=torch.float32, device=hidden.device)
+        w = params["lm_head_coded"]
+        if isinstance(w, torch.Tensor):
+            w = w.to(torch.float32)
+        else:
+            w = tuple(blk.to(torch.float32) for blk in w)
         y = coded_head_matvec(
-            params["lm_head_coded"].to(torch.float32),
+            w,
             last.to(torch.float32).T.contiguous(),
             mask,
             nb - cfg.coded_parity,
             cfg.coded_parity,
+            mesh=head_mesh,
+            axis=head_mesh.axis if head_mesh is not None else "model",
             kernel_mode=head_kernel_mode,
         )
-        return y[: cfg.vocab].T
+        return y[: cfg.vocab].T.to(hidden.device)
     head = params["lm_head"] if "lm_head" in params else params["embed"].T
     return last.to(torch.float32) @ head.to(torch.float32)

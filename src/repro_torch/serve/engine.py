@@ -18,6 +18,11 @@ BPCC on the serving hot path:
     (``kernels.ops.encode_blocks_device``) when the posterior saturates
     the budget for ``topup_patience`` steps.
 
+With ``mesh`` (a ``repro_torch.sharding.HeadMesh``) the coded head is
+placed once, one code block per device, and every prefill and step runs
+the mesh-sharded head (``core.coded_ops.coded_block_matmul``); a parity
+raise places the re-encoded head again on the same mesh.
+
 Host syncs: greedy argmax runs on the device and ``last_tok`` stays there;
 each prefill and each decode step makes exactly one device-to-host copy
 (``sync_count``).  The KV cache is updated in place.
@@ -69,6 +74,7 @@ class ServeEngine:
         topup_patience: int = 4,
         encode_mode: str | None = None,
         mesh=None,
+        head_axis: str = "model",
         head_kernel_mode: str | None = None,
         scheduler=None,
         parity_policy=None,
@@ -78,11 +84,12 @@ class ServeEngine:
         """``device`` (default CUDA) must hold ``params``.  ``encode_mode`` is
         the kernel mode of the parity re-encode and ``head_kernel_mode``
         that of the coded head; None means by device, the hand-written
-        kernel on CUDA and its plain version on the CPU.  ``mesh``,
-        ``scheduler``, ``parity_policy`` and ``macro_steps > 1`` are not
-        ported yet and raise."""
-        for name, val in (("mesh", mesh), ("scheduler", scheduler),
-                          ("parity_policy", parity_policy)):
+        kernel on CUDA and its plain version on the CPU.  ``mesh`` (a
+        ``HeadMesh`` with axis ``head_axis`` and one device per code block)
+        shards the coded head; it needs a coded config.  ``scheduler``,
+        ``parity_policy`` and ``macro_steps > 1`` are not ported yet and
+        raise."""
+        for name, val in (("scheduler", scheduler), ("parity_policy", parity_policy)):
             if val is not None:
                 raise NotImplementedError(f"ServeEngine({name}=...) is not ported yet")
         if macro_steps != 1:
@@ -117,18 +124,28 @@ class ServeEngine:
             from repro_torch.models.config import coded_blocks
 
             self._n_blocks = coded_blocks(model.cfg)
+        self._mesh = mesh
+        if mesh is not None:
+            if not model.cfg.coded:
+                raise ValueError("mesh-sharded head requires a coded model config")
+            from repro_torch.sharding.policy import shard_coded_head, validate_coded_head_mesh
+
+            validate_coded_head_mesh(mesh, self._n_blocks, head_axis)
+            # place the coded head once, so no step moves the weight
+            self.params["lm_head_coded"] = shard_coded_head(self.params["lm_head_coded"], mesh)
         self.completed: list[Request] = []
 
     # ------------------------------------------------------------------
     def _decode(self, cache, last_tok, mask):
         logits, cache = self.model.decode_step(
-            self.params, cache, last_tok, mask, head_kernel_mode=self.head_kernel_mode)
+            self.params, cache, last_tok, mask, head_kernel_mode=self.head_kernel_mode,
+            head_mesh=self._mesh)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     def _prefill1(self, tokens):
         logits, cache1 = self.model.prefill(
             self.params, {"tokens": tokens}, s_max=self.s_max,
-            head_kernel_mode=self.head_kernel_mode)
+            head_kernel_mode=self.head_kernel_mode, head_mesh=self._mesh)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache1
 
     # ------------------------------------------------------------------
@@ -200,7 +217,7 @@ class ServeEngine:
     def _raise_parity(self) -> None:
         """Re-encode the coded head with ONE more parity block, on device:
         a (n_data-1, n_parity+1) re-split from the fp32 head weight through
-        the encode kernel."""
+        the encode kernel, placed again on the engine's mesh if it has one."""
         from repro_torch.kernels.ops import encode_blocks_device
 
         cfg = self.model.cfg
@@ -210,7 +227,8 @@ class ServeEngine:
             if "lm_head" in self.params
             else self.params["embed"].T
         )
-        pdt = self.params["lm_head_coded"].dtype
+        placed = self.params["lm_head_coded"]
+        pdt = (placed if self._mesh is None else placed[0]).dtype
         coded = encode_blocks_device(
             head.T.to(torch.float32),
             self._n_blocks - new_parity,
@@ -219,7 +237,12 @@ class ServeEngine:
         )
         # a new dict, so a caller's params keep their original coded head
         self.params = dict(self.params)
-        self.params["lm_head_coded"] = coded.to(pdt)
+        coded = coded.to(pdt)
+        if self._mesh is not None:
+            from repro_torch.sharding.policy import shard_coded_head
+
+            coded = shard_coded_head(coded, self._mesh)
+        self.params["lm_head_coded"] = coded
         self.model = build_model(dataclasses.replace(cfg, coded_parity=new_parity))
         self.parity_topup -= 1
         self._saturated_steps = 0

@@ -7,7 +7,8 @@ so it runs on the GPU machine as it is:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -m gpu -q
 
 Tolerance: |kernel - plain| <= 1e-4 * max(1, max|plain|) — both fp32, summed
-in another order.
+in another order; for fp16 inputs of ``coded_matvec`` (fp32 sums in both)
+the reference's fp16 bound, 2e-3.
 """
 import numpy as np
 import pytest
@@ -18,8 +19,13 @@ from repro_torch.core.decoding import get_decoder_cache
 from repro_torch.core.encoding import GaussianCode, LTCode
 from repro_torch.kernels import ops
 from repro_torch.kernels.coded_decode import coded_matvec_decode_cuda
+from repro_torch.kernels.coded_matvec import coded_matvec_cuda
 from repro_torch.kernels.lt_encode import gaussian_encode_cuda, lt_encode_cuda
 
+# (r, m, b): the reference's coded_matvec sweep (tests/test_kernels.py), then
+# ragged shapes: M % 8 != 0 (fp16 scalar loads), B = 16, one row
+MATVEC_SHAPES = [(64, 64, 1), (100, 70, 1), (256, 512, 4), (300, 1000, 8), (1, 4096, 1),
+                 (513, 129, 3), (77, 4100, 16), (33, 1030, 5), (1, 1, 1)]
 # (n_data, n_parity, out, inner, b): ragged block rows, unaligned inner, B = 1..16
 DECODE_SHAPES = [
     (6, 2, 100, 64, 8),
@@ -267,3 +273,130 @@ def test_cuda_default_engine_runs_the_head_kernel():
     done = eng.run()
     assert len(done) == 3 and all(len(r.out_tokens) == 4 for r in done)
     assert coded_matvec_decode_cuda.launches - before == 3 + eng._steps
+
+
+def _matvec_tol(dtype, want):
+    return (1e-4 if dtype == torch.float32 else 2e-3) * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,m,b", MATVEC_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_cuda_coded_matvec_matches_plain(r, m, b, dtype):
+    dev = _cuda()
+    rng = np.random.default_rng(r * 1000 + m)
+    a = torch.as_tensor(rng.standard_normal((r, m)), dtype=dtype, device=dev)
+    shape = (m, b) if b > 1 else (m,)
+    x = torch.as_tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
+    before = coded_matvec_cuda.launches
+    got = ops.coded_matvec(a, x)
+    assert coded_matvec_cuda.launches == before + 1
+    want = ops.coded_matvec(a, x, mode="off")
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    tol = _matvec_tol(dtype, want)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_cuda_coded_matvec_on_views(dtype, offset):
+    """Row views at any element offset: code blocks of a coded weight (M odd,
+    so most blocks start off a 16-byte boundary) and a matrix viewed from an
+    offset into a flat buffer (M a multiple of 8, the start misaligned)."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(offset)
+    w = torch.randn(16 * 37, 131, device=dev, generator=gen).to(dtype)
+    x = torch.randn(131, 4, device=dev, generator=gen).to(dtype)
+    for blk in w.chunk(16):
+        got = coded_matvec_cuda(blk, x)
+        want = ops.coded_matvec(blk, x, mode="off")
+        torch.cuda.synchronize()
+        tol = _matvec_tol(dtype, want)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=tol, atol=tol)
+    flat = torch.randn(offset + 300 * 64, device=dev, generator=gen).to(dtype)
+    a = flat[offset:].view(300, 64)
+    x = torch.randn(64, 2, device=dev, generator=gen).to(dtype)
+    got = coded_matvec_cuda(a, x)
+    want = ops.coded_matvec(a, x, mode="off")
+    torch.cuda.synchronize()
+    tol = _matvec_tol(dtype, want)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_cuda_coded_matvec_rejects_what_the_kernel_does_not_take():
+    dev = _cuda()
+    a = torch.zeros(8, 4, device=dev)
+    with pytest.raises(ValueError, match="columns"):
+        coded_matvec_cuda(a, torch.zeros(4, 17, device=dev))
+    with pytest.raises(TypeError, match="one type"):
+        coded_matvec_cuda(a, torch.zeros(4, 2, device=dev, dtype=torch.float16))
+    with pytest.raises(TypeError):
+        coded_matvec_cuda(a.bfloat16(), torch.zeros(4, 2, device=dev, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        coded_matvec_cuda(torch.zeros(4, 8, device=dev).T, torch.zeros(4, 2, device=dev))
+    with pytest.raises(ValueError, match="rows"):
+        coded_matvec_cuda(a, torch.zeros(5, 2, device=dev))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.coded_matvec(torch.zeros(8, 4), torch.zeros(4, 2), mode="cuda")
+
+
+@pytest.mark.gpu
+def test_cuda_mesh_head_sixteen_logical_devices_matches_fused_head():
+    """The head mesh of sixteen logical devices on one card: each call
+    launches coded_matvec once per block (and never the fused kernel), and
+    equals the fused single-device head within 1e-4 * max|y|."""
+    from repro_torch.sharding import HeadMesh, shard_coded_head
+
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    w = torch.as_tensor(rng.standard_normal((1000, 96)).astype(np.float32), device=dev)
+    x = torch.as_tensor(rng.standard_normal((96, 4)).astype(np.float32), device=dev)
+    wc = encode_blocks(w, 14, 2)
+    mesh = HeadMesh((dev,) * 16)
+    placed = shard_coded_head(wc, mesh)
+    assert all(b.untyped_storage().data_ptr() == wc.untyped_storage().data_ptr()
+               for b in placed)  # views: no copy on one card
+    truth = w @ x
+    for m in _masks(14, 2):
+        mask = torch.as_tensor(m, device=dev)
+        before = (coded_matvec_cuda.launches, coded_matvec_decode_cuda.launches)
+        got = ops.coded_head_matvec(placed, x, mask, 14, 2, mesh=mesh)
+        assert (coded_matvec_cuda.launches - before[0],
+                coded_matvec_decode_cuda.launches - before[1]) == (16, 0)
+        fused = ops.coded_head_matvec(wc, x, mask, 14, 2)
+        torch.cuda.synchronize()
+        assert float((got - fused).abs().max()) <= 1e-4 * float(fused.abs().max())
+        assert float((got[:1000] - truth).abs().max()) <= 1e-3 * float(truth.abs().max())
+
+
+@pytest.mark.gpu
+def test_cuda_mesh_engine_runs_coded_matvec_per_block():
+    """A ServeEngine on a sixteen-logical-device mesh of the card: 16
+    coded_matvec launches per prefill and per step, and the single-device
+    engine's tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.sharding import HeadMesh
+
+    dev = _cuda()
+    cfg = get_config("glm4-9b", smoke=True).scaled(coded=True, coded_parity=2,
+                                                   dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, 8) for _ in range(3)]
+    out = {}
+    for mesh in (None, HeadMesh((dev,) * 16)):
+        eng = ServeEngine(model, params, n_slots=2, s_max=32, mesh=mesh, device=dev,
+                          mask_fn=lambda: np.array([1.0] * 3 + [0.0] + [1.0] * 12))
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=4))
+        before = coded_matvec_cuda.launches
+        out[mesh is None] = {r.uid: r.out_tokens for r in eng.run()}
+        assert coded_matvec_cuda.launches - before == (0 if mesh is None
+                                                       else 16 * (3 + eng._steps))
+    assert out[True] == out[False]

@@ -156,8 +156,8 @@ def test_parity_raise_on_device_equals_reference():
 
 def test_engine_refuses_unported_options_and_foreign_devices():
     _, _, _, tm, tp = _models("glm4-9b", True)
-    for kw in (dict(mesh=object()), dict(scheduler=object()),
-               dict(parity_policy=object()), dict(macro_steps=4)):
+    for kw in (dict(scheduler=object()), dict(parity_policy=object()),
+               dict(macro_steps=4)):
         with pytest.raises(NotImplementedError):
             ServeEngine(tm, tp, device="cpu", **kw)
     if not torch.cuda.is_available():
