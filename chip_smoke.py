@@ -10,9 +10,14 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    (one ``nvcc`` per source, started together);
 2. kernels: the serving kernels against their plain PyTorch versions on the
    card, at the serving path's shapes (glm4-9b head at B = 1 and B = 4, the
-   (13, 3) parity re-encode, the mesh head's [10826, 4096] code block) and
-   at ragged, fp16 and misaligned shapes; max error against the stated
-   tolerance, kernel / plain / library times and the bound;
+   (13, 3) parity re-encode, the mesh head's [10826, 4096] code block; the
+   mamba2-130m and zamba2-1.2b heads and raises; ``ssd_chunk`` and
+   ``ssd_combine`` at both Mamba-2 widths for prompts of 4096, 1000 (padded
+   to 1024), 100 and 2 tokens in bf16 and fp32, under the reference tests'
+   decay and a slow one that keeps every tile in sight, a cell whose exp
+   overflows above the diagonal, and ``ssd_forward`` with h0) and at
+   ragged, fp16 and misaligned shapes; max error against the stated tolerance, kernel /
+   plain / library times and the bound;
 3. task, LT: the paper's coded task form (§5.1 scenario 1: r = 5,000, five
    EC2 workers, m = 500,000) through ``ClusterEmulator.run_task`` — Algorithm
    1, LT encode with the reserve rows encoded on the card by ``lt_encode``,
@@ -36,7 +41,15 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    erasures, held to the uncoded head and to the fused single-device head;
 7. mesh serve: ``ServeEngine(mesh=...)`` over the serve phase's params and
    workload, its greedy tokens held to the single-device serve's;
-8. a ``kernels`` line with every kernel on every path it runs (launch
+8. ssm serve and hybrid serve: mamba2-130m and zamba2-1.2b at full width
+   and depth (seeded init on the card), coded head, 4 slots, six requests of
+   4096, 4096, 1000, 1000, 100 and 2 prompt tokens and 8 new tokens, the
+   same three stragglers forcing the raise; every Mamba block's prefill runs
+   ``ssd_chunk`` and ``ssd_combine`` (24 x 6 and 38 x 6 launches); prefill
+   ms per prompt length, whole-step ms, tokens/s, peak memory, the float32
+   prefill logits with the SSD kernels against the plain SSD on the card,
+   and block 0's SSD of the served bf16 prefill against its plain route;
+9. a ``kernels`` line with every kernel on every path it runs (launch
    counts read around that path's run), then the device line.
 
 It imports nothing of JAX, and exits non-zero without CUDA or without the
@@ -45,6 +58,7 @@ repository's ``src/repro_torch`` beside it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -132,11 +146,18 @@ def phase_kernels(torch, gen, results: dict) -> None:
 
     # ---- coded_matvec_decode: glm4-9b head (14 + 2 blocks of 10826 rows x 4096)
     # plus ragged shapes (odd br, M % 4 != 0 -> scalar loads, B up to 16)
+    # plus the mamba2-130m (tied, [50280, 768]) and zamba2-1.2b ([32000,
+    # 2048]) heads: br = ceil(vocab / n_data)
     head_shapes = [("glm4-9b prefill", 14, 2, 10826, 4096, 1),
                    ("glm4-9b decode", 14, 2, 10826, 4096, 4),
                    ("glm4-9b decode after raise", 13, 3, 11658, 4096, 4),
+                   ("mamba2-130m decode", 14, 2, 3592, 768, 4),
+                   ("mamba2-130m decode after raise", 13, 3, 3868, 768, 4),
+                   ("zamba2-1.2b decode", 14, 2, 2286, 2048, 4),
+                   ("zamba2-1.2b decode after raise", 13, 3, 2462, 2048, 4),
                    ("ragged", 13, 3, 1001, 4097, 3),
                    ("ragged", 6, 2, 77, 516, 16)]
+    timed = ("glm4-9b prefill", "glm4-9b decode", "mamba2-130m decode", "zamba2-1.2b decode")
     for label, n_data, n_parity, br, m, b in head_shapes:
         nb = n_data + n_parity
         w = torch.randn(nb * br, m, device=dev, generator=gen)
@@ -154,7 +175,7 @@ def phase_kernels(torch, gen, results: dict) -> None:
             row = {"phase": "kernel", "kernel": "coded_matvec_decode", "shape": label,
                    "w": [nb * br, m], "b": b, "erased": list(erased),
                    "max_abs_err": err, "tol": tol}
-            if not erased and label in ("glm4-9b prefill", "glm4-9b decode"):
+            if not erased and label in timed:
                 iters = 20
                 row["ms"] = time_ms(torch, lambda: ops.coded_matvec_decode(w, x, rec, mode="cuda"), iters)
                 row["plain_ms"] = time_ms(torch, lambda: ref.ref_coded_matvec_decode(w, x, rec), iters)
@@ -169,9 +190,12 @@ def phase_kernels(torch, gen, results: dict) -> None:
         del w, x
     torch.cuda.empty_cache()
 
-    # ---- gaussian_encode: the (13, 3) parity re-encode of the glm4-9b head,
-    # G [16, 13] x A [13, 11658 * 4096], plus ragged shapes
+    # ---- gaussian_encode: the (13, 3) parity re-encodes of the glm4-9b,
+    # mamba2-130m and zamba2-1.2b heads, G [16, 13] x A [13, br * d_model],
+    # plus ragged shapes
     enc_shapes = [("glm4-9b raise", 16, 13, 11658 * 4096),
+                  ("mamba2-130m raise", 16, 13, 3868 * 768),
+                  ("zamba2-1.2b raise", 16, 13, 2462 * 2048),
                   ("ragged", 33, 40, 257), ("ragged", 5, 3, 1001), ("ragged", 16, 14, 1)]
     for label, q, r, m in enc_shapes:
         g = torch.randn(q, r, device=dev, generator=gen)
@@ -184,7 +208,7 @@ def phase_kernels(torch, gen, results: dict) -> None:
         row = {"phase": "kernel", "kernel": "gaussian_encode", "shape": label,
                "g": [q, r], "a": [r, m], "max_abs_err": err, "tol": tol}
         del got, want
-        if label.startswith("glm4"):
+        if label.endswith("raise"):
             iters = 10
             row["ms"] = time_ms(torch, lambda: ops.gaussian_encode(g, a, mode="cuda"), iters)
             row["plain_ms"] = time_ms(torch, lambda: ref.ref_gaussian_encode(g, a), iters)
@@ -198,6 +222,7 @@ def phase_kernels(torch, gen, results: dict) -> None:
         del g, a
     torch.cuda.empty_cache()
     kernel_coded_matvec(torch, gen, results)
+    kernel_ssd(torch, results)
     # launches made for these comparisons are not the main path's
     _reset_launches()
 
@@ -260,15 +285,168 @@ def kernel_coded_matvec(torch, gen, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# the SSD widths of the two Mamba-2 configs: heads, head dim P, state N
+SSD_WIDTHS = {"mamba2-130m": (32, 48, 128), "zamba2-1.2b": (64, 64, 64)}
+SSD_PROMPTS = (4096, 1000, 100, 2)   # tokens: Q = 256 (nc 16), 256 (padded, nc 4), 100, 2
+SSD_TIMED = 4096                     # the prompt whose cells are timed
+
+
+def _ssd_cells(torch, gen, heads: int, p: int, n: int, s: int, dtype, draw: str = "reference"):
+    """The cells ssd_forward hands the kernels for one prompt of s tokens
+    (B = 1, one B/C group): x [G, Q, P], da [G, Q], b, c [G, Q, N] with
+    G = heads * nc, the prompt zero-padded to a chunk multiple as the model
+    pads it.  The decay da comes from one of three draws:
+
+    * ``reference``: as the reference's kernel tests draw it
+      (``tests/test_kernels.py``: -0.3 |N(0, 1)|).  |cum| stays under ~100,
+      so an ulp of it is under 1e-5; but at Q = 256 exp(cum) falls below
+      e^-15 after ~64 positions, so only the first row tile of y_off, the
+      s-tiles next to the diagonal in y_diag and the last positions of the
+      state reduction are large enough to see;
+    * ``slow``: -U(0, 2/Q), so |cum| <= 2 over the chunk and every row tile,
+      every s-tile and every stage of the state reduction carries weight
+      within e^-2 of the largest;
+    * ``overflow``: every step decays by e^-20 or more, so exp above the
+      diagonal overflows."""
+    dev = torch.device("cuda")
+    q = min(256, s)
+    nc = -(-s // q)
+    g = heads * nc
+    if draw == "reference":
+        da = -0.3 * torch.randn(heads, nc, q, device=dev, generator=gen).abs()
+    elif draw == "slow":
+        da = -(2.0 / q) * torch.rand(heads, nc, q, device=dev, generator=gen)
+    else:
+        da = -60.0 * torch.randn(heads, nc, q, device=dev, generator=gen).abs() - 20.0
+    x = 0.1 * torch.randn(heads, nc, q, p, device=dev, generator=gen)
+    b = 0.3 * torch.randn(heads, nc, q, n, device=dev, generator=gen)
+    c = 0.3 * torch.randn(heads, nc, q, n, device=dev, generator=gen)
+    pad = nc * q - s
+    if pad:
+        for t in (x, da, b, c):
+            t[:, -1, q - pad:] = 0.0
+    return (x.reshape(g, q, p).to(dtype).contiguous(), da.reshape(g, q).contiguous(),
+            b.reshape(g, q, n).to(dtype).contiguous(), c.reshape(g, q, n).to(dtype).contiguous())
+
+
+def _ssd_check(torch, got, want) -> tuple[float, float, bool]:
+    """(max |got - want|, the allowed max, within it and finite): the
+    reference's rtol 1e-4 and atol 1e-5, both scaled by max|want|, as every
+    kernel check here."""
+    err = float((got - want).abs().max())
+    tol = 1e-4 * float(want.abs().max()) + 1e-5 * max(1.0, float(want.abs().max()))
+    return err, tol, bool(torch.isfinite(got).all()) and err <= tol
+
+
+def kernel_ssd(torch, results: dict) -> None:
+    """ssd_chunk and ssd_combine against ref_ssd_chunk / ref_ssd_combine on
+    the card, at both Mamba-2 configs' widths, for prompts of 4096, 1000
+    (padded to 1024), 100 and 2 tokens, in bf16 (the serve's) and fp32,
+    each with the reference tests' decay and with a slow one that keeps
+    every tile in sight (``_ssd_cells``); an overflowing cell; and
+    ssd_forward with h0 against its plain route, under both draws.  The
+    4096-token bf16 cells of the reference draw are timed."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ssd_scan import ssd_chunk_cuda, ssd_combine_cuda
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for arch, (heads, p, n) in SSD_WIDTHS.items():
+        cases = [(s, dt, draw) for draw in ("reference", "slow") for s in SSD_PROMPTS
+                 for dt in (torch.bfloat16, torch.float32)]
+        cases.append((SSD_TIMED, torch.bfloat16, "overflow"))
+        for s, dtype, draw in cases:
+            x, da, b, c = _ssd_cells(torch, gen, heads, p, n, s, dtype, draw)
+            g, q = da.shape
+            got = ssd_chunk_cuda(x, da, b, c)
+            want = ref.ref_ssd_chunk(x, da, b, c)
+            s_in = 0.1 * torch.randn(g, p, n, device=dev, generator=gen)
+            y_off = ssd_combine_cuda(c, want[3], s_in)
+            y_off_want = ref.ref_ssd_combine(c, want[3], s_in)
+            torch.cuda.synchronize()
+            dname = str(dtype).removeprefix("torch.")
+            label = f"{arch} {s} {dname}" + ("" if draw == "reference" else f" {draw}")
+            checks = dict(zip(("y_diag", "states", "decay", "cum"),
+                              (_ssd_check(torch, gv, wv) for gv, wv in zip(got, want))))
+            comb = _ssd_check(torch, y_off, y_off_want)
+            row_c = {"phase": "kernel", "kernel": "ssd_chunk", "shape": label, "g": g, "q": q,
+                     "p": p, "n": n, "dtype": dname, "da_draw": draw,
+                     "errors": {k: v[0] for k, v in checks.items()},
+                     "tols": {k: v[1] for k, v in checks.items()},
+                     "max_abs_err": checks["y_diag"][0], "tol": checks["y_diag"][1]}
+            row_m = {"phase": "kernel", "kernel": "ssd_combine", "shape": label, "g": g, "q": q,
+                     "p": p, "n": n, "dtype": dname, "da_draw": draw,
+                     "max_abs_err": comb[0], "tol": comb[1]}
+            if s == SSD_TIMED and dtype == torch.bfloat16 and draw == "reference":
+                elt = x.element_size()
+                row_c["ms"] = time_ms(torch, lambda: ssd_chunk_cuda(x, da, b, c), 20)
+                row_c["plain_ms"] = time_ms(torch, lambda: ref.ref_ssd_chunk(x, da, b, c), 3)
+                row_c["library_ms"] = None  # no one PyTorch call computes it
+                # each input read once, each output written once; the two
+                # Q x Q products over their causal half (l >= s), which is
+                # all the function needs: q(q+1)/2 entries of C·Bᵀ over N
+                # and of (C·Bᵀ ∘ L)·X over P, then Xᵀ·(decayed B)
+                n_bytes = elt * g * q * (p + 2 * n) + 4 * (g * q + g * q * p + g * p * n + g + g * q)
+                n_ops = g * (q * (q + 1) * (n + p) + 2 * q * p * n)
+                row_c["bound_ms"], row_c["bound_by"] = bound(n_bytes, n_ops)
+                cum = want[3]
+                row_m["ms"] = time_ms(torch, lambda: ssd_combine_cuda(c, cum, s_in), 20)
+                row_m["plain_ms"] = time_ms(torch, lambda: ref.ref_ssd_combine(c, cum, s_in), 5)
+                row_m["library_ms"] = time_ms(
+                    torch, lambda: torch.einsum("gln,gpn,gl->glp", c.float(), s_in, cum.exp()), 5)
+                row_m["library_call"] = ("torch.einsum('gln,gpn,gl->glp', C.float(), S_in, "
+                                         "exp(cum))")
+                n_bytes = elt * g * q * n + 4 * (g * q + g * p * n + g * q * p)
+                row_m["bound_ms"], row_m["bound_by"] = bound(n_bytes, g * (2 * q * n * p + q * p))
+                results.setdefault("ssd_chunk", {})[label] = row_c
+                results.setdefault("ssd_combine", {})[label] = row_m
+            emit(row_c)
+            emit(row_m)
+            for k, (err, tol, ok) in checks.items():
+                check(ok, f"ssd_chunk {label} {k}: max err {err}, allowed {tol}")
+            check(comb[2], f"ssd_combine {label}: max err {comb[0]}, allowed {comb[1]}")
+            del x, da, b, c, got, want, s_in, y_off, y_off_want
+        # ssd_forward with h0: a 1000-token prompt zero-padded to 1024 (as
+        # the model pads it), in the model's [B, S, H, F] layout, with one
+        # B/C group; kernels against the plain route on the card
+        def model_layout(t):  # cells [H * nc, Q, F] -> [1, nc * Q, H, F]
+            return t.reshape(heads, 1024, -1).permute(1, 0, 2)[None].contiguous()
+
+        for draw in ("reference", "slow"):
+            x, da, b, c = (model_layout(t) for t in
+                           _ssd_cells(torch, gen, heads, p, n, 1000, torch.bfloat16, draw))
+            da = da[..., 0]
+            b, c = b[:, :, :1].contiguous(), c[:, :, :1].contiguous()
+            h0 = 0.1 * torch.randn(1, heads, p, n, device=dev, generator=gen)
+            y, final = ops.ssd_forward(x, da, b, c, 256, mode="cuda", h0=h0)
+            y_p, final_p = ops.ssd_forward(x, da, b, c, 256, mode="off", h0=h0)
+            torch.cuda.synchronize()
+            f_err, f_tol, f_ok = _ssd_check(torch, final, final_p)
+            y_err = float((y.float() - y_p.float()).abs().max())
+            # y is cast back to bf16: within one bf16 step (2^-7 relative)
+            y_ok = bool(torch.isfinite(y).all()) and bool(torch.allclose(
+                y.float(), y_p.float(), rtol=2.0 ** -7, atol=1e-5 * float(y_p.float().abs().max())))
+            emit({"phase": "kernel", "kernel": "ssd_forward h0",
+                  "shape": f"{arch} 1024 bfloat16", "da_draw": draw,
+                  "final_max_abs_err": f_err, "final_tol": f_tol, "y_max_abs_err": y_err})
+            check(f_ok and y_ok, f"ssd_forward with h0 at {arch}, {draw} decay: "
+                                 f"final {f_err}, y {y_err}")
+            del x, da, b, c, h0, y, final, y_p, final_p
+    torch.cuda.empty_cache()
+
+
 def _kernel_wrappers() -> dict:
     from repro_torch.kernels.coded_decode import coded_matvec_decode_cuda
     from repro_torch.kernels.coded_matvec import coded_matvec_cuda
     from repro_torch.kernels.lt_encode import gaussian_encode_cuda, lt_encode_cuda
+    from repro_torch.kernels.ssd_scan import ssd_chunk_cuda, ssd_combine_cuda
 
     return {"coded_matvec": coded_matvec_cuda,
             "coded_matvec_decode": coded_matvec_decode_cuda,
             "gaussian_encode": gaussian_encode_cuda,
-            "lt_encode": lt_encode_cuda}
+            "lt_encode": lt_encode_cuda,
+            "ssd_chunk": ssd_chunk_cuda,
+            "ssd_combine": ssd_combine_cuda}
 
 
 def _reset_launches() -> None:
@@ -796,6 +974,170 @@ def phase_mesh_serve(torch, serve: dict, mesh, results: dict, smi: str) -> None:
           f"mesh serve launches {launches}")
 
 
+MAMBA_PROMPTS = (4096, 4096, 1000, 1000, 100, 2)  # tokens of the six requests
+MAMBA_S_MAX = 4104                                 # the longest prompt + 8 new tokens
+# Prefill logits with the SSD kernels against the plain SSD on the card, of
+# max|logit|, in float32 activations: each SSD output differs by ~1e-6 (fp32
+# sums in another order), and 24-38 blocks grow that to ~1e-4; this bound
+# holds the kernels through the depth.  The served bf16 path is held one
+# block at a time (``_block0_ssd_inputs``): with bf16 activations a one-step
+# rounding difference at block 0 sets the two runs apart, and the gap
+# compounds with depth as bf16 noise does, so whole-model bf16 logits
+# cannot tell a kernel fault from that noise.
+PREFILL_F32_TOL = 1e-3
+BF16_STEP = 2.0 ** -7   # one bf16 rounding step, relative to the value
+
+
+def _block0_ssd_inputs(eng, prompt: dict) -> tuple:
+    """The arguments block 0 hands ``kernels.ops.ssd_forward`` in the
+    served model's own prefill of ``prompt`` (its activation dtype, the
+    engine's params), recorded around one plain-SSD prefill."""
+    from repro_torch.kernels import ops
+
+    real, seen = ops.ssd_forward, []
+
+    def record(*args, **kw):
+        seen.append(args)
+        return real(*args, **kw)
+
+    ops.ssd_forward = record  # models.ssm imports it from ops at each call
+    try:
+        eng.model.prefill(eng.params, prompt, ssd_kernel_mode="off")
+    finally:
+        ops.ssd_forward = real
+    return seen[0]
+
+
+def phase_mamba_serve(torch, args, results: dict, smi: str, arch: str) -> None:
+    """A Mamba-2 config (``ssm`` mamba2-130m or ``hybrid`` zamba2-1.2b) at
+    full width and depth, seeded init on the card, coded head: 4 slots, six
+    requests of 4096, 4096, 1000, 1000, 100 and 2 prompt tokens and 8 new
+    tokens each, the three persistent stragglers forcing the (14, 2) ->
+    (13, 3) raise.  Every Mamba block's prefill runs ssd_chunk and
+    ssd_combine once; the launches are read around the run.  Then the
+    prefill call's time per prompt length, whole engine steps, the
+    last-position float32 prefill logits with the kernels against the same
+    prefill with ssd_kernel_mode='off' on the card, and block 0's SSD of
+    the served (bf16) prefill, kernels against plain."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.adaptive import ParityController
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import Request, ServeEngine
+
+    dev = torch.device("cuda")
+    cfg = get_config(arch).scaled(coded=True, coded_parity=2)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed), dev)
+    torch.cuda.synchronize()
+    emit({"phase": "init", "arch": cfg.name, "family": cfg.family, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "d_inner": cfg.d_inner, "ssd_heads": cfg.n_ssm_heads,
+          "p": cfg.ssm_head_dim, "n": cfg.ssm_state, "chunk": cfg.ssm_chunk, "vocab": cfg.vocab,
+          "init_s": time.perf_counter() - t0,
+          "param_gb": sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9})
+
+    def latency_fn():  # three persistent stragglers: more than the budget of 2
+        lat = np.full(16, 1e-3)
+        lat[2] = lat[7] = lat[11] = 5e-2
+        return lat
+
+    eng = ServeEngine(model, params, n_slots=4, s_max=MAMBA_S_MAX, latency_fn=latency_fn,
+                      parity_controller=ParityController(16, decay=0.5), parity_topup=1,
+                      topup_patience=2, head_kernel_mode="cuda", encode_mode="cuda",
+                      ssd_kernel_mode="cuda", device=dev)
+    del params
+    rng = np.random.default_rng(args.seed + 14)
+    max_new = 8
+    for i, n_tok in enumerate(MAMBA_PROMPTS):
+        eng.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab, n_tok),
+                           max_new_tokens=max_new))
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    steps, n_req = eng._steps, len(MAMBA_PROMPTS)
+    tokens = {r.uid: r.out_tokens for r in done}
+    n_tok = sum(len(t) for t in tokens.values())
+    check(len(done) == n_req, f"{arch}: {len(done)} of {n_req} requests completed")
+    check(all(len(t) == max_new for t in tokens.values()), f"{arch}: a request missed its count")
+    check(all(0 <= t < cfg.vocab for ts in tokens.values() for t in ts), f"{arch}: token out of vocab")
+    check(len(eng.parity_events) == 1 and eng.parity_events[0]["n_parity"] == 3,
+          f"{arch}: parity events {eng.parity_events}")
+    br13 = -(-cfg.vocab // 13)
+    check(tuple(eng.params["lm_head_coded"].shape) == (16 * br13, cfg.d_model),
+          f"{arch}: head not re-split to (13, 3)")
+    want = cfg.n_layers * n_req
+    check(launches["ssd_chunk"] == want and launches["ssd_combine"] == want,
+          f"{arch}: SSD launches {launches}, want {want} of each ({cfg.n_layers} blocks x "
+          f"{n_req} prefills)")
+    check(launches["coded_matvec_decode"] == n_req + steps and launches["gaussian_encode"] == 1,
+          f"{arch}: head launches {launches} ({n_req} prefills + {steps} steps, one raise)")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # after the counted run: the prefill call (B = 1) per prompt length, by
+    # CUDA events, then whole engine steps on a refilled queue
+    prefill_ms = {}
+    for length in sorted(set(MAMBA_PROMPTS), reverse=True):
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (1, length)), device=dev)
+        prefill_ms[length] = time_ms(torch, lambda: eng._prefill1(prompt), 3, warmup=1)
+    step_ms = _timed_steps(torch, eng, rng, cfg.vocab, 100)
+
+    # the prefill's last-position logits (a 1000-token prompt) with the SSD
+    # kernels against the plain SSD on the card, in float32 activations
+    # (same params)
+    prompt = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (1, 1000)), device=dev)}
+    m32 = build_model(dataclasses.replace(eng.model.cfg, dtype="float32"))
+    got, plain = (m32.prefill(eng.params, prompt, ssd_kernel_mode=mode)[0]
+                  for mode in ("cuda", "off"))
+    torch.cuda.synchronize()
+    logits = {"rel_err": float((got - plain).abs().max()) / float(plain.abs().max()),
+              "tol": PREFILL_F32_TOL, "finite": bool(torch.isfinite(got).all()),
+              "argmax_equal": bool((got.argmax(-1) == plain.argmax(-1)).all())}
+    del m32, got, plain
+    # the served path itself, at block 0: the SSD inputs of the served
+    # model's prefill of the same prompt (padded to 1024, the model's own
+    # dt·A), kernels against the plain route, each output within one bf16
+    # step of its largest plain value
+    args = _block0_ssd_inputs(eng, prompt)
+    outs = [ops.ssd_forward(*args, mode=mode) for mode in ("cuda", "off")]
+    torch.cuda.synchronize()
+    block0 = {"dtype": str(args[0].dtype).removeprefix("torch."), "x": list(args[0].shape),
+              "max_abs_cum": float(args[1].reshape(1, -1, cfg.ssm_chunk, args[1].shape[-1])
+                                   .cumsum(2).abs().max())}
+    for name, got, plain in zip(("y", "final"), *outs):
+        scale = float(plain.float().abs().max())
+        block0[name] = {"max_abs_err": float((got.float() - plain.float()).abs().max()),
+                        "tol": BF16_STEP * scale, "max_abs_plain": scale,
+                        "finite": bool(torch.isfinite(got).all())}
+    del args, outs
+    row = {"phase": "serve", "arch": cfg.name, "family": cfg.family, "n_layers": cfg.n_layers,
+           "n_slots": 4, "s_max": MAMBA_S_MAX, "requests": n_req, "prompt_lens": MAMBA_PROMPTS,
+           "max_new": max_new, "tokens": n_tok, "decode_steps": steps, "wall_s": wall,
+           "tokens_per_s": n_tok / wall, "prefill_call_ms": prefill_ms, "step_ms": step_ms,
+           "sync_count": eng.sync_count, "parity_events": eng.parity_events,
+           "launches": launches, "peak_mem_gb": peak_gb,
+           "f32_prefill_logits_vs_plain_ssd": logits, "block0_ssd_vs_plain": block0,
+           "card": smi, "first_tokens": tokens[0]}
+    emit(row)
+    results[f"serve {arch}"] = row
+    check(logits["finite"] and logits["rel_err"] <= logits["tol"],
+          f"{arch}: float32 prefill logits with the SSD kernels differ from the plain SSD's "
+          f"by {logits['rel_err']} of max|logit| (allowed {logits['tol']})")
+    for name in ("y", "final"):
+        r = block0[name]
+        check(r["finite"] and r["max_abs_err"] <= r["tol"],
+              f"{arch}: block 0's served ssd_forward {name}, kernels against plain: max err "
+              f"{r['max_abs_err']}, allowed {r['tol']}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_profile(torch, eng) -> None:
     """Device time by kernel over 3 whole engine steps, every slot decoding
     (torch.profiler), and the device's busy share of the window's wall
@@ -826,8 +1168,11 @@ def phase_profile(torch, eng) -> None:
 
 
 def _leaves(tree):
+    """The tensors of a params tree of dicts and lists."""
     if isinstance(tree, dict):
-        for v in tree.values():
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree
@@ -865,7 +1210,11 @@ def main() -> int:
     phase_mesh_head(torch, serve, mesh, torch.Generator(device="cuda").manual_seed(args.seed + 2),
                     results, smi)
     phase_mesh_serve(torch, serve, mesh, results, smi)
-    del serve
+    del serve, mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in SSD_WIDTHS:
+        phase_mamba_serve(torch, args, results, smi, arch)
 
     kernels = []
     for name, source, replaces, path, phase, shape in (
@@ -887,6 +1236,17 @@ def main() -> int:
         ("gaussian_encode", "src/repro_torch/kernels/csrc/gaussian_encode.cu",
          "src/repro/kernels/lt_encode.py:107", "mesh serve", results["mesh_serve"],
          "glm4-9b raise"),
+        *((name, src, replaces, f"{fam} serve", results[f"serve {arch}"], shape)
+          for arch, fam in (("mamba2-130m", "ssm"), ("zamba2-1.2b", "hybrid"))
+          for name, src, replaces, shape in (
+              ("ssd_chunk", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+               "src/repro/kernels/ssd_scan.py:52", f"{arch} {SSD_TIMED} bfloat16"),
+              ("ssd_combine", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+               "src/repro/kernels/ssd_scan.py:99", f"{arch} {SSD_TIMED} bfloat16"),
+              ("coded_matvec_decode", "src/repro_torch/kernels/csrc/coded_decode.cu",
+               "src/repro/kernels/coded_decode.py:65", f"{arch} decode"),
+              ("gaussian_encode", "src/repro_torch/kernels/csrc/gaussian_encode.cu",
+               "src/repro/kernels/lt_encode.py:107", f"{arch} raise"))),
     ):
         r = results[name][shape]
         launches = phase.get("device_encode", phase)["launches"]

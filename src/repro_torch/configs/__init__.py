@@ -1,4 +1,4 @@
-"""Architecture registry for the dense configs the port serves.
+"""Architecture registry for the configs the port serves (dense, ssm, hybrid).
 
     from repro_torch.configs import get_config
     cfg = get_config("glm4-9b")
@@ -8,10 +8,10 @@ families join as their model code is ported.
 """
 from __future__ import annotations
 
-from repro_torch.configs import glm4_9b, phi3_mini_3_8b
+from repro_torch.configs import glm4_9b, mamba2_130m, phi3_mini_3_8b, zamba2_1_2b
 from repro_torch.models.config import ModelConfig
 
-_MODULES = [glm4_9b, phi3_mini_3_8b]
+_MODULES = [glm4_9b, phi3_mini_3_8b, mamba2_130m, zamba2_1_2b]
 
 ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 SMOKES: dict[str, ModelConfig] = {m.CONFIG.name: m.SMOKE for m in _MODULES}

@@ -27,6 +27,7 @@ __all__ = [
     "lt_encode",
     "encode_rows",
     "encode_blocks_device",
+    "ssd_forward",
 ]
 
 _MODES = {"off": "off", "interpret": "off", "cuda": "cuda", "compile": "cuda"}
@@ -166,3 +167,76 @@ def encode_blocks_device(w, n_data: int, n_parity: int, mode: str | None = None)
     b = block_mds_generator(n_data + n_parity, n_data, device=w.device)
     coded = gaussian_encode(b, blocks, mode)
     return coded.reshape((n_data + n_parity) * br, inner)
+
+
+def ssd_forward(
+    x: torch.Tensor,    # [B, S, H, P] (pre-multiplied by dt)
+    da: torch.Tensor,   # [B, S, H]
+    b: torch.Tensor,    # [B, S, G, N]
+    c: torch.Tensor,    # [B, S, G, N]
+    chunk: int,
+    mode: str | None = None,
+    h0: torch.Tensor | None = None,  # [B, H, P, N]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full SSD through the chunk kernels and the inter-chunk recurrence.
+
+    The counterpart of the reference's ``kernels.ops.ssd_forward``, equal
+    to ``repro_torch.models.ssm.ssd_chunked`` (the oracle): B and C are
+    expanded over heads and the inputs cut into [B*H*nc, Q, F] cells; the
+    chunk kernel gives each cell's diagonal output, state and decay; a loop
+    over the nc chunks carries the state into each chunk; the combine
+    kernel adds what that state contributes.  S must be a multiple of
+    Q = min(chunk, S).  Returns (y [B,S,H,P] in x's dtype, final state
+    [B,H,P,N] fp32).
+    """
+    kernel = resolve_mode(mode, x) == "cuda"
+    bsz, s, h, p = x.shape
+    g_, n = b.shape[2], b.shape[3]
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"seq {s} must divide chunk {q} on the kernel path")
+    nc = s // q
+    rep = h // g_
+    # head-expand + flatten to per-(b,h,chunk) cells
+    bh = torch.repeat_interleave(b, rep, dim=2)
+    ch = torch.repeat_interleave(c, rep, dim=2)
+
+    def cells(t, feat):  # [B,S,H,F] -> [B*H*nc, Q, F]
+        t = t.reshape(bsz, nc, q, h, feat).permute(0, 3, 1, 2, 4)
+        return t.reshape(bsz * h * nc, q, feat).contiguous()
+
+    xc = cells(x, p)
+    bc = cells(bh, n)
+    cc = cells(ch, n)
+    dac = da.to(torch.float32).reshape(bsz, nc, q, h).permute(0, 3, 1, 2)
+    dac = dac.reshape(bsz * h * nc, q).contiguous()
+
+    if kernel:
+        from repro_torch.kernels.ssd_scan import ssd_chunk_cuda, ssd_combine_cuda
+
+        y, st, dec, cum = ssd_chunk_cuda(xc, dac, bc, cc)
+    else:
+        y, st, dec, cum = _ref.ref_ssd_chunk(xc, dac, bc, cc)
+
+    # inter-chunk recurrence, sequential over nc: the state entering each chunk
+    st_r = st.reshape(bsz * h, nc, p, n)
+    dec_r = dec.reshape(bsz * h, nc)
+    carry = (
+        torch.zeros((bsz * h, p, n), dtype=torch.float32, device=x.device)
+        if h0 is None
+        else h0.reshape(bsz * h, p, n).to(torch.float32)
+    )
+    states_in = torch.empty_like(st_r)
+    for k in range(nc):
+        states_in[:, k] = carry
+        carry = carry * dec_r[:, k, None, None] + st_r[:, k]
+    states_in = states_in.reshape(bsz * h * nc, p, n)
+
+    if kernel:
+        y_off = ssd_combine_cuda(cc, cum, states_in)
+    else:
+        y_off = _ref.ref_ssd_combine(cc, cum, states_in)
+
+    y_tot = (y + y_off).reshape(bsz, h, nc, q, p).permute(0, 2, 3, 1, 4)
+    y_tot = y_tot.reshape(bsz, s, h, p).to(x.dtype)
+    return y_tot, carry.reshape(bsz, h, p, n)

@@ -16,6 +16,8 @@ __all__ = [
     "ref_coded_matvec_decode",
     "ref_gaussian_encode",
     "ref_lt_encode",
+    "ref_ssd_chunk",
+    "ref_ssd_combine",
 ]
 
 
@@ -74,3 +76,37 @@ def ref_lt_encode(
             rs = rows[s : s + step]
             out[rs] += coeffs[rs, d, None] * a[indices[rs, d]]
     return out
+
+
+def ref_ssd_chunk(x: torch.Tensor, da: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
+    """Intra-chunk SSD terms for every (batch*head, chunk) cell, batched.
+
+    x  [G, Q, P]  (pre-multiplied by dt)
+    da [G, Q]     (dt * A)
+    b  [G, Q, N]  (head-expanded)
+    c  [G, Q, N]
+    returns (y_diag [G,Q,P], states [G,P,N], total_decay [G], da_cumsum [G,Q]),
+    all fp32.  L_ij = exp(cum_i - cum_j) is selected to 0 above the diagonal
+    (where the exponent may overflow), as ``jnp.where`` does.
+    """
+    f32 = torch.float32
+    x, b, c = x.to(f32), b.to(f32), c.to(f32)
+    cum = torch.cumsum(da.to(f32), dim=-1)                  # [G, Q]
+    diff = cum[..., :, None] - cum[..., None, :]            # [G, Q, Q]
+    q = x.shape[-2]
+    mask = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    ell = torch.where(mask, torch.exp(diff), torch.zeros((), dtype=f32, device=x.device))
+    cb = torch.einsum("gln,gsn->gls", c, b)
+    y = torch.einsum("gls,gls,gsp->glp", cb, ell, x)
+    decay_states = torch.exp(cum[..., -1:] - cum)           # [G, Q]
+    states = torch.einsum("gsp,gs,gsn->gpn", x, decay_states, b)
+    return y, states, torch.exp(cum[..., -1]), cum
+
+
+def ref_ssd_combine(c: torch.Tensor, cum: torch.Tensor, states_in: torch.Tensor) -> torch.Tensor:
+    """Inter-chunk output: y_off[l] = exp(cum_l) * C_l . state_in.
+
+    c [G, Q, N], cum [G, Q], states_in [G, P, N] -> [G, Q, P] fp32."""
+    f32 = torch.float32
+    return torch.einsum("gln,gpn,gl->glp", c.to(f32), states_in.to(f32),
+                        torch.exp(cum.to(f32)))

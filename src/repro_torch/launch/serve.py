@@ -2,6 +2,10 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b --coded
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --coded --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --coded
+
+``--arch`` takes the dense glm4-9b and phi3-mini-3.8b, the Mamba-2
+mamba2-130m and the hybrid zamba2-1.2b (``repro_torch.configs.ARCHS``).
 
 Continuous batching (``serve.engine.ServeEngine``) over a pre-loaded queue
 of ``--requests`` synthetic prompts.  With ``--coded`` the LM-head matvec
@@ -19,7 +23,7 @@ import time
 import numpy as np
 
 
-def main() -> None:
+def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(
         description="Batched LM serving with the BPCC coded head (PyTorch)",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
@@ -50,7 +54,7 @@ def main() -> None:
                     help="torch device to run on ('cuda' or 'cpu')")
     ap.add_argument("--dry-run", action="store_true",
                     help="print the resolved config and exit without executing")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     from repro_torch.configs import get_config
     from repro_torch.models.config import coded_blocks

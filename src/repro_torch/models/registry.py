@@ -6,8 +6,9 @@
     logits, cache1 = model.prefill(params, {"tokens": tokens}, s_max=s_max)
     logits, cache = model.decode_step(params, cache, tokens)
 
-Port of ``repro.models.registry`` for the dense family; every entry point
-runs on CUDA unless a device is named (``device="cpu"`` in tests).
+Port of ``repro.models.registry`` for the dense, ssm and hybrid families;
+every entry point runs on CUDA unless a device is named (``device="cpu"``
+in tests).
 """
 from __future__ import annotations
 
@@ -22,15 +23,18 @@ from repro_torch.models.config import ModelConfig
 
 __all__ = ["Model", "build_model"]
 
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+
 
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
 
     def __post_init__(self):
-        if self.cfg.family != "dense":
+        if self.cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
-                f"family {self.cfg.family!r} is not ported yet (dense only)")
+                f"family {self.cfg.family!r} is not ported yet "
+                f"(ported: {', '.join(PORTED_FAMILIES)})")
         if self.cfg.pad_heads:
             raise NotImplementedError("pad_heads is not ported yet")
 
@@ -51,10 +55,13 @@ class Model:
         return tf.lm_init_cache(self.cfg, batch, s_max, default_device(device))
 
     def prefill(self, params, batch: dict, s_max: int | None = None,
-                head_mask=None, head_kernel_mode: str | None = None, head_mesh=None):
+                head_mask=None, head_kernel_mode: str | None = None, head_mesh=None,
+                ssd_kernel_mode: str | None = None):
+        """``ssd_kernel_mode`` is the kernel mode of every Mamba block's SSD
+        (None: by device); the dense family has none."""
         return tf.lm_prefill(params, self.cfg, batch["tokens"], s_max=s_max,
                              head_mask=head_mask, head_kernel_mode=head_kernel_mode,
-                             head_mesh=head_mesh)
+                             head_mesh=head_mesh, ssd_kernel_mode=ssd_kernel_mode)
 
     def decode_step(self, params, cache, tokens, head_mask=None,
                     head_kernel_mode: str | None = None, head_mesh=None):

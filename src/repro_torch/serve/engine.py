@@ -25,7 +25,8 @@ raise places the re-encoded head again on the same mesh.
 
 Host syncs: greedy argmax runs on the device and ``last_tok`` stays there;
 each prefill and each decode step makes exactly one device-to-host copy
-(``sync_count``).  The KV cache is updated in place.
+(``sync_count``).  The KV cache is updated in place; a prefill's cache is
+spliced into its slot leaf by leaf, for the dense, ssm and hybrid layouts.
 """
 from __future__ import annotations
 
@@ -59,6 +60,34 @@ class Request:
         return len(self.out_tokens) >= self.max_new_tokens
 
 
+def _batch_axis(name: str) -> int | None:
+    """Batch-dim index of a cache leaf, by its name (the reference's
+    ``_batch_axis``): pos [B]; k/v [..., B, s_max, kv, hd]; ssm
+    [..., B, H, P, N]; conv [..., B, W-1, C]."""
+    return {"pos": 0, "k": -4, "v": -4, "ssm": -4, "conv": -3}.get(name)
+
+
+def _splice(full: Any, one: Any, slot: int, name: str) -> None:
+    """Write the B = 1 cache ``one`` into batch row ``slot`` of ``full``."""
+    if isinstance(full, dict):
+        for key in full:
+            _splice(full[key], one[key], slot, key)
+        return
+    if isinstance(full, list):
+        for f, o in zip(full, one):
+            _splice(f, o, slot, name)
+        return
+    ax = _batch_axis(name)
+    if ax is None:
+        return
+    dst = full.select(ax, slot)
+    src = one.select(ax, 0)
+    if src.shape != dst.shape:
+        dst.zero_()
+        dst = dst[tuple(slice(0, n) for n in src.shape)]
+    dst.copy_(src)
+
+
 class ServeEngine:
     def __init__(
         self,
@@ -76,14 +105,16 @@ class ServeEngine:
         mesh=None,
         head_axis: str = "model",
         head_kernel_mode: str | None = None,
+        ssd_kernel_mode: str | None = None,
         scheduler=None,
         parity_policy=None,
         macro_steps: int = 1,
         device=None,
     ):
         """``device`` (default CUDA) must hold ``params``.  ``encode_mode`` is
-        the kernel mode of the parity re-encode and ``head_kernel_mode``
-        that of the coded head; None means by device, the hand-written
+        the kernel mode of the parity re-encode, ``head_kernel_mode`` that
+        of the coded head and ``ssd_kernel_mode`` that of the SSD in every
+        Mamba block's prefill; None means by device, the hand-written
         kernel on CUDA and its plain version on the CPU.  ``mesh`` (a
         ``HeadMesh`` with axis ``head_axis`` and one device per code block)
         shards the coded head; it needs a coded config.  ``scheduler``,
@@ -108,6 +139,7 @@ class ServeEngine:
         self.topup_patience = topup_patience
         self.encode_mode = encode_mode
         self.head_kernel_mode = head_kernel_mode
+        self.ssd_kernel_mode = ssd_kernel_mode
         self.parity_events: list[dict] = []
         self._saturated_steps = 0
         self._steps = 0
@@ -145,7 +177,8 @@ class ServeEngine:
     def _prefill1(self, tokens):
         logits, cache1 = self.model.prefill(
             self.params, {"tokens": tokens}, s_max=self.s_max,
-            head_kernel_mode=self.head_kernel_mode, head_mesh=self._mesh)
+            head_kernel_mode=self.head_kernel_mode, head_mesh=self._mesh,
+            ssd_kernel_mode=self.ssd_kernel_mode)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache1
 
     # ------------------------------------------------------------------
@@ -168,10 +201,13 @@ class ServeEngine:
 
     def _flush_splices(self) -> None:
         """Copy every staged prefill cache into its slot of the batch cache,
-        in place.  The prefill cache is already zero-padded to ``s_max``, so
-        copying the whole slot row also clears what an earlier occupant
-        left in the tail.  A slot admitted twice in one pass keeps the LAST
-        cache, as sequential splices would."""
+        in place, leaf by leaf on that leaf's batch axis (``_batch_axis``).
+        A prefill leaf shorter than the slot (a conv tail of a prompt under
+        W-1 tokens) is zero-padded at the end, as the reference's splice
+        pads; K/V come already zero-padded to ``s_max``, so copying the whole
+        slot also clears what an earlier occupant left in the tail.  A slot
+        admitted twice in one pass keeps the LAST cache, as sequential
+        splices would."""
         if not self._pending_splice:
             return
         by_slot: dict[int, Any] = {}
@@ -179,11 +215,7 @@ class ServeEngine:
             by_slot[slot] = cache1
         self._pending_splice = []
         for slot in sorted(by_slot):
-            one = by_slot[slot]
-            self.cache["pos"][slot] = one["pos"][0]
-            for name, kv in self.cache["blocks"].items():
-                for leaf, full in kv.items():
-                    full[:, slot] = one["blocks"][name][leaf][:, 0]
+            _splice(self.cache, by_slot[slot], slot, "")
 
     def _finish_slot(self, slot: int, req: Request) -> None:
         """Retire a request and free its slot — the one completion path."""

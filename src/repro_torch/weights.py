@@ -23,8 +23,10 @@ def _leaf(a, device) -> torch.Tensor:
 
 
 def params_from_numpy(tree: Any, device) -> Any:
-    """Nested dicts of arrays -> the same dicts of tensors on ``device``
-    (dtypes kept)."""
+    """Nested dicts and lists of arrays -> the same dicts and lists of
+    tensors on ``device`` (dtypes kept)."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_from_numpy(v, device) for v in tree]
     return _leaf(tree, device)

@@ -8,7 +8,9 @@ so it runs on the GPU machine as it is:
 
 Tolerance: |kernel - plain| <= 1e-4 * max(1, max|plain|) — both fp32, summed
 in another order; for fp16 inputs of ``coded_matvec`` (fp32 sums in both)
-the reference's fp16 bound, 2e-3.
+the reference's fp16 bound, 2e-3.  The SSD kernels, fp32 or bf16 inputs
+(cast to fp32 in both): the reference's rtol 1e-4 and atol 1e-5, the atol
+scaled by max|plain|.
 """
 import numpy as np
 import pytest
@@ -21,6 +23,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.coded_decode import coded_matvec_decode_cuda
 from repro_torch.kernels.coded_matvec import coded_matvec_cuda
 from repro_torch.kernels.lt_encode import gaussian_encode_cuda, lt_encode_cuda
+from repro_torch.kernels.ssd_scan import ssd_chunk_cuda, ssd_combine_cuda
 
 # (r, m, b): the reference's coded_matvec sweep (tests/test_kernels.py), then
 # ragged shapes: M % 8 != 0 (fp16 scalar loads), B = 16, one row
@@ -41,6 +44,11 @@ ENCODE_SHAPES = [(16, 13, 700), (16, 14, 1), (5, 3, 129), (33, 40, 257), (1, 1, 
 # q = 1 with d_max = 1, more entries in a row than one shared-memory stage
 LT_SHAPES = [(6, 5, 20, 64, 0.4), (9, 3, 11, 129, 0.5), (1, 1, 3, 7, 0.0),
              (40, 7, 30, 4097, 0.3), (3, 600, 1000, 8200, 0.2), (70000, 2, 5, 4, 0.0)]
+
+# (Q, P, N): chunk lengths 2 (a 2-token prompt), 100 (a 100-token prompt)
+# and 256 (full chunks) at the full widths of mamba2-130m (P 48, N 128) and
+# zamba2-1.2b (P 64, N 64), and a ragged small one
+SSD_SHAPES = [(q, p, n) for q in (2, 100, 256) for p, n in ((48, 128), (64, 64))] + [(37, 5, 19)]
 
 
 def _masks(n_data, n_parity):
@@ -400,3 +408,199 @@ def test_cuda_mesh_engine_runs_coded_matvec_per_block():
         assert coded_matvec_cuda.launches - before == (0 if mesh is None
                                                        else 16 * (3 + eng._steps))
     assert out[True] == out[False]
+
+
+def _ssd_close(got, want):
+    """The reference's rtol 1e-4, atol 1e-5 scaled by max|plain|."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                               atol=1e-5 * max(1.0, want.abs().max().item()))
+
+
+def _ssd_cells(dev, g, q, p, n, dtype, seed, da_scale=0.3):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (0.1 * torch.randn(g, q, p, device=dev, generator=gen)).to(dtype)
+    da = -da_scale * torch.randn(g, q, device=dev, generator=gen).abs()
+    b = (0.3 * torch.randn(g, q, n, device=dev, generator=gen)).to(dtype)
+    c = (0.3 * torch.randn(g, q, n, device=dev, generator=gen)).to(dtype)
+    return x, da, b, c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,p,n", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_chunk_and_combine_match_plain(q, p, n, dtype):
+    from repro_torch.kernels import ref
+
+    dev = _cuda()
+    x, da, b, c = _ssd_cells(dev, 6, q, p, n, dtype, seed=q * 1000 + p + n)
+    before = (ssd_chunk_cuda.launches, ssd_combine_cuda.launches)
+    got = ssd_chunk_cuda(x, da, b, c)
+    want = ref.ref_ssd_chunk(x, da, b, c)
+    st_in = torch.randn(6, p, n, device=dev)
+    y_off = ssd_combine_cuda(c, want[3], st_in)
+    assert (ssd_chunk_cuda.launches - before[0], ssd_combine_cuda.launches - before[1]) == (1, 1)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        _ssd_close(g_, w_)
+    _ssd_close(y_off, ref.ref_ssd_combine(c, want[3], st_in))
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_chunk_overflowing_cell_gives_no_nan():
+    """|da| so large that exp(cum_l - cum_s) above the diagonal is inf: the
+    kernel selects before the exp, so no inf·0 = NaN reaches any output."""
+    from repro_torch.kernels import ref
+
+    dev = _cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        x, da, b, c = _ssd_cells(dev, 4, 256, 64, 64, dtype, seed=11, da_scale=60.0)
+        da = da - 20.0          # every step decays by e^-20 or more
+        assert torch.isinf(torch.exp(-da.sum(-1))).all()
+        got = ssd_chunk_cuda(x, da, b, c)
+        want = ref.ref_ssd_chunk(x, da, b, c)
+        torch.cuda.synchronize()
+        for g_, w_ in zip(got, want):
+            _ssd_close(g_, w_)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_forward_with_initial_state_matches_plain(dtype):
+    """ops.ssd_forward on CUDA tensors launches both kernels once and equals
+    its plain route ('off') on the card, with h0 and grouped B/C."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bsz, s, h, p, g, n = 2, 512, 8, 48, 2, 128
+    x = (0.1 * torch.randn(bsz, s, h, p, device=dev, generator=gen)).to(dtype)
+    da = -0.3 * torch.randn(bsz, s, h, device=dev, generator=gen).abs()
+    b = (0.3 * torch.randn(bsz, s, g, n, device=dev, generator=gen)).to(dtype)
+    c = (0.3 * torch.randn(bsz, s, g, n, device=dev, generator=gen)).to(dtype)
+    h0 = 0.1 * torch.randn(bsz, h, p, n, device=dev, generator=gen)
+    before = (ssd_chunk_cuda.launches, ssd_combine_cuda.launches)
+    y, final = ops.ssd_forward(x, da, b, c, 256, h0=h0)
+    assert (ssd_chunk_cuda.launches - before[0], ssd_combine_cuda.launches - before[1]) == (1, 1)
+    y_p, final_p = ops.ssd_forward(x, da, b, c, 256, mode="off", h0=h0)
+    torch.cuda.synchronize()
+    _ssd_close(final, final_p)
+    if dtype == torch.float32:
+        _ssd_close(y, y_p)
+    else:  # y is cast back to bf16: within one bf16 step (2^-7 relative)
+        np.testing.assert_allclose(y.float().cpu().numpy(), y_p.float().cpu().numpy(),
+                                   rtol=2.0 ** -7, atol=1e-5 * y_p.float().abs().max().item())
+
+
+def _slow_da(dev, shape, q, seed):
+    """da = -U(0, 2/Q): |cum| <= 2 over a chunk, so every 64-row tile of
+    y_diag and y_off, every s-tile and every stage of the state reduction
+    carries weight within e^-2 of the largest.  Under the reference tests'
+    -0.3|N(0, 1)|, exp(cum) at Q = 256 falls under e^-15 after ~64
+    positions and hides all but the first and diagonal tiles."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return -(2.0 / q) * torch.rand(*shape, device=dev, generator=gen)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,p,n", [(q, p, n) for q in (2, 100, 256)
+                                   for p, n in ((48, 128), (64, 64))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_kernels_match_plain_with_every_tile_in_sight(q, p, n, dtype):
+    from repro_torch.kernels import ref
+
+    dev = _cuda()
+    x, _, b, c = _ssd_cells(dev, 6, q, p, n, dtype, seed=q * 1000 + p + n + 7)
+    da = _slow_da(dev, (6, q), q, seed=q + p)
+    got = ssd_chunk_cuda(x, da, b, c)
+    want = ref.ref_ssd_chunk(x, da, b, c)
+    st_in = torch.randn(6, p, n, device=dev)
+    y_off = ssd_combine_cuda(c, want[3], st_in)
+    torch.cuda.synchronize()
+    assert float(want[3].min()) >= -2.0
+    for g_, w_ in zip(got, want):
+        _ssd_close(g_, w_)
+    _ssd_close(y_off, ref.ref_ssd_combine(c, want[3], st_in))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_forward_with_initial_state_and_slow_decay_matches_plain(dtype):
+    """As the h0 test above, with the slow decay: h0 and every chunk's
+    state reach every later position of the 4-chunk prompt."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bsz, s, h, p, g, n = 1, 1024, 8, 64, 1, 64
+    x = (0.1 * torch.randn(bsz, s, h, p, device=dev, generator=gen)).to(dtype)
+    da = _slow_da(dev, (bsz, s, h), 256, seed=5)
+    b = (0.3 * torch.randn(bsz, s, g, n, device=dev, generator=gen)).to(dtype)
+    c = (0.3 * torch.randn(bsz, s, g, n, device=dev, generator=gen)).to(dtype)
+    h0 = 0.1 * torch.randn(bsz, h, p, n, device=dev, generator=gen)
+    before = (ssd_chunk_cuda.launches, ssd_combine_cuda.launches)
+    y, final = ops.ssd_forward(x, da, b, c, 256, h0=h0)
+    assert (ssd_chunk_cuda.launches - before[0], ssd_combine_cuda.launches - before[1]) == (1, 1)
+    y_p, final_p = ops.ssd_forward(x, da, b, c, 256, mode="off", h0=h0)
+    torch.cuda.synchronize()
+    _ssd_close(final, final_p)
+    if dtype == torch.float32:
+        _ssd_close(y, y_p)
+    else:  # y is cast back to bf16: within one bf16 step (2^-7 relative)
+        np.testing.assert_allclose(y.float().cpu().numpy(), y_p.float().cpu().numpy(),
+                                   rtol=2.0 ** -7, atol=1e-5 * y_p.float().abs().max().item())
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_wrappers_reject_what_the_kernels_do_not_take():
+    dev = _cuda()
+    x, da, b, c = _ssd_cells(dev, 2, 16, 8, 8, torch.float32, seed=0)
+    with pytest.raises(TypeError, match="one dtype"):
+        ssd_chunk_cuda(x.half(), da, b.half(), c.half())
+    with pytest.raises(TypeError, match="one dtype"):
+        ssd_chunk_cuda(x, da, b.bfloat16(), c)
+    with pytest.raises(TypeError, match="da must be float32"):
+        ssd_chunk_cuda(x, da.double(), b, c)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_chunk_cuda(x.cpu(), da.cpu(), b.cpu(), c.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_chunk_cuda(x.transpose(1, 2).contiguous().transpose(1, 2), da, b, c)
+    big = _ssd_cells(dev, 1, 257, 8, 8, torch.float32, seed=0)
+    with pytest.raises(ValueError, match="Q <= 256"):
+        ssd_chunk_cuda(*big)
+    wide = _ssd_cells(dev, 1, 16, 65, 8, torch.float32, seed=0)
+    with pytest.raises(ValueError, match="P <= 64"):
+        ssd_chunk_cuda(*wide)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_combine_cuda(c, da, torch.zeros(2, 8, 8, device=dev, dtype=torch.float16))
+    with pytest.raises(ValueError, match="states_in"):
+        ssd_combine_cuda(c, da, torch.zeros(2, 8, 9, device=dev))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ssd_forward(torch.zeros(1, 16, 2, 8), torch.zeros(1, 16, 2),
+                        torch.zeros(1, 16, 1, 8), torch.zeros(1, 16, 1, 8), 16, mode="cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b"])
+def test_cuda_engine_prefill_runs_the_ssd_kernels(arch):
+    """A ServeEngine on CUDA with default arguments runs every Mamba block's
+    prefill SSD as the two kernels (one launch each per block per prefill),
+    and its tokens equal those of the same engine with ssd_kernel_mode='off'."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import Request, ServeEngine
+
+    dev = _cuda()
+    cfg = get_config(arch, smoke=True).scaled(coded=True, coded_parity=2, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (40, 16, 5, 2)]
+    out = {}
+    for mode in (None, "off"):
+        eng = ServeEngine(model, params, n_slots=2, s_max=48, device=dev, ssd_kernel_mode=mode)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=4))
+        before = (ssd_chunk_cuda.launches, ssd_combine_cuda.launches)
+        out[mode] = {r.uid: r.out_tokens for r in eng.run()}
+        launched = (ssd_chunk_cuda.launches - before[0], ssd_combine_cuda.launches - before[1])
+        want = cfg.n_layers * len(prompts) if mode is None else 0
+        assert launched == (want, want)
+    assert out[None] == out["off"]

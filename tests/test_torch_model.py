@@ -43,7 +43,10 @@ def _close(got, want, dtype):
 
 
 def test_configs_copied_letter_for_letter():
-    for arch in ARCHS:
+    from repro_torch.configs import ARCHS as PORTED
+
+    assert set(PORTED) == set(ARCHS) | {"mamba2-130m", "zamba2-1.2b"}
+    for arch in PORTED:
         for smoke in (False, True):
             assert get_config(arch, smoke).__dict__ == jax_config(arch, smoke).__dict__
 
@@ -169,4 +172,4 @@ def test_entry_points_need_a_named_device_without_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model.init_cache(2, 8)
     with pytest.raises(NotImplementedError):
-        build_model(jax_config("mamba2-130m", smoke=True))
+        build_model(jax_config("dbrx-132b", smoke=True))
