@@ -3,6 +3,13 @@
 
     python3 chip_smoke.py              # as run on the card; needs one GPU
     python3 chip_smoke.py --profile    # also a torch.profiler window over engine steps
+    python3 chip_smoke.py --sweep-lt   # only: build, the encode kernels' checks, and
+                                       # lt_encode's span sweep at the LT task's shape
+                                       # (variants of lt_encode.cu built under build/)
+
+A kernel that has a library call computing the same function is timed in
+turns with it on the one card (kernel, library, library, kernel); its row
+prints ms, library_ms, their ratio, bound_ms and the share of the bound.
 
 Phases, one JSON line each; any failure exits non-zero before the last line:
 
@@ -23,8 +30,11 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    1, LT encode with the reserve rows encoded on the card by ``lt_encode``,
    adaptive top-ups under churn (worker 0 dies, worker 1 slows 5x), the
    streaming peeling decode — held to A·x in float64 and to a host-encode
-   run of the same seed; then ``lt_encode`` against its plain version at
-   that call's shapes and at ragged ones.  The reserve is encoded with
+   run of the same seed; then ``lt_encode`` against its plain version, bit
+   for bit, at that call's shapes and at ragged ones: at the task's shape
+   the kernel alone on the CSR that ``torch.sparse.mm`` also gets
+   (``kernel_ms``, in turns with it), the call as ``run_task`` makes it
+   (``ms``) and its compaction (``compaction_ms``).  The reserve is encoded with
    ``TaskSpec``'s default ``encode_mode`` ('device': the card).  m is cut
    only if host memory is short, and the cut is printed;
 4. task, Gaussian: the same at r = 500 (scenario 2's r/20, ten workers),
@@ -50,7 +60,9 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    prefill logits with the SSD kernels against the plain SSD on the card,
    and block 0's SSD of the served bf16 prefill against its plain route;
 9. a ``kernels`` line with every kernel on every path it runs (launch
-   counts read around that path's run), then the device line.
+   counts read around that path's run; ``lt_encode``'s ``ms`` is the
+   call with its compaction, its ``kernel_ms`` the kernel alone, which its
+   ``library_ms`` is held to), then the device line.
 
 It imports nothing of JAX, and exits non-zero without CUDA or without the
 repository's ``src/repro_torch`` beside it.
@@ -102,6 +114,21 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def time_turns(torch, kernel, library, iters: int, warmup: int = 2) -> tuple[float, float, list]:
+    """A kernel and its library call timed in turns on one card (kernel,
+    library, library, kernel), each turn the mean over ``iters`` launches;
+    returns (kernel ms, library ms, the four turns)."""
+    turns = [time_ms(torch, fn, iters, warmup) for fn in (kernel, library, library, kernel)]
+    return (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2, turns
+
+
+def against_library(row: dict, ms_key: str = "ms") -> dict:
+    """The row's ratio to its library call and share of its bound."""
+    row["ratio"] = row[ms_key] / row["library_ms"]
+    row["bound_share"] = row["bound_ms"] / row[ms_key]
+    return row
+
+
 def max_err(torch, got, want) -> tuple[float, float]:
     """(max |got - want|, max |want|), both as floats."""
     return float((got - want).abs().max()), float(want.abs().max())
@@ -126,7 +153,7 @@ def phase_device(torch):
     build_s = time.perf_counter() - t0
     ptxas = {
         name: [ln.strip() for ln in _build.ptxas_report(name).splitlines()
-               if "registers" in ln or "spill" in ln]
+               if "entry function" in ln or "registers" in ln or "spill" in ln]
         for name in _build.SOURCES
     }
     emit({"phase": "device", "torch_device": torch.cuda.get_device_name(0),
@@ -138,8 +165,6 @@ def phase_device(torch):
 def phase_kernels(torch, gen, results: dict) -> None:
     from repro_torch.core.decoding import get_decoder_cache
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.coded_decode import coded_matvec_decode_cuda
-    from repro_torch.kernels.lt_encode import gaussian_encode_cuda
 
     dev = torch.device("cuda")
     rtol = 1e-4  # |kernel - plain| <= rtol * max(1, max|plain|): fp32, other sum order
@@ -190,41 +215,68 @@ def phase_kernels(torch, gen, results: dict) -> None:
         del w, x
     torch.cuda.empty_cache()
 
-    # ---- gaussian_encode: the (13, 3) parity re-encodes of the glm4-9b,
-    # mamba2-130m and zamba2-1.2b heads, G [16, 13] x A [13, br * d_model],
-    # plus ragged shapes
-    enc_shapes = [("glm4-9b raise", 16, 13, 11658 * 4096),
-                  ("mamba2-130m raise", 16, 13, 3868 * 768),
-                  ("zamba2-1.2b raise", 16, 13, 2462 * 2048),
-                  ("ragged", 33, 40, 257), ("ragged", 5, 3, 1001), ("ragged", 16, 14, 1)]
-    for label, q, r, m in enc_shapes:
-        g = torch.randn(q, r, device=dev, generator=gen)
-        a = torch.randn(r, m, device=dev, generator=gen)
-        got = ops.gaussian_encode(g, a, mode="cuda")
-        want = ref.ref_gaussian_encode(g, a)
-        torch.cuda.synchronize()
-        err, scale = max_err(torch, got, want)
-        tol = rtol * max(1.0, scale)
-        row = {"phase": "kernel", "kernel": "gaussian_encode", "shape": label,
-               "g": [q, r], "a": [r, m], "max_abs_err": err, "tol": tol}
-        del got, want
-        if label.endswith("raise"):
-            iters = 10
-            row["ms"] = time_ms(torch, lambda: ops.gaussian_encode(g, a, mode="cuda"), iters)
-            row["plain_ms"] = time_ms(torch, lambda: ref.ref_gaussian_encode(g, a), iters)
-            row["library_ms"] = time_ms(torch, lambda: torch.matmul(g, a), iters)
-            row["library_call"] = "torch.matmul(G, A)"
-            n_bytes = 4 * (q * r + r * m + q * m)
-            row["bound_ms"], row["bound_by"] = bound(n_bytes, 2 * q * r * m)
-            results.setdefault("gaussian_encode", {})[label] = row
-        emit(row)
-        check(err <= tol, f"gaussian_encode {label}: {err} > {tol}")
-        del g, a
-    torch.cuda.empty_cache()
+    kernel_gaussian(torch, gen, results)
     kernel_coded_matvec(torch, gen, results)
     kernel_ssd(torch, results)
     # launches made for these comparisons are not the main path's
     _reset_launches()
+
+
+def gaussian_row(torch, g, a, label: str, timed_iters: int = 0) -> dict:
+    """gaussian_encode on (G, A) against ref_gaussian_encode, to 1e-4 x
+    max(1, max|plain|) (fp32, another sum order); with ``timed_iters``, also
+    timed in turns with torch.matmul(G, A), beside its plain version and bound."""
+    from repro_torch.kernels import ops, ref
+
+    (q, r), m = g.shape, a.shape[1]
+    got = ops.gaussian_encode(g, a, mode="cuda")
+    want = ref.ref_gaussian_encode(g, a)
+    torch.cuda.synchronize()
+    err, scale = max_err(torch, got, want)
+    tol = 1e-4 * max(1.0, scale)
+    row = {"phase": "kernel", "kernel": "gaussian_encode", "shape": label,
+           "g": [q, r], "a": [r, m], "max_abs_err": err, "tol": tol}
+    del got, want
+    if timed_iters:
+        row["ms"], row["library_ms"], row["turns_ms"] = time_turns(
+            torch, lambda: ops.gaussian_encode(g, a, mode="cuda"), lambda: torch.matmul(g, a),
+            timed_iters)
+        row["library_call"] = "torch.matmul(G, A)"
+        row["plain_ms"] = time_ms(torch, lambda: ref.ref_gaussian_encode(g, a), timed_iters)
+        row["bound_ms"], row["bound_by"] = bound(4 * (q * r + r * m + q * m), 2 * q * r * m)
+        against_library(row)
+    emit(row)
+    check(err <= tol, f"gaussian_encode {label}: {err} > {tol}")
+    return row
+
+
+def kernel_gaussian(torch, gen, results: dict) -> None:
+    """gaussian_encode at the (13, 3) parity re-encodes of the glm4-9b,
+    mamba2-130m and zamba2-1.2b heads, G [16, 13] x A [13, br * d_model],
+    timed; then ragged shapes: every q-tile edge, an r across G's
+    shared-memory panel, M = 1, M % 4 != 0 and a misaligned view of A
+    (scalar loads)."""
+    dev = torch.device("cuda")
+    enc_shapes = [("glm4-9b raise", 16, 13, 11658 * 4096),
+                  ("mamba2-130m raise", 16, 13, 3868 * 768),
+                  ("zamba2-1.2b raise", 16, 13, 2462 * 2048),
+                  ("ragged", 33, 40, 257), ("ragged", 5, 3, 1001), ("ragged", 16, 14, 1),
+                  *(("ragged q-tile edge", q, 13, 100_003) for q in (1, 8, 9, 17, 26, 32, 33, 70)),
+                  ("ragged r across panels", 32, 1500, 20_000),
+                  ("misaligned view", 26, 500, 20_000)]
+    for label, q, r, m in enc_shapes:
+        g = torch.randn(q, r, device=dev, generator=gen)
+        if label.startswith("misaligned"):
+            a = torch.randn(1 + r * m, device=dev, generator=gen)[1:].view(r, m)
+            check(a.data_ptr() % 16 != 0, "the misaligned view is aligned")
+        else:
+            a = torch.randn(r, m, device=dev, generator=gen)
+        timed = label.endswith("raise")
+        row = gaussian_row(torch, g, a, label, 10 if timed else 0)
+        if timed:
+            results.setdefault("gaussian_encode", {})[label] = row
+        del g, a
+    torch.cuda.empty_cache()
 
 
 def kernel_coded_matvec(torch, gen, results: dict) -> None:
@@ -594,19 +646,23 @@ def phase_task_lt(torch, args, results: dict, smi: str) -> None:
 
 
 def kernel_lt_encode(torch, a_host, plan, results: dict) -> None:
-    """lt_encode on the card against ref_lt_encode: the task phase's own call
-    (A [r, m], its reserve slice of the plan) in full, and ragged shapes."""
+    """lt_encode on the card against ref_lt_encode, bit for bit: the task
+    phase's own call (A [r, m], its reserve slice of the plan) in full, and
+    ragged shapes.  At the task's shape the kernel alone, on the CSR that
+    torch.sparse.mm also gets, is timed in turns with it; the call as
+    run_task makes it (compaction and kernel) and the compaction alone
+    beside them."""
     from repro_torch.core.encoding import LTCode
     from repro_torch.kernels import ref
-    from repro_torch.kernels.lt_encode import lt_encode_cuda
+    from repro_torch.kernels.lt_encode import _lt_csr, _lt_launch, lt_encode_cuda
 
     dev = torch.device("cuda")
-    rtol = 1e-4  # |kernel - plain| <= rtol * max(1, max|plain|)
     gen = np.random.default_rng(7)
     shapes = [("task reserve slice", torch.as_tensor(a_host, device=dev),
                plan.indices, plan.coeffs)]
     # ragged: M % 4 != 0 (scalar loads); zeros mid-row with non-unit
-    # coefficients and a degree-0 row; q = 1 with d_max = 1
+    # coefficients and a degree-0 row; q = 1 with d_max = 1; rows of degree
+    # over 64 (heavy units) across many 128-column spans
     lt = LTCode(300, seed=3).plan(420)
     shapes.append(("ragged M % 4 != 0", torch.randn(300, 4097, device=dev),
                    lt.indices[300:], lt.coeffs[300:]))
@@ -617,43 +673,51 @@ def kernel_lt_encode(torch, a_host, plan, results: dict) -> None:
     shapes.append(("ragged zeros mid-row", torch.randn(200, 1030, device=dev), idx, cof))
     shapes.append(("ragged q = 1, d_max = 1", torch.randn(3, 4100, device=dev),
                    np.array([[2]], np.int32), np.array([[0.5]], np.float32)))
+    idx = gen.integers(0, 500, (90, 200)).astype(np.int32)
+    cof = gen.standard_normal((90, 200)).astype(np.float32)
+    cof[gen.random((90, 200)) < 0.6] = 0.0
+    shapes.append(("ragged heavy rows", torch.randn(500, 50_001, device=dev), idx, cof))
     for label, a, idx, cof in shapes:
         i_t = torch.as_tensor(idx, device=dev)
         c_t = torch.as_tensor(cof, device=dev)
         got = lt_encode_cuda(a, i_t, c_t)
         want = ref.ref_lt_encode(a, i_t, c_t)
         torch.cuda.synchronize()
-        err, scale = max_err(torch, got, want)
-        tol = rtol * max(1.0, scale)
+        err, _ = max_err(torch, got, want)
         nnz = int(np.count_nonzero(cof))
         q, d_max = idx.shape
         row = {"phase": "kernel", "kernel": "lt_encode", "shape": label,
                "a": list(a.shape), "q": q, "d_max": d_max, "nonzeros": nnz,
                "max_degree": int((cof != 0).sum(1).max()),
-               "max_abs_err": err, "tol": tol}
+               "max_abs_err": err, "tol": 0.0}  # the plain version's bits
         del got, want
         if label.startswith("task"):
-            m = a.shape[1]
-            row["ms"] = time_ms(torch, lambda: lt_encode_cuda(a, i_t, c_t), 5)
+            r, m = a.shape
+            csr = _lt_csr(i_t, c_t, r)
+            sparse = torch.sparse_csr_tensor(csr.row_ptr, csr.cols.long(), csr.vals,
+                                             size=(q, r), check_invariants=False)
+            row["kernel_ms"], row["library_ms"], row["turns_ms"] = time_turns(
+                torch, lambda: _lt_launch(a, csr), lambda: torch.sparse.mm(sparse, a), 3,
+                warmup=1)
+            row["library_call"] = "torch.sparse.mm(CSR generator [q, r], A), the same CSR"
+            row["ms"] = time_ms(torch, lambda: lt_encode_cuda(a, i_t, c_t), 3, warmup=1)
+            row["compaction_ms"] = time_ms(torch, lambda: _lt_csr(i_t, c_t, r), 3, warmup=1)
+            row["compaction_share"] = row["compaction_ms"] / row["ms"]
             row["plain_ms"] = time_ms(torch, lambda: ref.ref_lt_encode(a, i_t, c_t), 2, warmup=1)
-            nz = c_t != 0
-            csr = torch.sparse_csr_tensor(
-                torch.nn.functional.pad(nz.sum(1).cumsum(0), (1, 0)),
-                i_t[nz].long(), c_t[nz], size=(q, a.shape[0]), check_invariants=False)
-            row["library_ms"] = time_ms(torch, lambda: torch.sparse.mm(csr, a), 3, warmup=1)
-            row["library_call"] = "torch.sparse.mm(CSR generator [q, r], A)"
             # each input read once: the rows of A the table references, the
             # padded table; the output written once
-            used_rows = int(torch.unique(i_t[nz]).numel())
+            used_rows = int(torch.unique(csr.cols).numel())
             n_bytes = 4 * used_rows * m + 8 * q * d_max + 4 * q * m
             row["bound_ms"], row["bound_by"] = bound(n_bytes, 2 * nnz * m)
             row["a_rows_used"] = used_rows
+            row["heavy_rows"] = csr.n_heavy
             # the same, had every nonzero entry to stream its row of A anew
             row["bound_no_reuse_ms"] = bound(n_bytes + 4 * (nnz - used_rows) * m, 0)[0]
+            against_library(row, "kernel_ms")
             results.setdefault("lt_encode", {})["task"] = row
-            del csr
+            del csr, sparse
         emit(row)
-        check(err <= tol, f"lt_encode {label}: {err} > {tol}")
+        check(err == 0.0, f"lt_encode {label}: {err} != 0 (the plain version's bits)")
         del a, i_t, c_t
         torch.cuda.empty_cache()
     lt_encode_cuda.launches = 0  # comparison launches are not the path's
@@ -664,7 +728,6 @@ def phase_task_gaussian(torch, args, results: dict, smi: str) -> None:
     encoded by gaussian_encode on the card; then gaussian_encode at that
     call's shape."""
     from repro_torch.cluster import ec2_scenario
-    from repro_torch.kernels import ref
     from repro_torch.kernels.lt_encode import gaussian_encode_cuda
 
     r_full, workers = ec2_scenario(2)
@@ -703,23 +766,10 @@ def phase_task_gaussian(torch, args, results: dict, smi: str) -> None:
     dev = torch.device("cuda")
     g = torch.as_tensor(np.ascontiguousarray(enc["plan"].coeffs), device=dev)
     a_t = torch.as_tensor(a, device=dev)
-    got = gaussian_encode_cuda(g, a_t)
-    want = ref.ref_gaussian_encode(g, a_t)
-    torch.cuda.synchronize()
-    err, scale = max_err(torch, got, want)
-    q = g.shape[0]
-    krow = {"phase": "kernel", "kernel": "gaussian_encode", "shape": "task reserve slice",
-            "g": [q, r], "a": [r, m], "max_abs_err": err, "tol": 1e-4 * max(1.0, scale),
-            "ms": time_ms(torch, lambda: gaussian_encode_cuda(g, a_t), 20),
-            "plain_ms": time_ms(torch, lambda: ref.ref_gaussian_encode(g, a_t), 20),
-            "library_ms": time_ms(torch, lambda: torch.matmul(g, a_t), 20),
-            "library_call": "torch.matmul(G, A)"}
-    krow["bound_ms"], krow["bound_by"] = bound(4 * (q * r + r * m + q * m), 2 * q * r * m)
-    emit(krow)
-    check(err <= krow["tol"], f"gaussian_encode task shape: {err} > {krow['tol']}")
-    results.setdefault("gaussian_encode", {})["task"] = krow
+    results.setdefault("gaussian_encode", {})["task"] = gaussian_row(
+        torch, g, a_t, "task reserve slice", 20)
     gaussian_encode_cuda.launches = 0
-    del g, a_t, got, want
+    del g, a_t
     torch.cuda.empty_cache()
 
 
@@ -1178,6 +1228,112 @@ def _leaves(tree):
         yield tree
 
 
+LT_SWEEP = [(quads, rows, heavy) for quads in (1, 2, 4, 8)
+            for rows, heavy in ((8, True), (16, True), (32, True), (16, False))]
+
+
+def _lt_variants(settings) -> dict:
+    """lt_encode.cu rebuilt with other span and chunk constants (kSpanQuads
+    column quads a lane, kRowsPerChunk light rows a unit), one nvcc each,
+    started together, under build/lt_sweep; {(quads, rows): its C entry}."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC / "lt_encode.cu").read_text()
+    out_dir = _build.BUILD_DIR.parent / "lt_sweep"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for quads, rows in settings:
+        text = src
+        for name, value in (("kSpanQuads", quads), ("kRowsPerChunk", rows)):
+            text, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};",
+                              text)
+            check(n == 1, f"lt_encode.cu defines {name} {n} times, not once")
+        cu = out_dir / f"lt_encode_q{quads}_r{rows}.cu"
+        cu.write_text(text)
+        lib = cu.with_suffix(".so")
+        procs[(quads, rows)] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    p = ctypes.c_void_p
+    for key, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"nvcc of the lt_encode variant {key}:\n{log}")
+        fn = ctypes.CDLL(str(lib)).lt_encode
+        fn.argtypes = [p, p, p, p, p, p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, p, p]
+        fn.restype = ctypes.c_int
+        fns[key] = fn
+    return fns
+
+
+def sweep_lt(torch, args, smi: str) -> None:
+    """lt_encode alone at the LT task's reserve slice (A [5,000, 500,000])
+    for each span width (128 x 1, 2, 4, 8 columns), light rows per unit (8,
+    16, 32) and with and without the heavy-row split (a CSR that marks no
+    row heavy), each a variant of lt_encode.cu built here, timed in turns
+    with torch.sparse.mm on the same CSR and held to the plain version's
+    bits; one JSON line.  The table is the task's own (scenario 1, this
+    seed): the task runs in model time, so its trajectory does not depend
+    on m and a run at m = 8 on the CPU gives it."""
+    from repro_torch.cluster import ClusterEmulator, TaskSpec, ec2_scenario
+    from repro_torch.core.adaptive import ReallocationPolicy
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lt_encode import _lt_csr
+
+    t0 = time.perf_counter()
+    variants = _lt_variants(sorted({(quads, rows) for quads, rows, _ in LT_SWEEP}))
+    build_s = time.perf_counter() - t0
+    r, workers = ec2_scenario(1)
+    rng = np.random.default_rng(args.seed)
+    em = ClusterEmulator(workers, time_scale=1e-3, seed=args.seed, device="cpu")
+    em.run_task(rng.standard_normal((r, 8)).astype(np.float32),
+                rng.standard_normal(8).astype(np.float32),
+                TaskSpec(scheme="bpcc", code="lt", adaptive=ReallocationPolicy(),
+                         churn=_churn(r), encode_mode="device"))
+    plan = em.last_encode["plan"]
+    dev = torch.device("cuda")
+    a = torch.randn(r, PAPER_M, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(args.seed))
+    i_t = torch.as_tensor(plan.indices, device=dev)
+    c_t = torch.as_tensor(plan.coeffs, device=dev)
+    q, m = i_t.shape[0], PAPER_M
+    want = ref.ref_lt_encode(a, i_t, c_t)
+    csr = _lt_csr(i_t, c_t, r)
+    sparse = torch.sparse_csr_tensor(csr.row_ptr, csr.cols.long(), csr.vals, size=(q, r),
+                                     check_invariants=False)
+    stream = torch.cuda.current_stream().cuda_stream
+    runs = []
+    for quads, rows, heavy in LT_SWEEP:
+        fn, c = variants[(quads, rows)], csr if heavy else csr._replace(n_heavy=0)
+        out = torch.empty(q, m, device=dev)
+        counter = torch.zeros(1, dtype=torch.int64, device=dev)
+
+        def launch():
+            counter.zero_()
+            err = fn(a.data_ptr(), c.row_ptr.data_ptr(), c.cols.data_ptr(), c.vals.data_ptr(),
+                     c.order.data_ptr(), out.data_ptr(), q, m, c.n_heavy, counter.data_ptr(),
+                     stream)
+            check(err == 0, f"lt_encode variant ({quads}, {rows}): cudaError {err}")
+
+        launch()
+        torch.cuda.synchronize()
+        exact = torch.equal(out, want)
+        kernel_ms, library_ms, turns = time_turns(
+            torch, launch, lambda: torch.sparse.mm(sparse, a), 3, warmup=1)
+        runs.append({"span": 128 * quads, "rows_per_chunk": rows, "heavy_split": heavy,
+                     "kernel_ms": kernel_ms, "library_ms": library_ms,
+                     "ratio": kernel_ms / library_ms, "turns_ms": turns, "bit_equal": exact})
+        check(exact, f"lt_encode span {128 * quads}, {rows} rows, heavy {heavy}: "
+                     "not the plain version's bits")
+        del out
+    emit({"phase": "sweep lt", "q": q, "r": r, "m": m, "nonzeros": int(csr.cols.numel()),
+          "heavy_rows": csr.n_heavy, "max_degree": int((c_t != 0).sum(1).max()),
+          "variant_build_s": build_s, "card": smi, "runs": runs})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=40,
@@ -1185,6 +1341,10 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler window over 3 engine steps")
+    ap.add_argument("--sweep-lt", action="store_true",
+                    help="only build, check the encode kernels and sweep lt_encode's "
+                         "span width, light rows a unit and heavy split at the LT task's "
+                         "shape (no serve, no device line)")
     args = ap.parse_args()
 
     import torch
@@ -1202,6 +1362,13 @@ def main() -> int:
     smi = phase_device(torch)
     results: dict = {}
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    if args.sweep_lt:
+        kernel_gaussian(torch, gen, results)
+        gaussian_row(torch, torch.randn(26, 500, device="cuda", generator=gen),
+                     torch.randn(500, GAUSSIAN_TASK_M, device="cuda", generator=gen),
+                     "task shape, random G", 20)
+        sweep_lt(torch, args, smi)
+        return 0
     phase_kernels(torch, gen, results)
     phase_task_lt(torch, args, results, smi)
     phase_task_gaussian(torch, args, results, smi)
@@ -1252,9 +1419,11 @@ def main() -> int:
         launches = phase.get("device_encode", phase)["launches"]
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": launches[name], "max_abs_err": r["max_abs_err"],
-                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                 "path": path, "shape": r["shape"]}
+                 "ms": r["ms"], "plain_ms": r["plain_ms"],
+                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                 "library_ms": r["library_ms"], "path": path, "shape": r["shape"]}
+        if "kernel_ms" in r:  # lt_encode: ms is the call; kernel_ms the kernel alone
+            entry["kernel_ms"] = r["kernel_ms"]
         if "cut" in phase:  # the task phases: the cut of r and m, or None
             entry.update(r=phase["r"], m=phase["m"], cut=phase["cut"])
         kernels.append(entry)

@@ -22,7 +22,13 @@ from repro_torch.core.encoding import GaussianCode, LTCode
 from repro_torch.kernels import ops
 from repro_torch.kernels.coded_decode import coded_matvec_decode_cuda
 from repro_torch.kernels.coded_matvec import coded_matvec_cuda
-from repro_torch.kernels.lt_encode import gaussian_encode_cuda, lt_encode_cuda
+from repro_torch.kernels.lt_encode import (
+    LT_HEAVY_DEGREE,
+    _lt_csr,
+    _lt_launch,
+    gaussian_encode_cuda,
+    lt_encode_cuda,
+)
 from repro_torch.kernels.ssd_scan import ssd_chunk_cuda, ssd_combine_cuda
 
 # (r, m, b): the reference's coded_matvec sweep (tests/test_kernels.py), then
@@ -37,13 +43,21 @@ DECODE_SHAPES = [
     (14, 2, 515, 130, 4),
     (13, 3, 77, 516, 16),
 ]
-# (q, r, m): the encode's skinny K, ragged q / r / M
-ENCODE_SHAPES = [(16, 13, 700), (16, 14, 1), (5, 3, 129), (33, 40, 257), (1, 1, 4)]
+# (q, r, m): the encode's skinny K, ragged q / r / M; then every q-tile
+# edge (QT is q rounded up to 4, tiles of at most 32 rows); an r that
+# crosses G's 64 KB shared-memory panel (QT 32: 512 rows); and M spanning
+# many grid-stride steps of the persistent grid (M % 4 == 0 and != 0)
+ENCODE_SHAPES = [(16, 13, 700), (16, 14, 1), (5, 3, 129), (33, 40, 257), (1, 1, 4),
+                 *((q, 13, 1031) for q in (1, 8, 9, 16, 17, 26, 32, 33, 70)),
+                 (26, 500, 2048), (32, 1500, 517), (70, 2000, 260),
+                 (16, 13, 4_000_000), (26, 50, 1_000_003)]
 # (q, d_max, r, m, zero_frac): LT degree tables with zeros anywhere in a row
-# and a degree-0 row; M % 4 != 0 (scalar loads), M over one 4096-column span,
-# q = 1 with d_max = 1, more entries in a row than one shared-memory stage
+# and a degree-0 row; M % 4 != 0 (scalar loads), M over several 128-column
+# spans, q = 1 with d_max = 1, rows of degree over 64 (the heavy path) and
+# light rows of over 32 entries; M spanning many narrow spans
 LT_SHAPES = [(6, 5, 20, 64, 0.4), (9, 3, 11, 129, 0.5), (1, 1, 3, 7, 0.0),
-             (40, 7, 30, 4097, 0.3), (3, 600, 1000, 8200, 0.2), (70000, 2, 5, 4, 0.0)]
+             (40, 7, 30, 4097, 0.3), (3, 600, 1000, 8200, 0.2), (70000, 2, 5, 4, 0.0),
+             (50, 100, 300, 5000, 0.3), (20, 64, 100, 1031, 0.1), (300, 40, 500, 20_000, 0.6)]
 
 # (Q, P, N): chunk lengths 2 (a 2-token prompt), 100 (a 100-token prompt)
 # and 256 (full chunks) at the full widths of mamba2-130m (P 48, N 128) and
@@ -115,7 +129,7 @@ def _lt_table(q, d_max, r, zero_frac, seed):
 @pytest.mark.parametrize("q,d_max,r,m,zero_frac", LT_SHAPES)
 def test_cuda_lt_encode_matches_plain(q, d_max, r, m, zero_frac):
     """The kernel sums in the plain version's order with the same roundings,
-    so the two agree bit for bit; the tolerance is still the file's."""
+    so the two agree bit for bit: asserted on top of the file's tolerance."""
     dev = _cuda()
     idx, cof = _lt_table(q, d_max, r, zero_frac, q + m)
     a = torch.as_tensor(np.random.default_rng(m).standard_normal((r, m)).astype(np.float32),
@@ -128,8 +142,80 @@ def test_cuda_lt_encode_matches_plain(q, d_max, r, m, zero_frac):
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
                                atol=1e-4 * max(1.0, want.abs().max().item()))
+    assert torch.equal(got, want)
     if q > 1:
         assert not got[q // 2].any()
+
+
+@pytest.mark.parametrize("m", [3001, 3000, 128, 33])
+@pytest.mark.gpu
+def test_cuda_lt_encode_full_chunks_heavy_rows_and_empty_rows_bit_equal(m):
+    """A table built to reach every kind of unit: two heavy rows (degree 70
+    and 190), 64 light rows (four full chunks of 16, their lists past 32
+    entries), degree-0 rows among them, two of them adjacent; then the same
+    CSR with no row marked heavy, so the heavy rows run as light ones.
+    Both give the plain version's bits, in the float4 and scalar variants."""
+    dev = _cuda()
+    rng = np.random.default_rng(m)
+    idx = rng.integers(0, 200, (66, 190)).astype(np.int32)
+    cof = rng.standard_normal((66, 190)).astype(np.float32)
+    cof[:, 40:] = 0.0
+    cof[rng.random((66, 190)) < 0.5] = 0.0  # light rows of degree ~20
+    cof[7, :70] = 1.5                       # degree 70: heavy
+    cof[50] = rng.standard_normal(190)      # degree 190: heavy
+    cof[[3, 20, 21, 65]] = 0.0              # degree-0 rows
+    a = torch.as_tensor(rng.standard_normal((200, m)).astype(np.float32), device=dev)
+    i_t, c_t = torch.as_tensor(idx, device=dev), torch.as_tensor(cof, device=dev)
+    want = ops.lt_encode(a, i_t, c_t, mode="off")
+    csr = _lt_csr(i_t, c_t, 200)
+    assert csr.n_heavy == 2 and LT_HEAVY_DEGREE < 70
+    for c in (csr, csr._replace(n_heavy=0)):
+        got = _lt_launch(a, c)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), c.n_heavy
+    assert not want[[3, 20, 21, 65]].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_cuda_encode_kernels_on_misaligned_views(offset):
+    """A viewed from an element offset into a flat buffer (M % 4 == 0, the
+    start off a 16-byte boundary): both kernels take their scalar loads."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(offset)
+    r, m = 40, 2052
+    a = torch.randn(offset + r * m, device=dev, generator=gen)[offset:].view(r, m)
+    assert a.data_ptr() % 16 != 0 and a.is_contiguous()
+    g = torch.randn(26, r, device=dev, generator=gen)
+    got = gaussian_encode_cuda(g, a)
+    want = ops.gaussian_encode(g, a, mode="off")
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4 * max(1.0, want.abs().max().item()))
+    idx, cof = _lt_table(30, 40, r, 0.2, offset)
+    i_t, c_t = torch.as_tensor(idx, device=dev), torch.as_tensor(cof, device=dev)
+    got = lt_encode_cuda(a, i_t, c_t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.lt_encode(a, i_t, c_t, mode="off"))
+
+
+@pytest.mark.gpu
+def test_cuda_gaussian_encode_64bit_offsets():
+    """Row 2 of A and of out start past 2^31 elements (2.2e9)."""
+    dev = _cuda()
+    free, _ = torch.cuda.mem_get_info()
+    m = 1_100_000_000
+    if free < 4 * 8 * m * 1.2:
+        pytest.skip(f"needs {32 * m / 1e9:.1f} GB of free device memory")
+    a = torch.zeros(3, m, device=dev)
+    a[:, -5000:].normal_()
+    a[:, :5000].normal_()
+    g = torch.tensor([[1.0, 0.0, 2.0], [0.5, 0.0, 0.0], [0.0, 0.0, 1.0]], device=dev)
+    got = gaussian_encode_cuda(g, a)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], a[0] + 2.0 * a[2])
+    assert torch.equal(got[1], 0.5 * a[0])
+    assert torch.equal(got[2], a[2])
 
 
 @pytest.mark.gpu
