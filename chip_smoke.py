@@ -6,6 +6,11 @@
     python3 chip_smoke.py --sweep-lt   # only: build, the encode kernels' checks, and
                                        # lt_encode's span sweep at the LT task's shape
                                        # (variants of lt_encode.cu built under build/)
+    python3 chip_smoke.py --sweep-head # only: build, the head kernels' checks, the
+                                       # B = 1 heads in 30 pairs of turns with
+                                       # torch.matmul, and thin_rows.cuh's settings at
+                                       # the glm4-9b and Mamba-2 heads' shapes
+                                       # (variants built under build/head_sweep)
 
 A kernel that has a library call computing the same function is timed in
 turns with it on the one card (kernel, library, library, kernel); its row
@@ -16,9 +21,10 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
 1. device: name, ``nvidia-smi`` name and power limit, kernel build seconds
    (one ``nvcc`` per source, started together);
 2. kernels: the serving kernels against their plain PyTorch versions on the
-   card, at the serving path's shapes (glm4-9b head at B = 1 and B = 4, the
-   (13, 3) parity re-encode, the mesh head's [10826, 4096] code block; the
-   mamba2-130m and zamba2-1.2b heads and raises; ``ssd_chunk`` and
+   card, at the serving path's shapes (the glm4-9b, mamba2-130m and
+   zamba2-1.2b heads at B = 1 and B = 4, the (13, 3) parity re-encodes,
+   the mesh head's [10826, 4096] code block at B = 1 and 4, each head
+   kernel launched twice and held to its own bits; ``ssd_chunk`` and
    ``ssd_combine`` at both Mamba-2 widths for prompts of 4096, 1000 (padded
    to 1024), 100 and 2 tokens in bf16 and fp32, under the reference tests'
    decay and a slow one that keeps every tile in sight, a cell whose exp
@@ -72,6 +78,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import itertools
 import json
 import os
 import resource
@@ -122,6 +129,33 @@ def time_turns(torch, kernel, library, iters: int, warmup: int = 2) -> tuple[flo
     return (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2, turns
 
 
+def host_ms(torch, fn, calls: int = 200) -> float:
+    """Host time (ms) of one call of ``fn``, over ``calls`` back-to-back
+    calls with no sync between them (the device runs behind)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return t
+
+
+def head_host_cost(torch, row: dict, wrapper, source: str, w, x, rec, iters: int) -> None:
+    """What the wrapper adds to a head kernel's launch: the wrapper's calls
+    and the bare C entry's (on the wrapper's plan) timed in turns on the
+    device, and each one's host time a call (``host_ms``)."""
+    from repro_torch.kernels import _build, thin_rows
+
+    direct, _, _ = _head_launch(
+        torch, _build.load(source),
+        (thin_rows.WARPS, thin_rows.ROWS_PER_WARP, thin_rows.BLOCKS_PER_SM), w, x, rec)
+    row["wrapper_ms"], row["direct_ms"], _ = time_turns(torch, wrapper, direct, iters)
+    row["host_ms_wrapper"] = host_ms(torch, wrapper)
+    row["host_ms_direct"] = host_ms(torch, direct)
+
+
 def against_library(row: dict, ms_key: str = "ms") -> dict:
     """The row's ratio to its library call and share of its bound."""
     row["ratio"] = row[ms_key] / row["library_ms"]
@@ -163,63 +197,88 @@ def phase_device(torch):
 
 
 def phase_kernels(torch, gen, results: dict) -> None:
-    from repro_torch.core.decoding import get_decoder_cache
-    from repro_torch.kernels import ops, ref
-
-    dev = torch.device("cuda")
-    rtol = 1e-4  # |kernel - plain| <= rtol * max(1, max|plain|): fp32, other sum order
-
-    # ---- coded_matvec_decode: glm4-9b head (14 + 2 blocks of 10826 rows x 4096)
-    # plus ragged shapes (odd br, M % 4 != 0 -> scalar loads, B up to 16)
-    # plus the mamba2-130m (tied, [50280, 768]) and zamba2-1.2b ([32000,
-    # 2048]) heads: br = ceil(vocab / n_data)
-    head_shapes = [("glm4-9b prefill", 14, 2, 10826, 4096, 1),
-                   ("glm4-9b decode", 14, 2, 10826, 4096, 4),
-                   ("glm4-9b decode after raise", 13, 3, 11658, 4096, 4),
-                   ("mamba2-130m decode", 14, 2, 3592, 768, 4),
-                   ("mamba2-130m decode after raise", 13, 3, 3868, 768, 4),
-                   ("zamba2-1.2b decode", 14, 2, 2286, 2048, 4),
-                   ("zamba2-1.2b decode after raise", 13, 3, 2462, 2048, 4),
-                   ("ragged", 13, 3, 1001, 4097, 3),
-                   ("ragged", 6, 2, 77, 516, 16)]
-    timed = ("glm4-9b prefill", "glm4-9b decode", "mamba2-130m decode", "zamba2-1.2b decode")
-    for label, n_data, n_parity, br, m, b in head_shapes:
-        nb = n_data + n_parity
-        w = torch.randn(nb * br, m, device=dev, generator=gen)
-        x = torch.randn(m, b, device=dev, generator=gen)
-        cache = get_decoder_cache(n_data, n_parity)
-        for erased in ((), (1, nb - 1)):
-            mask = torch.ones(nb, device=dev)
-            mask[list(erased)] = 0.0
-            rec = cache.recovery(mask)
-            got = ops.coded_matvec_decode(w, x, rec, mode="cuda")
-            want = ref.ref_coded_matvec_decode(w, x, rec)
-            torch.cuda.synchronize()
-            err, scale = max_err(torch, got, want)
-            tol = rtol * max(1.0, scale)
-            row = {"phase": "kernel", "kernel": "coded_matvec_decode", "shape": label,
-                   "w": [nb * br, m], "b": b, "erased": list(erased),
-                   "max_abs_err": err, "tol": tol}
-            if not erased and label in timed:
-                iters = 20
-                row["ms"] = time_ms(torch, lambda: ops.coded_matvec_decode(w, x, rec, mode="cuda"), iters)
-                row["plain_ms"] = time_ms(torch, lambda: ref.ref_coded_matvec_decode(w, x, rec), iters)
-                row["library_ms"] = time_ms(torch, lambda: torch.matmul(w, x), iters)
-                row["library_call"] = "torch.matmul(W_c, x), the block product alone (partial yardstick)"
-                n_bytes = 4 * (w.numel() + x.numel() + rec.numel() + n_data * br * b)
-                n_ops = 2 * nb * br * m * b + 2 * n_data * nb * br * b
-                row["bound_ms"], row["bound_by"] = bound(n_bytes, n_ops)
-                results.setdefault("coded_matvec_decode", {})[label] = row
-            emit(row)
-            check(err <= tol, f"coded_matvec_decode {label} erased={erased}: {err} > {tol}")
-        del w, x
-    torch.cuda.empty_cache()
-
+    kernel_coded_decode(torch, gen, results)
     kernel_gaussian(torch, gen, results)
     kernel_coded_matvec(torch, gen, results)
     kernel_ssd(torch, results)
     # launches made for these comparisons are not the main path's
     _reset_launches()
+
+
+def kernel_coded_decode(torch, gen, results: dict) -> None:
+    """coded_matvec_decode against ref_coded_matvec_decode: the glm4-9b head
+    (14 + 2 blocks of 10826 rows x 4096), the mamba2-130m (tied, [50280,
+    768]) and zamba2-1.2b ([32000, 2048]) heads (br = ceil(vocab / n_data))
+    at B = 1 (prefill) and 4 (decode), timed in turns with torch.matmul(W_c,
+    x), and through the wrapper against the bare C entry (head_host_cost);
+    and ragged shapes: odd br, M % 4 != 0 (scalar loads), B up to 16 with
+    x in panels, tiles below the SM count, 1, 17 and 32 blocks.  Each is
+    launched twice and the two results must be bit-equal."""
+    from repro_torch.core.decoding import get_decoder_cache
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    rtol = 1e-4  # |kernel - plain| <= rtol * max(1, max|plain|): fp32, other sum order
+    head_shapes = [("glm4-9b prefill", 14, 2, 10826, 4096, 1),
+                   ("glm4-9b decode", 14, 2, 10826, 4096, 4),
+                   ("glm4-9b decode after raise", 13, 3, 11658, 4096, 4),
+                   ("mamba2-130m prefill", 14, 2, 3592, 768, 1),
+                   ("mamba2-130m decode", 14, 2, 3592, 768, 4),
+                   ("mamba2-130m decode after raise", 13, 3, 3868, 768, 4),
+                   ("zamba2-1.2b prefill", 14, 2, 2286, 2048, 1),
+                   ("zamba2-1.2b decode", 14, 2, 2286, 2048, 4),
+                   ("zamba2-1.2b decode after raise", 13, 3, 2462, 2048, 4),
+                   ("ragged", 13, 3, 1001, 4097, 3),
+                   ("ragged", 6, 2, 77, 516, 16),
+                   ("ragged x in panels", 6, 2, 300, 4100, 16),
+                   # a dense R (no cache beyond 20 blocks): one block, tiles
+                   # below the SMs; 17 blocks, one row each a tile; 32 blocks
+                   ("ragged tiles below the SMs", 1, 0, 200, 260, 2),
+                   ("ragged one row a tile", 17, 0, 133, 132, 5),
+                   ("ragged 32 blocks", 30, 2, 70, 1028, 1)]
+    timed = ("glm4-9b prefill", "glm4-9b decode", "mamba2-130m prefill", "mamba2-130m decode",
+             "zamba2-1.2b prefill", "zamba2-1.2b decode")
+    for label, n_data, n_parity, br, m, b in head_shapes:
+        nb = n_data + n_parity
+        w = torch.randn(nb * br, m, device=dev, generator=gen)
+        x = torch.randn(m, b, device=dev, generator=gen)
+        if nb <= 20 and n_parity:
+            cache = get_decoder_cache(n_data, n_parity)
+            recs = [((), cache.recovery(torch.ones(nb, device=dev)))]
+            mask = torch.ones(nb, device=dev)
+            mask[[1, nb - 1]] = 0.0
+            recs.append(((1, nb - 1), cache.recovery(mask)))
+        else:  # a dense R: every block adds into every decoded row
+            recs = [((), torch.randn(n_data, nb, device=dev, generator=gen))]
+        for erased, rec in recs:
+            got = ops.coded_matvec_decode(w, x, rec, mode="cuda")
+            want = ref.ref_coded_matvec_decode(w, x, rec)
+            again = ops.coded_matvec_decode(w, x, rec, mode="cuda")
+            torch.cuda.synchronize()
+            err, scale = max_err(torch, got, want)
+            tol = rtol * max(1.0, scale)
+            row = {"phase": "kernel", "kernel": "coded_matvec_decode", "shape": label,
+                   "w": [nb * br, m], "b": b, "erased": list(erased),
+                   "max_abs_err": err, "tol": tol, "bit_equal_relaunch": torch.equal(got, again)}
+            del got, want, again
+            if not erased and label in timed:
+                row["ms"], row["library_ms"], row["turns_ms"] = time_turns(
+                    torch, lambda: ops.coded_matvec_decode(w, x, rec, mode="cuda"),
+                    lambda: torch.matmul(w, x), 20)
+                row["library_call"] = "torch.matmul(W_c, x), the block product alone (partial yardstick)"
+                row["plain_ms"] = time_ms(torch, lambda: ref.ref_coded_matvec_decode(w, x, rec), 20)
+                head_host_cost(torch, row, lambda: ops.coded_matvec_decode(w, x, rec, mode="cuda"),
+                               "coded_decode", w, x, rec, 20)
+                n_bytes = 4 * (w.numel() + x.numel() + rec.numel() + n_data * br * b)
+                n_ops = 2 * nb * br * m * b + 2 * n_data * nb * br * b
+                row["bound_ms"], row["bound_by"] = bound(n_bytes, n_ops)
+                against_library(row)
+                results.setdefault("coded_matvec_decode", {})[label] = row
+            emit(row)
+            check(err <= tol, f"coded_matvec_decode {label} erased={erased}: {err} > {tol}")
+            check(row["bit_equal_relaunch"], f"coded_matvec_decode {label}: two launches differ")
+        del w, x
+    torch.cuda.empty_cache()
 
 
 def gaussian_row(torch, g, a, label: str, timed_iters: int = 0) -> dict:
@@ -283,7 +342,11 @@ def kernel_coded_matvec(torch, gen, results: dict) -> None:
     """coded_matvec against ref_coded_matvec: the mesh head's code block of
     glm4-9b ([10826, 4096], B = 1 and 4; [11658, 4096] after the (13, 3)
     raise), the whole W_c [173216, 4096] (``kernels.ops.coded_matvec``'s
-    single-device form), ragged shapes, fp16, and a misaligned block view."""
+    single-device form) and the block in fp16, timed in turns with
+    torch.matmul, and through the wrapper against the bare C entry
+    (head_host_cost); ragged shapes, rows below and just above the SM count,
+    B = 16 with x in panels, fp16, and a misaligned block view.  Each is
+    launched twice and the two results must be bit-equal."""
     from repro_torch.kernels import ops, ref
 
     dev = torch.device("cuda")
@@ -297,6 +360,10 @@ def kernel_coded_matvec(torch, gen, results: dict) -> None:
         ("ragged", 100, 70, 1, torch.float32, False),
         ("ragged", 1, 4096, 1, torch.float32, False),
         ("ragged fp16", 513, 129, 3, torch.float16, False),
+        ("ragged rows below the SMs", 131, 4096, 4, torch.float32, False),
+        ("ragged rows just above the SMs", 133, 4100, 2, torch.float32, False),
+        ("ragged x in panels", 1000, 4100, 16, torch.float32, False),
+        ("ragged x in panels fp16", 1000, 4104, 16, torch.float16, False),
         ("misaligned block view", 1001, 4097, 4, torch.float32, False),
     ]
     for label, rows, m, b, dtype, timed in shapes:
@@ -313,6 +380,7 @@ def kernel_coded_matvec(torch, gen, results: dict) -> None:
             x = x[:, 0]
         got = ops.coded_matvec(a, x, mode="cuda")
         want = ref.ref_coded_matvec(a, x)
+        again = ops.coded_matvec(a, x, mode="cuda")
         torch.cuda.synchronize()
         err, scale = max_err(torch, got, want)
         # fp32: 1e-4 * max(1, max|plain|), another sum order; fp16 inputs
@@ -320,19 +388,24 @@ def kernel_coded_matvec(torch, gen, results: dict) -> None:
         tol = (1e-4 if dtype == torch.float32 else 2e-3) * max(1.0, scale)
         row = {"phase": "kernel", "kernel": "coded_matvec", "shape": label,
                "a": [rows, m], "b": b, "dtype": str(dtype).removeprefix("torch."),
-               "max_abs_err": err, "tol": tol}
-        del got, want
+               "max_abs_err": err, "tol": tol, "bit_equal_relaunch": torch.equal(got, again)}
+        del got, want, again
         if timed:
             iters = 10 if rows > 100_000 else 50
-            row["ms"] = time_ms(torch, lambda: ops.coded_matvec(a, x, mode="cuda"), iters)
-            row["plain_ms"] = time_ms(torch, lambda: ref.ref_coded_matvec(a, x), iters)
-            row["library_ms"] = time_ms(torch, lambda: torch.matmul(a, x), iters)
+            row["ms"], row["library_ms"], row["turns_ms"] = time_turns(
+                torch, lambda: ops.coded_matvec(a, x, mode="cuda"), lambda: torch.matmul(a, x),
+                iters)
             row["library_call"] = f"torch.matmul(A, x) in {row['dtype']}"
+            row["plain_ms"] = time_ms(torch, lambda: ref.ref_coded_matvec(a, x), iters)
+            head_host_cost(torch, row, lambda: ops.coded_matvec(a, x, mode="cuda"),
+                           "coded_matvec", a, x, None, iters)
             n_bytes = a.element_size() * (a.numel() + x.numel()) + 4 * rows * b
             row["bound_ms"], row["bound_by"] = bound(n_bytes, 2 * rows * m * b)
+            against_library(row)
             results.setdefault("coded_matvec", {})[label] = row
         emit(row)
         check(err <= tol, f"coded_matvec {label}: {err} > {tol}")
+        check(row["bit_equal_relaunch"], f"coded_matvec {label}: two launches differ")
         del a, x
     torch.cuda.empty_cache()
 
@@ -959,13 +1032,12 @@ def phase_mesh_head(torch, serve: dict, mesh, gen, results: dict, smi: str) -> N
           f"mesh head launches {launches}: want 16 coded_matvec a call")
     mask = torch.ones(16, device=dev)
     mask[[5, 12]] = 0.0
-    mesh_ms = time_ms(torch, lambda: ops.coded_head_matvec(placed, x, mask, 14, 2, mesh=mesh,
-                                                           kernel_mode="cuda"), 20)
-    fused_ms = time_ms(torch, lambda: ops.coded_head_matvec(wc, x, mask, 14, 2,
-                                                            kernel_mode="cuda"), 20)
+    mesh_ms, fused_ms, turns = time_turns(
+        torch, lambda: ops.coded_head_matvec(placed, x, mask, 14, 2, mesh=mesh, kernel_mode="cuda"),
+        lambda: ops.coded_head_matvec(wc, x, mask, 14, 2, kernel_mode="cuda"), 20)
     row = {"phase": "mesh_head_time", "b": 4, "erased": [5, 12], "mesh_ms": mesh_ms,
-           "fused_ms": fused_ms, "launches": {"coded_matvec": launches["coded_matvec"]},
-           "card": smi}
+           "fused_ms": fused_ms, "turns_ms": turns,
+           "launches": {"coded_matvec": launches["coded_matvec"]}, "card": smi}
     emit(row)
     results["mesh_head"] = {"rows": rows, **row}
 
@@ -1334,6 +1406,237 @@ def sweep_lt(torch, args, smi: str) -> None:
           "variant_build_s": build_s, "card": smi, "runs": runs})
 
 
+# (warps, rows a warp, 16-byte words of a row in flight a lane):
+# thin_rows.cuh's kWarps, kRowsPerWarp and kLoadsInFlight (words x rows);
+# each is timed at 1 and 2 blocks an SM
+HEAD_SWEEP = [(8, 1, 8), (8, 2, 6), (8, 4, 6), (16, 1, 8), (16, 2, 6), (16, 2, 4)]
+HEAD_BLOCKS_PER_SM = (1, 2)
+
+
+def _ptxas_summary(log: str) -> dict:
+    """Most registers of any entry, and spill bytes over all, in a -Xptxas -v log."""
+    import re
+
+    regs = [int(v) for v in re.findall(r"Used (\d+) registers", log)]
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    return {"entries": len(regs), "max_registers": max(regs, default=0),
+            "spill_bytes": sum(int(a) + int(b) for a, b in spills)}
+
+
+def _head_variants(settings) -> dict:
+    """thin_rows.cuh rebuilt with other kWarps, kRowsPerWarp and
+    kLoadsInFlight, and coded_matvec.cu and coded_decode.cu against each
+    copy, one nvcc each, started together, under build/head_sweep; {(warps,
+    rows, words, source): (the library, its ptxas summary)}, or (None,
+    nvcc's output) for a variant that does not build."""
+    import ctypes
+    import re
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    header = (_build.CSRC / "thin_rows.cuh").read_text()
+    procs = {}
+    for (warps, rows, words), source in itertools.product(settings,
+                                                          ("coded_matvec", "coded_decode")):
+        text = header
+        for name, value in (("kWarps", warps), ("kRowsPerWarp", rows),
+                            ("kLoadsInFlight", words * rows)):
+            text, n = re.subn(rf"constexpr int {name} = \w+;", f"constexpr int {name} = {value};",
+                              text)
+            check(n == 1, f"thin_rows.cuh defines {name} {n} times, not once")
+        out_dir = _build.BUILD_DIR.parent / "head_sweep" / f"{source}_c{warps}_r{rows}_w{words}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "thin_rows.cuh").write_text(text)
+        cu = out_dir / f"{source}.cu"
+        shutil.copy(_build.CSRC / f"{source}.cu", cu)
+        lib = cu.with_suffix(".so")
+        procs[(warps, rows, words, source)] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for key, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        libs[key] = ((ctypes.CDLL(str(lib)), _ptxas_summary(log)) if proc.returncode == 0
+                     else (None, log[-3000:]))
+    return libs
+
+
+def _head_launch(torch, lib, setting, w, x, rec=None):
+    """A launch of a head library's C entry on (w, x[, rec]) with the plan of
+    ``setting`` (warps, rows a warp, blocks an SM at most): (the
+    zero-argument launch, its output, the plan).  coded_matvec without rec,
+    coded_matvec_decode with it.  The plan is head_plan's, with the group of
+    rows and the grid's cap of the setting."""
+    import ctypes
+
+    from repro_torch.kernels import thin_rows
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    warps, rows_per_warp, per_sm = setting
+    rows, m = w.shape
+    x = x.view(m, -1)
+    b = x.shape[1]
+
+    def occupancy(*occ_args):
+        blocks = ctypes.c_int(0)
+        err = occ(*occ_args, ctypes.addressof(blocks))
+        check(err == 0, f"head setting {setting}: occupancy query, cudaError {err}")
+        return min(per_sm, blocks.value)
+
+    if rec is None:
+        half = w.dtype == torch.float16
+        vec = m % (8 if half else 4) == 0 and w.data_ptr() % 16 == 0
+        occ = lib.coded_matvec_occupancy
+        occ.argtypes, occ.restype = [i, i, i, i, p], i
+        plan = thin_rows.head_plan(
+            rows, m, b, sm_count=thin_rows.sm_count(0),
+            occupancy=lambda smem: occupancy(b, int(half), int(vec), smem))
+        plan = dataclasses.replace(plan, group_rows=warps * rows_per_warp)
+        out = torch.empty(rows, b, device=w.device)
+        fn = lib.coded_matvec
+        fn.argtypes = [p, p, p, ctypes.c_longlong, ctypes.c_longlong, i, i, i, i, i, i, i, p]
+        args = (w.data_ptr(), x.data_ptr(), out.data_ptr(), rows, m, b, int(half), int(vec))
+    else:
+        n_data, nb = rec.shape
+        vec = m % 4 == 0 and w.data_ptr() % 16 == 0
+        occ = lib.coded_matvec_decode_occupancy
+        occ.argtypes, occ.restype = [i, i, i, p], i
+        plan = thin_rows.head_plan(
+            rows, m, b, sm_count=thin_rows.sm_count(0), nb=nb, n_data=n_data,
+            occupancy=lambda smem: occupancy(b, int(vec), smem))
+        out = torch.empty(n_data * (rows // nb), b, device=w.device)
+        fn = lib.coded_matvec_decode
+        fn.argtypes = [p, p, p, p, ctypes.c_longlong, ctypes.c_longlong, i, i, i, i, i, i, i, i,
+                       p]
+        args = (w.data_ptr(), x.data_ptr(), rec.data_ptr(), out.data_ptr(), rows // nb, m, b, nb,
+                n_data, int(vec))
+    fn.restype = i
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        err = fn(*args, plan.grid, plan.group_rows, plan.x_panel, plan.smem_bytes, stream)
+        check(err == 0, f"head setting {setting}: cudaError {err}")
+
+    return launch, out, plan
+
+
+HEAD_REPEAT_PAIRS = 30
+
+
+def repeat_head(torch, label: str, w, x, rec, iters: int, smi: str) -> None:
+    """The shipped head kernel, through its wrapper, against torch.matmul in
+    HEAD_REPEAT_PAIRS pairs of turns (``iters`` launches a turn), the order
+    alternating between pairs: the pairs the kernel wins, and the median and
+    quartiles of the ratio (to tell a gap from the card's run-to-run spread)."""
+    import statistics
+
+    from repro_torch.kernels import ops
+
+    if rec is None:
+        def kernel():
+            return ops.coded_matvec(w, x, mode="cuda")
+    else:
+        def kernel():
+            return ops.coded_matvec_decode(w, x, rec, mode="cuda")
+    pairs = []
+    for i in range(HEAD_REPEAT_PAIRS):
+        order = (kernel, lambda: torch.matmul(w, x))
+        t = [time_ms(torch, fn, iters) for fn in (order if i % 2 == 0 else order[::-1])]
+        pairs.append(t if i % 2 == 0 else t[::-1])
+    ratios = [k / lib for k, lib in pairs]
+    q1, median, q3 = statistics.quantiles(ratios, n=4)
+    emit({"phase": "repeat head", "shape": label, "b": x.shape[1], "pairs": len(pairs),
+          "kernel_wins": sum(k < lib for k, lib in pairs), "median_ratio": median,
+          "ratio_quartiles": [q1, q3],
+          "kernel_median_ms": statistics.median(k for k, _ in pairs),
+          "library_median_ms": statistics.median(lib for _, lib in pairs),
+          "pairs_ms": pairs, "card": smi})
+
+
+def sweep_head(torch, args, smi: str) -> None:
+    """Both head kernels at the glm4-9b and Mamba-2 heads' shapes for each
+    setting of thin_rows.cuh's register stream (8 warps of 1, 2 and 4 rows,
+    16 warps of 1 and 2 rows; words of a row in flight a lane), each a
+    variant built here, timed at 1 and 2 blocks an SM (as the occupancy
+    allows) in turns with torch.matmul, held to the plain version and to
+    the shipped kernel's bits; one JSON line a variant, with its registers
+    and spills (or nvcc's output, for a variant that does not build).  First
+    the shipped kernel at the B = 1 shapes in repeated pairs of turns
+    (repeat_head)."""
+    from repro_torch.core.decoding import get_decoder_cache
+    from repro_torch.kernels import ops, ref
+
+    t0 = time.perf_counter()
+    libs = _head_variants(HEAD_SWEEP)
+    build_s = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    block = torch.randn(10826, 4096, device=dev, generator=gen)
+    wc = torch.randn(16 * 10826, 4096, device=dev, generator=gen)
+    rec = get_decoder_cache(14, 2).recovery(torch.ones(16, device=dev))
+    x1 = torch.randn(4096, 1, device=dev, generator=gen)
+    x4 = torch.randn(4096, 4, device=dev, generator=gen)
+    # the Mamba-2 heads' prefill (B = 1): mamba2-130m [16 x 3592, 768], zamba2-1.2b [16 x 2286, 2048]
+    heads = {m: (torch.randn(16 * br, m, device=dev, generator=gen),
+                 torch.randn(m, 1, device=dev, generator=gen)) for br, m in ((3592, 768),
+                                                                             (2286, 2048))}
+    cases = [  # label, source, w, x, rec, timed launches a turn
+        ("glm4-9b block prefill", "coded_matvec", block, x1, None, 100),
+        ("glm4-9b block decode", "coded_matvec", block, x4, None, 100),
+        ("glm4-9b block decode fp16", "coded_matvec", block.half(), x4.half(), None, 100),
+        ("glm4-9b prefill", "coded_decode", wc, x1, rec, 10),
+        ("glm4-9b decode", "coded_decode", wc, x4, rec, 10),
+        ("mamba2-130m prefill", "coded_decode", *heads[768], rec, 100),
+        ("mamba2-130m decode", "coded_decode", heads[768][0], x4[:768].contiguous(), rec, 100),
+        ("zamba2-1.2b prefill", "coded_decode", *heads[2048], rec, 100),
+    ]
+    shipped = {}
+    for label, source, w, x, r, _ in cases:
+        if r is None:
+            want, got = ref.ref_coded_matvec(w, x), ops.coded_matvec(w, x, mode="cuda")
+        else:
+            want, got = (ref.ref_coded_matvec_decode(w, x, r),
+                         ops.coded_matvec_decode(w, x, r, mode="cuda"))
+        tol = (1e-4 if w.dtype == torch.float32 else 2e-3) * max(1.0, float(want.abs().max()))
+        shipped[label] = (got, want, tol)
+    for label, _, w, x, r, iters in cases:
+        if label.endswith("prefill"):  # B = 1, where the kernel and torch.matmul are close
+            repeat_head(torch, label, w, x, r, iters, smi)
+    for (warps, rows, words), per_sm in itertools.product(HEAD_SWEEP, HEAD_BLOCKS_PER_SM):
+        setting = {"warps": warps, "rows_per_warp": rows, "words_in_flight": words,
+                   "blocks_per_sm": per_sm}
+        built = {source: libs[(warps, rows, words, source)]
+                 for source in ("coded_matvec", "coded_decode")}
+        failed = {source: log for source, (lib, log) in built.items() if lib is None}
+        if failed:
+            emit({"phase": "sweep head", **setting, "build_failed": failed})
+            continue
+        runs = []
+        ptxas = {source: summary for source, (_, summary) in built.items()}
+        for label, source, w, x, r, iters in cases:
+            lib = built[source][0]
+            launch, out, plan = _head_launch(torch, lib, (warps, rows, per_sm), w, x, r)
+            launch()
+            torch.cuda.synchronize()
+            got, want, tol = shipped[label]
+            err = float((out - want).abs().max())
+            ms, library_ms, turns = time_turns(torch, launch, lambda: torch.matmul(w, x),
+                                               iters)
+            runs.append({"shape": label, "ms": ms, "library_ms": library_ms,
+                         "ratio": ms / library_ms, "turns_ms": turns, "grid": plan.grid,
+                         "smem_bytes": plan.smem_bytes, "max_abs_err": err, "tol": tol,
+                         "bit_equal_shipped": torch.equal(out, got)})
+            check(err <= tol, f"head setting {setting} {label}: {err} > {tol}")
+            check(runs[-1]["bit_equal_shipped"],
+                  f"head setting {setting} {label}: not the shipped kernel's bits")
+            del out
+        emit({"phase": "sweep head", **setting, "ptxas": ptxas, "card": smi, "runs": runs})
+    emit({"phase": "sweep head done", "variant_build_s": build_s,
+          "variants": len(HEAD_SWEEP) * len(HEAD_BLOCKS_PER_SM), "libraries": len(libs),
+          "card": smi})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=40,
@@ -1345,6 +1648,10 @@ def main() -> int:
                     help="only build, check the encode kernels and sweep lt_encode's "
                          "span width, light rows a unit and heavy split at the LT task's "
                          "shape (no serve, no device line)")
+    ap.add_argument("--sweep-head", action="store_true",
+                    help="only build, check the head kernels and sweep thin_rows.cuh's "
+                         "warps, rows a warp, loads in flight and blocks an SM at the "
+                         "glm4-9b and Mamba-2 heads' shapes (no serve, no device line)")
     args = ap.parse_args()
 
     import torch
@@ -1368,6 +1675,11 @@ def main() -> int:
                      torch.randn(500, GAUSSIAN_TASK_M, device="cuda", generator=gen),
                      "task shape, random G", 20)
         sweep_lt(torch, args, smi)
+        return 0
+    if args.sweep_head:
+        kernel_coded_decode(torch, gen, results)
+        kernel_coded_matvec(torch, gen, results)
+        sweep_head(torch, args, smi)
         return 0
     phase_kernels(torch, gen, results)
     phase_task_lt(torch, args, results, smi)

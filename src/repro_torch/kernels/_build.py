@@ -7,8 +7,9 @@ repository root (listed in ``.gitignore``):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o <lib> <source>
 
-The hash covers the source and the flags, so a changed kernel rebuilds and
-an unchanged one is reused.  Building happens at first use, or for all
+The hash covers the source, every header in ``csrc/`` (``*.cuh``, which
+the sources share) and the flags, so a changed kernel or header rebuilds
+and an unchanged one is reused.  Building happens at first use, or for all
 sources at once (one ``nvcc`` per source, started together) through
 :func:`build_all`.  A failed build raises; nothing falls back.  ``ptxas``'s
 register and spill report is kept beside each library as ``<lib>.log``.
@@ -50,9 +51,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{h[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: tuple[str, ...] = SOURCES) -> float:

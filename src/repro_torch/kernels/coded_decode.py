@@ -3,16 +3,20 @@
 ``coded_matvec_decode_cuda`` launches ``csrc/coded_decode.cu`` (the port of
 the Pallas ``repro.kernels.coded_decode.coded_matvec_decode_pallas``):
 y = R · blocked(W_c x), decoded inside the kernel so the coded partials
-never reach device memory.  Its plain version is
+never reach device memory.  The row products stream through
+``csrc/thin_rows.cuh`` on the geometry of
+``repro_torch.kernels.thin_rows.head_plan``.  Its plain version is
 ``repro_torch.kernels.ref.ref_coded_matvec_decode``; the mode-switching
 wrapper is ``repro_torch.kernels.ops.coded_matvec_decode``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
+from repro_torch.kernels import thin_rows
 from repro_torch.kernels._build import c_function
 
 __all__ = ["MAX_B", "MAX_BLOCKS", "coded_matvec_decode_cuda"]
@@ -35,15 +39,13 @@ def coded_matvec_decode_cuda(
             raise ValueError(f"{name} must be contiguous")
         if t.device != w_coded.device:
             raise ValueError(f"{name} is on {t.device}, w_coded on {w_coded.device}")
-    squeeze = x.dim() == 1
-    xc = x[:, None] if squeeze else x
-    if w_coded.dim() != 2 or xc.dim() != 2 or rec.dim() != 2:
+    if w_coded.dim() != 2 or x.dim() not in (1, 2) or rec.dim() != 2:
         raise ValueError("w_coded and rec must be 2-D, x 1-D or 2-D")
     rows, m = w_coded.shape
     n_data, nb = rec.shape
-    b = xc.shape[1]
-    if xc.shape[0] != m:
-        raise ValueError(f"x has {xc.shape[0]} rows, w_coded has {m} columns")
+    b = x.shape[1] if x.dim() == 2 else 1   # x [M] is x [M, 1] in memory, and y [N] y [N, 1]
+    if x.shape[0] != m:
+        raise ValueError(f"x has {x.shape[0]} rows, w_coded has {m} columns")
     if not 1 <= nb <= MAX_BLOCKS or not 1 <= n_data <= nb:
         raise ValueError(f"rec [{n_data}, {nb}] outside 1 <= n_data <= nb <= {MAX_BLOCKS}")
     if rows % nb or rows == 0 or m == 0:
@@ -51,19 +53,45 @@ def coded_matvec_decode_cuda(
     if not 1 <= b <= MAX_B:
         raise ValueError(f"x has {b} columns; the kernel takes 1..{MAX_B}")
     br = rows // nb
-    out = torch.empty((n_data * br, b), dtype=torch.float32, device=w_coded.device)
-    p = ctypes.c_void_p
-    fn = c_function("coded_decode", "coded_matvec_decode",
-                    [p, p, p, p, ctypes.c_longlong, ctypes.c_longlong,
-                     ctypes.c_int, ctypes.c_int, ctypes.c_int, p])
-    with torch.cuda.device(w_coded.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(w_coded.data_ptr(), xc.data_ptr(), rec.data_ptr(), out.data_ptr(),
-                 br, m, b, nb, n_data, stream)
+    out = torch.empty((n_data * br, b) if x.dim() == 2 else (n_data * br,),
+                      dtype=torch.float32, device=w_coded.device)
+    vec = m % 4 == 0 and w_coded.data_ptr() % 16 == 0
+    plan = _plan(w_coded.device, rows, m, b, nb, n_data, vec)
+    err = thin_rows.call_on(w_coded.device, _entry(), w_coded.data_ptr(), x.data_ptr(),
+                            rec.data_ptr(), out.data_ptr(), br, m, b, nb, n_data, int(vec),
+                            plan.grid, plan.group_rows, plan.x_panel, plan.smem_bytes)
     coded_matvec_decode_cuda.launches += 1
     if err != 0:
         raise RuntimeError(f"coded_matvec_decode launch failed: cudaError {err}")
-    return out[:, 0] if squeeze else out
+    return out
 
 
 coded_matvec_decode_cuda.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return c_function("coded_decode", "coded_matvec_decode",
+                      [p, p, p, p, ctypes.c_longlong, ctypes.c_longlong,
+                       i, i, i, i, i, i, i, i, p])
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(device: torch.device, rows: int, m: int, b: int, nb: int, n_data: int,
+          vec: bool) -> thin_rows.HeadPlan:
+    dev = device.index if device.index is not None else torch.cuda.current_device()
+    return thin_rows.head_plan(rows, m, b, sm_count=thin_rows.sm_count(dev),
+                               occupancy=lambda smem: _occupancy(dev, b, vec, smem),
+                               nb=nb, n_data=n_data)
+
+
+def _occupancy(device_index: int, b: int, vec: bool, smem: int) -> int:
+    fn = c_function("coded_decode", "coded_matvec_decode_occupancy",
+                    [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = fn(b, int(vec), smem, ctypes.addressof(blocks))
+    if err != 0:
+        raise RuntimeError(f"coded_matvec_decode occupancy query failed: cudaError {err}")
+    return blocks.value

@@ -1,193 +1,178 @@
 // Fused coded block matmul + erasure decode for the BPCC coded LM head.
 //
 // Replaces the Pallas TPU kernel repro/kernels/coded_decode.py ::
-// coded_matvec_decode_pallas:  y = R . blocked(W_c x), where W_c
-// [nb*br, M] holds nb coded row blocks of br rows each, x is [M, B] and R
-// [n_data, nb] is the mask-keyed recovery matrix.  Output [n_data*br, B].
+// coded_matvec_decode_pallas (def :65, pallas_call :91):  y = R .
+// blocked(W_c x), where W_c [nb*br, M] holds nb coded row blocks of br rows
+// each, x is [M, B] and R [n_data, nb] is the mask-keyed recovery matrix.
+// Output [n_data*br, B].
 //
 // What bounds it on an H100: reading W_c once.  The head is a thin product
-// (B = 1 at prefill, B = n_slots at decode), about 2*B flops per 4-byte
-// weight, far below the card's ~20 flop/byte fp32 balance, so the least
-// time is bytes(W_c) / 3.35 TB/s (glm4-9b: [173216, 4096] fp32, 2.84 GB,
-// about 0.85 ms).  Everything else (x, R, the decoded output) is noise.
+// (B = 1 at prefill, B = n_slots at decode), about 2B flops per 4-byte
+// weight, so the least time is bytes(W_c) / 3.35 TB/s (glm4-9b: [173216,
+// 4096] fp32, 2.84 GB, 0.848 ms).  Everything else (x, R, the decoded
+// output) is noise.
 //
 // Design.  The TPU kernel walks a sequential grid of column panels with a
-// VMEM-resident accumulator; here each thread block owns a row tile of BT
-// rows in EVERY one of the nb code blocks (nb*BT <= 32 coded rows) and loops
-// over M itself, so no sum crosses blocks:
-//   * 8 warps; each warp streams 4 coded rows at once with coalesced
-//     16-byte loads (32 lanes x float4 = 512 contiguous bytes per row), so
-//     every weight byte is read exactly once;
-//   * x is staged in shared memory in panels of 512 columns, transposed to
-//     [B][panel] so a lane reads 4 consecutive x values per column with one
-//     conflict-free float4; each x value read serves 4 rows, and the B
-//     partial sums per row live in registers (B <= 16);
-//   * after the M loop the [nb, BT, B] coded partials are warp-reduced into
-//     shared memory and contracted with R there: only the decoded
-//     [n_data, BT, B] tile is written to device memory.  R's columns for
-//     erased blocks are exactly zero, so a straggler's block cannot leak.
-// fp32 FMA throughout (no TF32).  Ragged br (last row tile) and M (last
-// panel) are masked; M % 4 != 0 takes the scalar-load variant.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// VMEM-resident accumulator.  Here the unit of work is a row tile: BT = 32 /
+// nb rows in EVERY one of the nb code blocks (nb*BT <= 32 coded rows), so
+// the decode of those rows needs nothing from another block.  The coded
+// rows stream through thin_rows.cuh: a persistent grid whose blocks take
+// equal, interleaved shares of the tiles (glm4-9b: 5413 tiles on 132 SMs),
+// x staged once a block (it used to be restaged by each of 5413 blocks),
+// W_c read by a register stream, each coded row summed by one warp in a
+// fixed order.  The epilogue puts a tile's [nb, BT, B] coded sums in shared
+// memory and contracts them with R there, a tile late and behind mbarriers
+// instead of a block barrier: only the decoded [n_data, BT, B] tile is
+// written to device memory.  R's columns for erased blocks are exactly
+// zero, so a straggler's block cannot leak.  fp32 FMA throughout (no
+// TF32).  On an H100 80GB HBM3 at 700 W, through the wrapper as the path
+// calls it, the glm4-9b head takes 0.926 ms at B = 1 and 0.938 at B = 4
+// (91 and 90 % of the bound; torch.matmul(W_c, x) alone 0.933 and 2.187),
+// the mamba2-130m head 0.0619 / 0.0733 and the zamba2-1.2b head 0.1031 at
+// B = 1; through the bare C entry in turns with the wrapper, 0.922, 0.938,
+// 0.0612, 0.0718 and 0.1013 (chip_smoke.py --sweep-head, kernel rows; on
+// another card of the same kind the W_c read took 0.897 ms).  The first
+// port took 0.978 ms at glm4-9b B = 4 and 0.0726 at mamba2 B = 4.
+#include "thin_rows.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerWarp = 4;
-constexpr int kRowsPerTile = kWarps * kRowsPerWarp;  // coded rows per thread block
-constexpr int kPanel = 512;                          // x columns staged per pass
-constexpr int kMaxB = 16;
-constexpr int kMaxBlocks = kRowsPerTile;             // nb * BT <= 32 with BT >= 1
+using thin_rows::Group;
 
-template <int BMAX, bool VEC4>
-__global__ void __launch_bounds__(kThreads)
-coded_matvec_decode_kernel(const float* __restrict__ w, const float* __restrict__ x,
-                           const float* __restrict__ rec, float* __restrict__ out,
-                           int64_t br, int64_t m, int b, int nb, int n_data, int bt) {
-  __shared__ __align__(16) float xs[BMAX * kPanel];
-  __shared__ float ys[kRowsPerTile * BMAX];
-  __shared__ float rs[kMaxBlocks * kMaxBlocks];
+constexpr int kMaxBlocks = thin_rows::kMaxGroupRows;  // nb * BT <= 32
+constexpr int kTileRowsPerWarp = thin_rows::kMaxGroupRows / thin_rows::kWarps;
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * bt;
-  const int ncoded = nb * bt;
+// The unit is a row tile; a group is one tile: coded row i is row
+// tile*bt + i % bt of block i / bt.  Epilogue scratch: the mbarriers
+// done[2] and used[2], then ys [2][nb*bt][b] (two tiles' coded sums), then
+// rs [n_data][nb] = R.
+//
+// No block-wide barrier between tiles: a warp writes its sums of tile k to
+// ys[k % 2] and arrives on done[k % 2]; then it waits for done of tile k - 1
+// (every warp's sums; a warp is rarely a tile behind) and writes its share
+// of tile k - 1's decoded outputs, and arrives on used[(k - 1) % 2].  Before
+// writing tile k's sums it waits for used of tile k - 2.
+struct DecodeTask {
+  using Elem = float;
+  const float* w;
+  const float* x;
+  const float* rec;
+  float* out;
+  int64_t br;
+  int b, nb, n_data, bt;
 
-  for (int i = threadIdx.x; i < n_data * nb; i += kThreads) rs[i] = rec[i];
-
-  // coded row c of this tile: block j = c / bt, row r0 + c % bt of that block
-  const float* wrow[kRowsPerWarp];
-  bool valid[kRowsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-    const int c = warp * kRowsPerWarp + i;
-    const int j = c / bt;
-    const int64_t r = r0 + c % bt;
-    valid[i] = c < ncoded && r < br;
-    wrow[i] = valid[i] ? w + (static_cast<int64_t>(j) * br + r) * m : w;
+  static constexpr bool kUnitIsGroup = true;
+  __device__ const float* row(const Group& g, int i, int64_t m) const {
+    const int64_t r = g.first * bt + i % bt;
+    return r < br ? w + (static_cast<int64_t>(i / bt) * br + r) * m : nullptr;
   }
 
-  float acc[kRowsPerWarp][BMAX];
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i)
-#pragma unroll
-    for (int q = 0; q < BMAX; ++q) acc[i][q] = 0.f;
+  __device__ uint64_t* done(float* epi) const { return reinterpret_cast<uint64_t*>(epi); }
+  __device__ uint64_t* used(float* epi) const { return done(epi) + 2; }
+  __device__ float* ys(float* epi, int k) const { return epi + 8 + (k & 1) * nb * bt * b; }
+  __device__ float* rs(float* epi) const { return epi + 8 + 2 * nb * bt * b; }
 
-  for (int64_t p0 = 0; p0 < m; p0 += kPanel) {
-    const int pm = static_cast<int>(m - p0 < kPanel ? m - p0 : kPanel);
-    __syncthreads();  // the previous panel is consumed
-    for (int idx = threadIdx.x; idx < pm * b; idx += kThreads) {
-      const int mm = idx / b, q = idx - mm * b;
-      xs[q * kPanel + mm] = x[(p0 + mm) * b + q];
+  __device__ void prologue(float* epi, int tid, int n) const {
+    if (tid == 0) {
+      for (int s = 0; s < 2; ++s) {
+        thin_rows::mbar_init(&done(epi)[s], thin_rows::kWarps);
+        thin_rows::mbar_init(&used(epi)[s], thin_rows::kWarps);
+      }
+      thin_rows::mbar_fence_init();
     }
-    __syncthreads();
-    if (VEC4) {
-      for (int mm = lane * 4; mm < pm; mm += 128) {
-        float4 wv[kRowsPerWarp];
+    for (int i = tid; i < n_data * nb; i += n) rs(epi)[i] = rec[i];
+  }
+  __device__ void before_rows(int k, float* epi) const {
+    if (k >= 2) thin_rows::mbar_wait(&used(epi)[k & 1], ((k - 2) >> 1) & 1);
+  }
+  __device__ void finish_row(const Group&, int k, int i, int q, float v, float* epi) const {
+    ys(epi, k)[i * b + q] = v;
+  }
+  // y[d, tile*bt + t, q] = sum_j R[d, j] * ys[j*bt + t][q]: this warp's
+  // share of tile k's outputs, once every warp's sums are in.  Eight lanes
+  // share an output (lane p sums j = p, p + 8, ..., then a fixed butterfly),
+  // so no warp holds up the next tile on a chain of nb FMAs.
+  __device__ void decode(int64_t tile, int k, float* epi, int warp, int lane) const {
+    constexpr int kParts = 8;
+    constexpr int kSlots = thin_rows::kWarps * 32 / kParts;  // outputs a pass
+    thin_rows::mbar_wait(&done(epi)[k & 1], (k >> 1) & 1);
+    const float* y = ys(epi, k);
+    const float* r = rs(epi);
+    const int per_d = bt * b;
+    const int n_out = n_data * per_d;
+    const int part = lane % kParts;
+    for (int base = 0; base < n_out; base += kSlots) {
+      const int idx = base + (warp * 32 + lane) / kParts;
+      const int d = idx / per_d;
+      const int rem = idx - d * per_d;
+      const int t = rem / b, q = rem - t * b;
+      const int64_t row = tile * bt + t;
+      const bool live = idx < n_out && row < br;
+      float s = 0.f;
+      if (live)
+        for (int j = part; j < nb; j += kParts) s = fmaf(r[d * nb + j], y[(j * bt + t) * b + q], s);
 #pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i)
-          wv[i] = valid[i] ? __ldg(reinterpret_cast<const float4*>(wrow[i] + p0 + mm))
-                           : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-        for (int q = 0; q < BMAX; ++q) {
-          if (q < b) {
-            const float4 xv = *reinterpret_cast<const float4*>(&xs[q * kPanel + mm]);
-#pragma unroll
-            for (int i = 0; i < kRowsPerWarp; ++i) {
-              float s = acc[i][q];
-              s = fmaf(wv[i].x, xv.x, s);
-              s = fmaf(wv[i].y, xv.y, s);
-              s = fmaf(wv[i].z, xv.z, s);
-              s = fmaf(wv[i].w, xv.w, s);
-              acc[i][q] = s;
-            }
-          }
-        }
-      }
-    } else {
-      for (int mm = lane; mm < pm; mm += 32) {
-        float wv[kRowsPerWarp];
-#pragma unroll
-        for (int i = 0; i < kRowsPerWarp; ++i) wv[i] = valid[i] ? __ldg(wrow[i] + p0 + mm) : 0.f;
-#pragma unroll
-        for (int q = 0; q < BMAX; ++q) {
-          if (q < b) {
-            const float xv = xs[q * kPanel + mm];
-#pragma unroll
-            for (int i = 0; i < kRowsPerWarp; ++i) acc[i][q] = fmaf(wv[i], xv, acc[i][q]);
-          }
-        }
-      }
+      for (int off = kParts / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (live && part == 0) out[(static_cast<int64_t>(d) * br + row) * b + q] = s;
     }
   }
-
-  // warp-reduce the coded partials into shared memory: ys[c][q]
-#pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
-#pragma unroll
-    for (int q = 0; q < BMAX; ++q) {
-      if (q < b) {
-        float v = acc[i][q];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-        if (lane == 0) ys[(warp * kRowsPerWarp + i) * BMAX + q] = v;
-      }
+  __device__ void after_rows(const Group& g, int k, float* epi, int warp, int lane) const {
+    __syncwarp();
+    if (lane == 0) thin_rows::mbar_arrive(&done(epi)[k & 1]);
+    if (k >= 1) {
+      decode(g.first - g.stride, k - 1, epi, warp, lane);
+      __syncwarp();
+      if (lane == 0) thin_rows::mbar_arrive(&used(epi)[(k - 1) & 1]);
     }
   }
-  __syncthreads();
-
-  // decode in shared memory: y[d, r0 + t, q] = sum_j R[d, j] * ys[j*bt + t][q]
-  const int per_d = bt * b;
-  for (int idx = threadIdx.x; idx < n_data * per_d; idx += kThreads) {
-    const int d = idx / per_d;
-    const int rem = idx - d * per_d;
-    const int t = rem / b, q = rem - t * b;
-    const int64_t r = r0 + t;
-    if (r >= br) continue;
-    float s = 0.f;
-    for (int j = 0; j < nb; ++j) s = fmaf(rs[d * nb + j], ys[(j * bt + t) * BMAX + q], s);
-    out[(static_cast<int64_t>(d) * br + r) * b + q] = s;
+  __device__ void finish_block(const Group& g, int k, float* epi, int warp, int lane) const {
+    decode(g.first, k, epi, warp, lane);
   }
+};
+
+bool vec_ok(const float* w, long long m) {
+  return m % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
 }
 
-template <int BMAX>
-void launch(bool vec4, dim3 grid, cudaStream_t stream, const float* w, const float* x,
-            const float* rec, float* out, int64_t br, int64_t m, int b, int nb, int n_data,
-            int bt) {
-  if (vec4)
-    coded_matvec_decode_kernel<BMAX, true>
-        <<<grid, kThreads, 0, stream>>>(w, x, rec, out, br, m, b, nb, n_data, bt);
-  else
-    coded_matvec_decode_kernel<BMAX, false>
-        <<<grid, kThreads, 0, stream>>>(w, x, rec, out, br, m, b, nb, n_data, bt);
+int epi_bytes(int b, int nb, int n_data) {
+  return 32 + 4 * (2 * nb * (kMaxBlocks / nb) * b + n_data * nb);
+}
+
+thin_rows::KernelFn<DecodeTask> pick(int b, bool vec) {
+  return thin_rows::pick<DecodeTask, kTileRowsPerWarp>(b, vec);
 }
 
 }  // namespace
 
-// w [nb*br, m], x [m, b], rec [n_data, nb], out [n_data*br, b]; all fp32,
-// contiguous, on the current device.  Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for shapes the kernel does not take).
-extern "C" int coded_matvec_decode(const float* w, const float* x, const float* rec, float* out,
-                                   long long br, long long m, int b, int nb, int n_data,
-                                   void* stream) {
-  if (b < 1 || b > kMaxB || nb < 1 || nb > kMaxBlocks || n_data < 1 || n_data > nb ||
-      br < 1 || m < 1)
+// Blocks of the (b, vec) variant that fit on one SM with smem_bytes of
+// dynamic shared memory, into *blocks.  Returns a cudaError_t.
+extern "C" int coded_matvec_decode_occupancy(int b, int vec, int smem_bytes, int* blocks) {
+  if (b < 1 || b > thin_rows::kMaxB || smem_bytes < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int bt = kRowsPerTile / nb;
-  const dim3 grid(static_cast<unsigned>((br + bt - 1) / bt));
-  const bool vec4 = (m % 4 == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b <= 1)
-    launch<1>(vec4, grid, s, w, x, rec, out, br, m, b, nb, n_data, bt);
-  else if (b <= 2)
-    launch<2>(vec4, grid, s, w, x, rec, out, br, m, b, nb, n_data, bt);
-  else if (b <= 4)
-    launch<4>(vec4, grid, s, w, x, rec, out, br, m, b, nb, n_data, bt);
-  else if (b <= 8)
-    launch<8>(vec4, grid, s, w, x, rec, out, br, m, b, nb, n_data, bt);
-  else
-    launch<16>(vec4, grid, s, w, x, rec, out, br, m, b, nb, n_data, bt);
-  return static_cast<int>(cudaGetLastError());
+  return thin_rows::occupancy(pick(b, vec != 0), smem_bytes, blocks);
+}
+
+// w [nb*br, m], x [m, b], rec [n_data, nb], out [n_data*br, b]; all fp32,
+// contiguous, on the current device.  The geometry comes from the wrapper
+// (kernels/thin_rows.py::head_plan): vec (m % 4 == 0, w 16-byte aligned),
+// the persistent grid (at most ceil(br / bt) blocks, bt = 32 / nb),
+// group_rows (nb * bt), x_panel and smem_bytes, which must equal
+// thin_rows::geometry's.  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for a shape or geometry the kernel does not take).
+extern "C" int coded_matvec_decode(const float* w, const float* x, const float* rec, float* out,
+                                   long long br, long long m, int b, int nb, int n_data, int vec,
+                                   int grid, int group_rows, int x_panel, int smem_bytes,
+                                   void* stream) {
+  if (b < 1 || b > thin_rows::kMaxB || nb < 1 || nb > kMaxBlocks || n_data < 1 || n_data > nb ||
+      br < 1 || m < 1 || (vec != 0) != vec_ok(w, m))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int bt = kMaxBlocks / nb;
+  const long long n_tiles = (br + bt - 1) / bt;
+  if (grid < 1 || grid > n_tiles) return static_cast<int>(cudaErrorInvalidValue);
+  const thin_rows::Geometry geo =
+      thin_rows::geometry(m, n_tiles, grid, b, nb * bt, epi_bytes(b, nb, n_data));
+  if (group_rows != geo.group_rows || x_panel != geo.x_panel || smem_bytes != geo.smem_bytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DecodeTask task{w, x, rec, out, br, b, nb, n_data, bt};
+  return thin_rows::launch(pick(b, vec != 0), grid, stream, task, geo);
 }

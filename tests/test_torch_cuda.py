@@ -496,6 +496,130 @@ def test_cuda_mesh_engine_runs_coded_matvec_per_block():
     assert out[True] == out[False]
 
 
+# (r, m, b, dtype): the persistent grid's edges on a 132-SM card (rows
+# below, at and just above the SM count), B on both sides of the 64 KB
+# x-resident cap (M 4096: B 4 resident, B 5 in panels; M 16384 at B 1
+# resident, 16388 in panels), M % 4 != 0 and fp16 M % 8 != 0 (scalar loads)
+MATVEC_EDGES = [(5, 4096, 1, torch.float32), (131, 4096, 4, torch.float32),
+                (132, 4096, 4, torch.float32), (133, 4096, 4, torch.float32),
+                (300, 4096, 5, torch.float32), (300, 16384, 1, torch.float32),
+                (300, 16388, 1, torch.float32), (1000, 4100, 16, torch.float16),
+                (263, 4097, 3, torch.float32), (265, 4100, 4, torch.float16),
+                (264, 1030, 16, torch.float16)]
+# (n_data, nb, br, m, b): 1, 17 and 32 code blocks under a dense R (the
+# decoder cache stops at 20 blocks); tiles below and above the SM count;
+# B across the cap; M % 4 != 0
+DECODE_EDGES = [(1, 1, 100, 4096, 2), (17, 17, 131, 260, 5), (30, 32, 133, 1024, 1),
+                (14, 16, 266, 4096, 4), (14, 16, 300, 4096, 5), (3, 3, 500, 130, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,m,b,dtype", MATVEC_EDGES)
+def test_cuda_coded_matvec_grid_and_cap_edges_bit_equal_relaunch(r, m, b, dtype):
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(r + m + b)
+    a = torch.randn(r, m, device=dev, generator=gen).to(dtype)
+    x = torch.randn(m, b, device=dev, generator=gen).to(dtype)
+    got = coded_matvec_cuda(a, x)
+    again = coded_matvec_cuda(a, x)
+    want = ops.coded_matvec(a, x, mode="off")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    tol = _matvec_tol(dtype, want)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_data,nb,br,m,b", DECODE_EDGES)
+def test_cuda_coded_matvec_decode_block_count_and_cap_edges_bit_equal_relaunch(n_data, nb, br,
+                                                                               m, b):
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(nb * 1000 + br)
+    w = torch.randn(nb * br, m, device=dev, generator=gen)
+    x = torch.randn(m, b, device=dev, generator=gen)
+    rec = torch.randn(n_data, nb, device=dev, generator=gen)
+    got = coded_matvec_decode_cuda(w, x, rec)
+    again = coded_matvec_decode_cuda(w, x, rec)
+    want = ops.coded_matvec_decode(w, x, rec, mode="off")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_cuda_coded_matvec_decode_on_a_misaligned_view(offset):
+    """W_c viewed from an offset into a flat buffer (M a multiple of 4, the
+    start off a 16-byte boundary): the scalar loads, same sums."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(offset)
+    flat = torch.randn(offset + 16 * 70 * 256, device=dev, generator=gen)
+    w = flat[offset:].view(16 * 70, 256)
+    assert w.data_ptr() % 16 != 0
+    x = torch.randn(256, 4, device=dev, generator=gen)
+    rec = get_decoder_cache(14, 2).recovery(torch.ones(16, device=dev))
+    got = coded_matvec_decode_cuda(w, x, rec)
+    want = ops.coded_matvec_decode(w, x, rec, mode="off")
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4 * max(1.0, want.abs().max().item()))
+
+
+@pytest.mark.gpu
+def test_cuda_head_kernels_take_more_shared_memory_after_less():
+    """One instantiation launched with x of 16 KB, then 3 KB (its occupancy
+    asked again), then 16 KB again on the cached plan, all under the 48 KB
+    default: the last launch's shared memory must still be allowed (the
+    serve's head after the kernel checks of a smaller head)."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rec = get_decoder_cache(14, 2).recovery(torch.ones(16, device=dev))
+    for m in (4096, 768, 4096):          # x of 16, 3 and 16 KB at B = 1
+        w = torch.randn(16 * 40, m, device=dev, generator=gen)
+        x = torch.randn(m, 1, device=dev, generator=gen)
+        got = coded_matvec_decode_cuda(w, x, rec)
+        want = ops.coded_matvec_decode(w, x, rec, mode="off")
+        a = torch.randn(300, m, device=dev, generator=gen)
+        got_a, want_a = coded_matvec_cuda(a, x), ops.coded_matvec(a, x, mode="off")
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-4 * max(1.0, want.abs().max().item()))
+        np.testing.assert_allclose(got_a.cpu().numpy(), want_a.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-4 * max(1.0, want_a.abs().max().item()))
+
+
+@pytest.mark.gpu
+def test_cuda_head_kernels_64bit_offsets():
+    """An fp16 A [R, M] of R * M > 2^31 elements, and an fp32 W_c of as many:
+    rows past 2^31 elements are read from where they lie (checked on the
+    last rows against the plain version of just those rows)."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    m = 4096
+    r = (1 << 31) // m + 700
+    a = torch.randn(r, m, device=dev, generator=gen, dtype=torch.float16)
+    x = torch.randn(m, 2, device=dev, generator=gen, dtype=torch.float16)
+    got = coded_matvec_cuda(a, x)
+    tail = slice(r - 1500, r)
+    want = ops.coded_matvec(a[tail], x, mode="off")
+    torch.cuda.synchronize()
+    tol = _matvec_tol(torch.float16, want)
+    np.testing.assert_allclose(got[tail].cpu().numpy(), want.cpu().numpy(), rtol=tol, atol=tol)
+    del a, got
+    br = (1 << 31) // (2 * m) + 300          # nb = 2: 2 * br * m > 2^31
+    w = torch.randn(2 * br, m, device=dev, generator=gen)
+    x = torch.randn(m, 3, device=dev, generator=gen)
+    rec = torch.randn(2, 2, device=dev, generator=gen)
+    got = coded_matvec_decode_cuda(w, x, rec)
+    rows = torch.arange(br - 500, br, device=dev)
+    want = ops.coded_matvec_decode(torch.cat([w[rows], w[br + rows]]), x, rec, mode="off")
+    torch.cuda.synchronize()
+    got_tail = torch.cat([got[rows], got[br + rows]])
+    np.testing.assert_allclose(got_tail.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                               atol=1e-4 * max(1.0, want.abs().max().item()))
+
+
 def _ssd_close(got, want):
     """The reference's rtol 1e-4, atol 1e-5 scaled by max|plain|."""
     assert got.dtype == want.dtype and got.shape == want.shape
