@@ -6,6 +6,11 @@
     python3 chip_smoke.py --sweep-lt   # only: build, the encode kernels' checks, and
                                        # lt_encode's span sweep at the LT task's shape
                                        # (variants of lt_encode.cu built under build/)
+    python3 chip_smoke.py --sweep-ssd  # only: build, the SSD kernels' checks, and
+                                       # ssd_scan.cu's tensor-core settings at the
+                                       # 4096- and 1000-token Mamba-2 cells, in turns
+                                       # with the SIMT kernels (variants built under
+                                       # build/ssd_sweep)
     python3 chip_smoke.py --sweep-head # only: build, the head kernels' checks, the
                                        # B = 1 heads in 30 pairs of turns with
                                        # torch.matmul, and thin_rows.cuh's settings at
@@ -92,6 +97,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12           # H100 SXM fp32 outside the tensor cores (data sheet)
+TC_BF16_FLOPS = 989e12       # H100 SXM dense bf16 on the tensor cores (data sheet)
 PAPER_M = 500_000            # the paper's width of A (benchmarks/paper_ec2.py)
 GAUSSIAN_TASK_M = 200_000    # the Gaussian task's cut width (phase_task_gaussian)
 TASK_TIME_SCALE = 10.0       # wall seconds per model second of the paced task runs
@@ -101,9 +107,11 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    """Least time (ms) the card could take, and what sets it."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOPS
+def bound(n_bytes: float, n_ops: float, flops: float = FP32_FLOPS) -> tuple[float, str]:
+    """Least time (ms) the card could take, and what sets it: bytes at the
+    memory's rate, operations at ``flops`` (fp32 outside the tensor cores
+    unless named)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -190,10 +198,28 @@ def phase_device(torch):
                if "entry function" in ln or "registers" in ln or "spill" in ln]
         for name in _build.SOURCES
     }
+    hmma = sass_count(_build.load("ssd_scan")._name, "HMMA")
+    ssd_ptxas = _ptxas_summary(_build.ptxas_report("ssd_scan"))
     emit({"phase": "device", "torch_device": torch.cuda.get_device_name(0),
           "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": build_s, "nvcc_parallel_s": nvcc_s, "ptxas": ptxas})
+          "build_s": build_s, "nvcc_parallel_s": nvcc_s, "ptxas": ptxas,
+          "ssd_scan_hmma": hmma, "ssd_scan_ptxas": ssd_ptxas})
+    check(hmma > 0, "ssd_scan's library holds no HMMA: the bf16 route is off the tensor cores")
+    check(ssd_ptxas["spill_bytes"] == 0, f"ssd_scan spills: {ssd_ptxas}")
     return smi
+
+
+def sass_count(lib: str, opcode: str) -> int:
+    """How many instructions of ``opcode`` a built library's SASS holds
+    (``cuobjdump --dump-sass``, from nvcc's toolkit)."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", lib], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    return len(re.findall(rf"\b{opcode}\b", sass))
 
 
 def phase_kernels(torch, gen, results: dict) -> None:
@@ -463,6 +489,91 @@ def _ssd_check(torch, got, want) -> tuple[float, float, bool]:
     return err, tol, bool(torch.isfinite(got).all()) and err <= tol
 
 
+def _ssd_simt(torch):
+    """The SIMT kernels' C entries (ssd_chunk_simt, ssd_combine_simt): the
+    route bf16 cells took before the tensor cores, kept for timing beside
+    them.  Returns (chunk, combine), each called on tensors like the
+    wrappers."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    lib = _build.load("ssd_scan")
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    chunk, combine = lib.ssd_chunk_simt, lib.ssd_combine_simt
+    chunk.argtypes = [vp] * 8 + [ctypes.c_longlong, i, i, i, i, vp]
+    combine.argtypes = [vp] * 4 + [ctypes.c_longlong, i, i, i, i, vp]
+    chunk.restype = combine.restype = i
+
+    def run_chunk(x, da, b, c, out):
+        g, q, p = x.shape
+        err = chunk(x.data_ptr(), da.data_ptr(), b.data_ptr(), c.data_ptr(),
+                    *(t.data_ptr() for t in out), g, q, p, b.shape[2],
+                    int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"ssd_chunk_simt: cudaError {err}")
+
+    def run_combine(c, cum, s_in, out):
+        g, q, n = c.shape
+        err = combine(c.data_ptr(), cum.data_ptr(), s_in.data_ptr(), out.data_ptr(), g, q,
+                      s_in.shape[1], n, int(c.dtype == torch.bfloat16),
+                      torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"ssd_combine_simt: cudaError {err}")
+
+    return run_chunk, run_combine
+
+
+def _ssd_bounds(g: int, q: int, p: int, n: int, elt: int) -> tuple[tuple, tuple]:
+    """(bytes, operations) of ssd_chunk and of ssd_combine over G cells:
+    each input read once, each output written once; the bf16 route's
+    tensor operations with its three passes (one for C·Bᵀ, whose operands
+    are both bf16), over the causal half (l >= s) that the function needs."""
+    causal = q * (q + 1) // 2
+    chunk_bytes = elt * g * q * (p + 2 * n) + 4 * (g * q + g * q * p + g * p * n + g + g * q)
+    chunk_ops = g * (2 * causal * n + 3 * 2 * causal * p + 3 * 2 * q * p * n)
+    combine_bytes = elt * g * q * n + 4 * (g * q + g * p * n + g * q * p)
+    combine_ops = g * (3 * 2 * q * n * p + q * p)
+    return (chunk_bytes, chunk_ops), (combine_bytes, combine_ops)
+
+
+def _ssd_timed(torch, row_c: dict, row_m: dict, x, da, b, c, cum, s_in) -> None:
+    """Times of the bf16 route at one prompt's cells: ssd_chunk in turns with
+    the SIMT kernel it replaced, ssd_combine in turns with it and with its
+    einsum; the plain versions alone; bounds by bytes at 3.35 TB/s and by
+    the tensor operations (three passes) at 989 TFLOP/s."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_chunk_cuda, ssd_combine_cuda
+
+    g, q, p = x.shape
+    n = b.shape[2]
+    simt_chunk, simt_combine = _ssd_simt(torch)
+    out = [torch.empty_like(t) for t in ssd_chunk_cuda(x, da, b, c)]
+    y_off = torch.empty(g, q, p, device=x.device)
+    row_c["route"] = row_m["route"] = "tensor cores (mma.sync bf16, fp32 operand in 3 bf16 pieces)"
+    row_c["ms"], row_c["simt_ms"], row_c["simt_turns_ms"] = time_turns(
+        torch, lambda: ssd_chunk_cuda(x, da, b, c), lambda: simt_chunk(x, da, b, c, out), 20)
+    row_c["ratio_to_simt"] = row_c["ms"] / row_c["simt_ms"]
+    row_c["plain_ms"] = time_ms(torch, lambda: ref.ref_ssd_chunk(x, da, b, c), 3)
+    row_c["library_ms"] = None  # no one PyTorch call computes it
+    row_m["ms"], row_m["library_ms"], row_m["turns_ms"] = time_turns(
+        torch, lambda: ssd_combine_cuda(c, cum, s_in),
+        lambda: torch.einsum("gln,gpn,gl->glp", c.float(), s_in, cum.exp()), 20)
+    row_m["library_call"] = "torch.einsum('gln,gpn,gl->glp', C.float(), S_in, exp(cum))"
+    row_m["ms_simt_turns"], row_m["simt_ms"], _ = time_turns(
+        torch, lambda: ssd_combine_cuda(c, cum, s_in),
+        lambda: simt_combine(c, cum, s_in, y_off), 20)
+    row_m["ratio_to_simt"] = row_m["ms_simt_turns"] / row_m["simt_ms"]
+    row_m["plain_ms"] = time_ms(torch, lambda: ref.ref_ssd_combine(c, cum, s_in), 5)
+    (cb, co), (mb, mo) = _ssd_bounds(g, q, p, n, x.element_size())
+    row_c["bound_ms"], row_c["bound_by"] = bound(cb, co, TC_BF16_FLOPS)
+    row_m["bound_ms"], row_m["bound_by"] = bound(mb, mo, TC_BF16_FLOPS)
+    row_c["bound_share"] = row_c["bound_ms"] / row_c["ms"]
+    against_library(row_m)
+    print(f"ssd {row_c['shape']}: chunk {row_c['ms']:.4f} ms ({row_c['ratio_to_simt']:.3f}x SIMT "
+          f"{row_c['simt_ms']:.4f}), combine {row_m['ms']:.4f} ms ({row_m['ratio']:.3f}x einsum "
+          f"{row_m['library_ms']:.4f}; {row_m['ratio_to_simt']:.3f}x SIMT {row_m['simt_ms']:.4f})",
+          flush=True)
+
+
 def kernel_ssd(torch, results: dict) -> None:
     """ssd_chunk and ssd_combine against ref_ssd_chunk / ref_ssd_combine on
     the card, at both Mamba-2 configs' widths, for prompts of 4096, 1000
@@ -503,26 +614,7 @@ def kernel_ssd(torch, results: dict) -> None:
                      "p": p, "n": n, "dtype": dname, "da_draw": draw,
                      "max_abs_err": comb[0], "tol": comb[1]}
             if s == SSD_TIMED and dtype == torch.bfloat16 and draw == "reference":
-                elt = x.element_size()
-                row_c["ms"] = time_ms(torch, lambda: ssd_chunk_cuda(x, da, b, c), 20)
-                row_c["plain_ms"] = time_ms(torch, lambda: ref.ref_ssd_chunk(x, da, b, c), 3)
-                row_c["library_ms"] = None  # no one PyTorch call computes it
-                # each input read once, each output written once; the two
-                # Q x Q products over their causal half (l >= s), which is
-                # all the function needs: q(q+1)/2 entries of C·Bᵀ over N
-                # and of (C·Bᵀ ∘ L)·X over P, then Xᵀ·(decayed B)
-                n_bytes = elt * g * q * (p + 2 * n) + 4 * (g * q + g * q * p + g * p * n + g + g * q)
-                n_ops = g * (q * (q + 1) * (n + p) + 2 * q * p * n)
-                row_c["bound_ms"], row_c["bound_by"] = bound(n_bytes, n_ops)
-                cum = want[3]
-                row_m["ms"] = time_ms(torch, lambda: ssd_combine_cuda(c, cum, s_in), 20)
-                row_m["plain_ms"] = time_ms(torch, lambda: ref.ref_ssd_combine(c, cum, s_in), 5)
-                row_m["library_ms"] = time_ms(
-                    torch, lambda: torch.einsum("gln,gpn,gl->glp", c.float(), s_in, cum.exp()), 5)
-                row_m["library_call"] = ("torch.einsum('gln,gpn,gl->glp', C.float(), S_in, "
-                                         "exp(cum))")
-                n_bytes = elt * g * q * n + 4 * (g * q + g * p * n + g * q * p)
-                row_m["bound_ms"], row_m["bound_by"] = bound(n_bytes, g * (2 * q * n * p + q * p))
+                _ssd_timed(torch, row_c, row_m, x, da, b, c, want[3], s_in)
                 results.setdefault("ssd_chunk", {})[label] = row_c
                 results.setdefault("ssd_combine", {})[label] = row_m
             emit(row_c)
@@ -1637,6 +1729,187 @@ def sweep_head(torch, args, smi: str) -> None:
           "card": smi})
 
 
+# ssd_scan.cu's tensor-core settings: kChunkWarps, kChunkMinBlocks (blocks an
+# SM its launch bounds ask for), kFastExp, kCombineWarps, kCombineMinBlocks
+SSD_SWEEP = [(8, 2, 0, 8, 3), (8, 2, 1, 8, 3), (8, 2, 1, 8, 4), (4, 4, 1, 4, 4),
+             (4, 2, 0, 4, 6), (16, 1, 1, 16, 1)]
+SSD_SWEEP_PROMPTS = (4096, 1000)
+SSD_SETTING_NAMES = ("kChunkWarps", "kChunkMinBlocks", "kFastExp", "kCombineWarps",
+                     "kCombineMinBlocks")
+
+
+# the shipped ssd_chunk with a part of its work taken out (its outputs are
+# then wrong): each (old, new) replacement of ssd_scan.cu's text must match
+# once.  Timed in turns with the shipped kernel, they show where its time goes.
+SSD_ABLATIONS = {
+    "exp of L taken out": [("return kFastExp ? __expf(v) : expf(v);", "return 1.f;")],
+    "one pass, not three": [("for (int k = 0; k < kPieces; ++k) {\n        mma_bf16(acc[2 * pp], pc[k]",
+                             "for (int k = 0; k < 1; ++k) {\n        mma_bf16(acc[2 * pp], pc[k]")],
+    "no state": [("      chunk_states<kSN>(u / kSplit", "      if (u < 0) chunk_states<kSN>(u / kSplit")],
+    "no y_diag": [("    if (it < pl.y_units) {  // the short", "    if (it < 0) {  // the short"),
+                  ("      const int u = it - pl.y_units;",
+                   "      const int u = it - pl.y_units;\n      if (u < 0) continue;")],
+    "staging and cumsum only": [
+        ("  for (int it = warp; it < pl.y_units + pl.state_units; it += kChunkWarps) {",
+         "  for (int t = 0; t < pl.stages; ++t) mbar_wait(smem_addr(bars + t), 0);\n"
+         "  for (int it = warp; it < 0; it += kChunkWarps) {")],
+}
+
+
+def _ssd_variants(settings, ablations) -> dict:
+    """ssd_scan.cu rebuilt with other tensor-core settings (SSD_SWEEP) and
+    with the ablations named, one nvcc each, started together, under
+    build/ssd_sweep; {setting or ablation: (the library, its ptxas
+    summary)}, or (None, nvcc's output) for one that does not build."""
+    import ctypes
+    import re
+
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC / "ssd_scan.cu").read_text()
+    texts = {}
+    for setting in settings:
+        text = src
+        for name, value in zip(SSD_SETTING_NAMES, setting):
+            text, count = re.subn(rf"constexpr int {name} = \d+;",
+                                  f"constexpr int {name} = {value};", text)
+            check(count == 1, f"ssd_scan.cu defines {name} {count} times, not once")
+        texts[setting] = ("ssd_scan_" + "_".join(map(str, setting)), text)
+    for i, name in enumerate(ablations):
+        text = src
+        for old, new in SSD_ABLATIONS[name]:
+            check(text.count(old) >= 1, f"ablation {name!r}: ssd_scan.cu lacks {old!r}")
+            text = text.replace(old, new)
+        texts[name] = (f"ssd_scan_ablation{i}", text)
+    out_dir = _build.BUILD_DIR.parent / "ssd_sweep"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for key, (stem, text) in texts.items():
+        cu = out_dir / f"{stem}.cu"
+        cu.write_text(text)
+        lib = cu.with_suffix(".so")
+        procs[key] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for key, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        libs[key] = ((ctypes.CDLL(str(lib)), _ptxas_summary(log)) if proc.returncode == 0
+                     else (None, log[-3000:]))
+    return libs
+
+
+def sweep_ssd(torch, args, smi: str) -> None:
+    """The bf16 route of ssd_chunk and ssd_combine at the 4096- and
+    1000-token cells of both Mamba-2 widths (reference draw) for each
+    tensor-core setting of SSD_SWEEP (warps a block, blocks an SM the launch
+    bounds ask for, the exp of L, for each kernel), each a variant of
+    ssd_scan.cu built here, timed in turns with the SIMT kernels on bf16 (the
+    route before, ssd_*_simt) and held to the plain version's tolerance;
+    one JSON line a variant with its registers and spills, and whether its
+    bits equal the shipped kernel's."""
+    import ctypes
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_chunk_cuda, ssd_combine_cuda
+
+    t0 = time.perf_counter()
+    libs = _ssd_variants(SSD_SWEEP, SSD_ABLATIONS)
+    build_s = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 17)
+    simt_chunk, simt_combine = _ssd_simt(torch)
+    cells = []
+    for arch, (heads, p, n) in SSD_WIDTHS.items():
+        for s in SSD_SWEEP_PROMPTS:
+            x, da, b, c = _ssd_cells(torch, gen, heads, p, n, s, torch.bfloat16)
+            want = ref.ref_ssd_chunk(x, da, b, c)
+            s_in = 0.1 * torch.randn(da.shape[0], p, n, device=dev, generator=gen)
+            shipped = (ssd_chunk_cuda(x, da, b, c), ssd_combine_cuda(c, want[3], s_in))
+            cells.append((f"{arch} {s}", x, da, b, c, s_in, want,
+                          ref.ref_ssd_combine(c, want[3], s_in), shipped))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    for setting in SSD_SWEEP:
+        lib, summary = libs[setting]
+        named = dict(zip(("chunk_warps", "chunk_min_blocks", "fast_exp", "combine_warps",
+                          "combine_min_blocks"), setting))
+        if lib is None:
+            emit({"phase": "sweep ssd", **named, "build_failed": summary})
+            continue
+        chunk, combine = lib.ssd_chunk, lib.ssd_combine
+        chunk.argtypes = [vp] * 8 + [ctypes.c_longlong, i, i, i, i, vp]
+        combine.argtypes = [vp] * 4 + [ctypes.c_longlong, i, i, i, i, vp]
+        chunk.restype = combine.restype = i
+        runs = []
+        for label, x, da, b, c, s_in, want, want_off, shipped in cells:
+            g, q, p = x.shape
+            n = b.shape[2]
+            out = [torch.empty_like(t) for t in want]
+            y_off = torch.empty_like(want_off)
+            simt_out = [torch.empty_like(t) for t in want]
+            simt_off = torch.empty_like(want_off)
+
+            def run_chunk():
+                err = chunk(x.data_ptr(), da.data_ptr(), b.data_ptr(), c.data_ptr(),
+                            *(t.data_ptr() for t in out), g, q, p, n, 1, stream)
+                check(err == 0, f"ssd setting {setting} chunk: cudaError {err}")
+
+            def run_combine():
+                err = combine(c.data_ptr(), want[3].data_ptr(), s_in.data_ptr(),
+                              y_off.data_ptr(), g, q, p, n, 1, stream)
+                check(err == 0, f"ssd setting {setting} combine: cudaError {err}")
+
+            run_chunk()
+            run_combine()
+            torch.cuda.synchronize()
+            checks = [_ssd_check(torch, gv, wv) for gv, wv in zip([*out, y_off],
+                                                                  [*want, want_off])]
+            chunk_ms, chunk_simt_ms, chunk_turns = time_turns(
+                torch, run_chunk, lambda: simt_chunk(x, da, b, c, simt_out), 20)
+            comb_ms, comb_simt_ms, comb_turns = time_turns(
+                torch, run_combine, lambda: simt_combine(c, want[3], s_in, simt_off), 20)
+            runs.append({
+                "cells": label, "g": g, "chunk_ms": chunk_ms, "chunk_simt_ms": chunk_simt_ms,
+                "chunk_ratio": chunk_ms / chunk_simt_ms, "chunk_turns_ms": chunk_turns,
+                "combine_ms": comb_ms, "combine_simt_ms": comb_simt_ms,
+                "combine_ratio": comb_ms / comb_simt_ms, "combine_turns_ms": comb_turns,
+                "max_err_over_tol": max(err / tol for err, tol, _ in checks),
+                "bit_equal_shipped": all(torch.equal(a, b_) for a, b_ in
+                                         zip([*out, y_off], [*shipped[0], shipped[1]]))})
+            for (err, tol, ok), name in zip(checks, ("y_diag", "states", "decay", "cum",
+                                                     "y_off")):
+                check(ok, f"ssd setting {setting} {label} {name}: max err {err}, allowed {tol}")
+            del out, y_off, simt_out, simt_off
+        emit({"phase": "sweep ssd", **named, "ptxas": summary, "card": smi, "runs": runs})
+    # where the shipped ssd_chunk's time goes: each ablation in turns with it
+    for label, x, da, b, c, s_in, want, want_off, shipped in cells:
+        if not label.endswith(str(SSD_TIMED)):
+            continue
+        g, q, p = x.shape
+        n = b.shape[2]
+        out = [torch.empty_like(t) for t in want]
+        runs = {}
+        for name in SSD_ABLATIONS:
+            lib, summary = libs[name]
+            check(lib is not None, f"ablation {name!r} does not build:\n{summary}")
+            fn = lib.ssd_chunk
+            fn.argtypes = [vp] * 8 + [ctypes.c_longlong, i, i, i, i, vp]
+            fn.restype = i
+
+            def run_ablated(fn=fn):
+                fn(x.data_ptr(), da.data_ptr(), b.data_ptr(), c.data_ptr(),
+                   *(t.data_ptr() for t in out), g, q, p, n, 1, stream)
+
+            ablated_ms, shipped_ms, _ = time_turns(
+                torch, run_ablated, lambda: ssd_chunk_cuda(x, da, b, c), 20)
+            runs[name] = {"ms": ablated_ms, "shipped_ms": shipped_ms,
+                          "saved_ms": shipped_ms - ablated_ms, "spill_bytes": summary["spill_bytes"]}
+        emit({"phase": "ablate ssd_chunk", "cells": label, "g": g, "runs": runs, "card": smi})
+    emit({"phase": "sweep ssd done", "variant_build_s": build_s, "variants": len(SSD_SWEEP),
+          "ablations": len(SSD_ABLATIONS), "card": smi})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=40,
@@ -1648,6 +1921,10 @@ def main() -> int:
                     help="only build, check the encode kernels and sweep lt_encode's "
                          "span width, light rows a unit and heavy split at the LT task's "
                          "shape (no serve, no device line)")
+    ap.add_argument("--sweep-ssd", action="store_true",
+                    help="only build, check the SSD kernels and sweep ssd_scan.cu's "
+                         "tensor-core settings at the 4096- and 1000-token Mamba-2 cells, "
+                         "in turns with the SIMT kernels (no serve, no device line)")
     ap.add_argument("--sweep-head", action="store_true",
                     help="only build, check the head kernels and sweep thin_rows.cuh's "
                          "warps, rows a warp, loads in flight and blocks an SM at the "
@@ -1675,6 +1952,10 @@ def main() -> int:
                      torch.randn(500, GAUSSIAN_TASK_M, device="cuda", generator=gen),
                      "task shape, random G", 20)
         sweep_lt(torch, args, smi)
+        return 0
+    if args.sweep_ssd:
+        kernel_ssd(torch, results)
+        sweep_ssd(torch, args, smi)
         return 0
     if args.sweep_head:
         kernel_coded_decode(torch, gen, results)

@@ -9,8 +9,9 @@ so it runs on the GPU machine as it is:
 Tolerance: |kernel - plain| <= 1e-4 * max(1, max|plain|) — both fp32, summed
 in another order; for fp16 inputs of ``coded_matvec`` (fp32 sums in both)
 the reference's fp16 bound, 2e-3.  The SSD kernels, fp32 or bf16 inputs
-(cast to fp32 in both): the reference's rtol 1e-4 and atol 1e-5, the atol
-scaled by max|plain|.
+(cast to fp32 in both; bf16 runs on the tensor cores with each fp32
+operand in three bf16 pieces): the reference's rtol 1e-4 and atol 1e-5,
+the atol scaled by max|plain|.
 """
 import numpy as np
 import pytest
@@ -785,6 +786,97 @@ def test_cuda_ssd_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         ops.ssd_forward(torch.zeros(1, 16, 2, 8), torch.zeros(1, 16, 2),
                         torch.zeros(1, 16, 1, 8), torch.zeros(1, 16, 1, 8), 16, mode="cuda")
+
+
+def _ssd_draw(dev, g, q, p, n, draw, seed):
+    """bf16 cells under one of three decays: the reference tests' draw, the
+    slow one that keeps every tile in sight, or one whose exp overflows
+    above the diagonal (every step decays by e^-20 or more)."""
+    if draw == "overflow":
+        x, da, b, c = _ssd_cells(dev, g, q, p, n, torch.bfloat16, seed, da_scale=60.0)
+        return x, da - 20.0, b, c
+    x, da, b, c = _ssd_cells(dev, g, q, p, n, torch.bfloat16, seed)
+    if draw == "slow":
+        da = _slow_da(dev, (g, q), q, seed=seed + 1)
+    return x, da, b, c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,p,n", SSD_SHAPES)
+@pytest.mark.parametrize("draw", ["reference", "slow", "overflow"])
+def test_cuda_ssd_bf16_route_matches_plain(q, p, n, draw):
+    """The tensor-core route (bf16 x, B, C; fp32 operands in three bf16
+    pieces) at every SSD shape, under each decay, at the file's tolerance."""
+    from repro_torch.kernels import ref
+
+    dev = _cuda()
+    x, da, b, c = _ssd_draw(dev, 6, q, p, n, draw, seed=q * 1000 + p + n + 11)
+    got = ssd_chunk_cuda(x, da, b, c)
+    want = ref.ref_ssd_chunk(x, da, b, c)
+    st_in = torch.randn(6, p, n, device=dev)
+    y_off = ssd_combine_cuda(c, want[3], st_in)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        _ssd_close(g_, w_)
+    _ssd_close(y_off, ref.ref_ssd_combine(c, want[3], st_in))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,p,n", SSD_SHAPES)
+def test_cuda_ssd_bf16_route_is_deterministic_and_keeps_the_scan(q, p, n):
+    """Two launches of the tensor-core route give the same bits, and its cum
+    and decay are the SIMT route's bits (the same scan, once a cell)."""
+    dev = _cuda()
+    x, da, b, c = _ssd_draw(dev, 5, q, p, n, "slow", seed=q + 7 * p + n)
+    first = ssd_chunk_cuda(x, da, b, c)
+    second = ssd_chunk_cuda(x, da, b, c)
+    simt = ssd_chunk_cuda(x.float(), da, b.float(), c.float())
+    st_in = torch.randn(5, p, n, device=dev)
+    y_off = [ssd_combine_cuda(c, first[3], st_in) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+    assert torch.equal(y_off[0], y_off[1])
+    assert torch.equal(first[2], simt[2]) and torch.equal(first[3], simt[3])
+
+
+@pytest.mark.gpu
+def test_cuda_ssd_c_entries_refuse_what_the_kernels_do_not_take():
+    """The C entries return cudaErrorInvalidValue (1) for cells outside
+    both routes, and for bf16 cells wider than the tensor-core route's N <=
+    128; the wrappers raise before launching."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_scan import MAX_N_BF16
+
+    dev = _cuda()
+    lib = _build.load("ssd_scan")
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    chunk, combine = lib.ssd_chunk, lib.ssd_combine
+    chunk.argtypes = [vp] * 8 + [ctypes.c_longlong, i, i, i, i, vp]
+    combine.argtypes = [vp] * 4 + [ctypes.c_longlong, i, i, i, i, vp]
+    chunk.restype = combine.restype = i
+    big = torch.zeros(1 << 20, device=dev)  # room for every output the calls name
+    ptr = big.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    for g, q, p, n, bf16 in [(1, 16, 8, MAX_N_BF16 + 1, 1), (0, 16, 8, 8, 1), (1, 257, 8, 8, 1),
+                             (1, 16, 65, 8, 1), (1, 0, 8, 8, 0), (1, 16, 8, 0, 0)]:
+        assert chunk(*[ptr] * 8, g, q, p, n, bf16, stream) == 1
+        assert combine(*[ptr] * 4, g, q, p, n, bf16, stream) == 1
+    x, da, b, c = _ssd_cells(dev, 2, 16, 8, MAX_N_BF16 + 1, torch.bfloat16, seed=0)
+    with pytest.raises(ValueError, match="N <= 128"):
+        ssd_chunk_cuda(x, da, b, c)
+    with pytest.raises(ValueError, match="N <= 128"):
+        ssd_combine_cuda(c, da, torch.zeros(2, 8, MAX_N_BF16 + 1, device=dev))
+    # the fp32 (SIMT) route takes the same cells
+    from repro_torch.kernels import ref
+
+    got = ssd_chunk_cuda(x.float(), da, b.float(), c.float())
+    want = ref.ref_ssd_chunk(x.float(), da, b.float(), c.float())
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        _ssd_close(g_, w_)
 
 
 @pytest.mark.gpu
