@@ -62,7 +62,27 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    erasures, held to the uncoded head and to the fused single-device head;
 7. mesh serve: ``ServeEngine(mesh=...)`` over the serve phase's params and
    workload, its greedy tokens held to the single-device serve's;
-8. ssm serve and hybrid serve: mamba2-130m and zamba2-1.2b at full width
+8. trace serve: glm4-9b on the serve phase's params with the (14, 2) head,
+   driven as the launcher's trace mode drives it (wall clock, a sleep to the
+   next arrival): a Poisson trace of 12 requests of 16 prompt tokens and up
+   to 64 new tokens at about 70 % offered load (``t_token_est`` the serve
+   phase's step time, SLO factor 4), 4 slots, a ``HealthMonitor``-fed
+   latency stream with the three persistent stragglers, ``ParityController``
+   under ``DeadlineAwareParity``, one raise allowed, ``macro_steps=16``;
+   every request completes or is rejected at admission, completed ones with
+   their token budget, exactly one raise, at least one fused block (a graph
+   replay) under the scheduler's gates;
+9. macro serve, glm4-9b: the same params, 4 slots, four requests of 16
+   prompt tokens and 64 new tokens under a fixed mask of two erasures, with
+   ``macro_steps=1`` and then 16 (fused blocks as CUDA graphs, one per K
+   bucket), three waves of the same prompts: equal tokens and
+   ``coded_matvec_decode`` launches = prefills + steps + one warm-up step a
+   capture in every wave (a replay counts its graph's kernel nodes); the
+   third wave, on warm engines, captures nothing and is timed: ms per
+   decoded step, host syncs per token, fused blocks, capture seconds per
+   bucket, the graph pool's bytes, the 16-step graph's device time, and the
+   step's byte bound and share;
+10. ssm serve and hybrid serve: mamba2-130m and zamba2-1.2b at full width
    and depth (seeded init on the card), coded head, 4 slots, six requests of
    4096, 4096, 1000, 1000, 100 and 2 prompt tokens and 8 new tokens, the
    same three stragglers forcing the raise; every Mamba block's prefill runs
@@ -70,7 +90,9 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    ms per prompt length, whole-step ms, tokens/s, peak memory, the float32
    prefill logits with the SSD kernels against the plain SSD on the card,
    and block 0's SSD of the served bf16 prefill against its plain route;
-9. a ``kernels`` line with every kernel on every path it runs (launch
+   then the macro pair of phase 9 on the same engine factory, four requests
+   of 100 prompt tokens and 64 new tokens;
+11. a ``kernels`` line with every kernel on every path it runs (launch
    counts read around that path's run; ``lt_encode``'s ``ms`` is the
    call with its compaction, its ``kernel_ms`` the kernel alone, which its
    ``library_ms`` is held to), then the device line.
@@ -652,27 +674,17 @@ def kernel_ssd(torch, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def _kernel_wrappers() -> dict:
-    from repro_torch.kernels.coded_decode import coded_matvec_decode_cuda
-    from repro_torch.kernels.coded_matvec import coded_matvec_cuda
-    from repro_torch.kernels.lt_encode import gaussian_encode_cuda, lt_encode_cuda
-    from repro_torch.kernels.ssd_scan import ssd_chunk_cuda, ssd_combine_cuda
-
-    return {"coded_matvec": coded_matvec_cuda,
-            "coded_matvec_decode": coded_matvec_decode_cuda,
-            "gaussian_encode": gaussian_encode_cuda,
-            "lt_encode": lt_encode_cuda,
-            "ssd_chunk": ssd_chunk_cuda,
-            "ssd_combine": ssd_combine_cuda}
-
-
 def _reset_launches() -> None:
-    for fn in _kernel_wrappers().values():
+    from repro_torch.kernels import kernel_wrappers
+
+    for fn in kernel_wrappers().values():
         fn.launches = 0
 
 
 def _launches() -> dict:
-    return {name: fn.launches for name, fn in _kernel_wrappers().items()}
+    from repro_torch.kernels import kernel_wrappers
+
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
 def _host_peak_gb() -> float:
@@ -1257,11 +1269,13 @@ def phase_mamba_serve(torch, args, results: dict, smi: str, arch: str) -> None:
         lat[2] = lat[7] = lat[11] = 5e-2
         return lat
 
-    eng = ServeEngine(model, params, n_slots=4, s_max=MAMBA_S_MAX, latency_fn=latency_fn,
-                      parity_controller=ParityController(16, decay=0.5), parity_topup=1,
-                      topup_patience=2, head_kernel_mode="cuda", encode_mode="cuda",
-                      ssd_kernel_mode="cuda", device=dev)
-    del params
+    def make_engine(macro_steps=1):
+        return ServeEngine(model, params, n_slots=4, s_max=MAMBA_S_MAX, latency_fn=latency_fn,
+                           parity_controller=ParityController(16, decay=0.5), parity_topup=1,
+                           topup_patience=2, head_kernel_mode="cuda", encode_mode="cuda",
+                           ssd_kernel_mode="cuda", macro_steps=macro_steps, device=dev)
+
+    eng = make_engine()
     rng = np.random.default_rng(args.seed + 14)
     max_new = 8
     for i, n_tok in enumerate(MAMBA_PROMPTS):
@@ -1350,6 +1364,264 @@ def phase_mamba_serve(torch, args, results: dict, smi: str, arch: str) -> None:
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    # the macro pair on the same engine factory
+    prompts = [rng.integers(0, cfg.vocab, 100) for _ in range(4)]
+    results[f"macro {arch}"] = phase_macro_pair(torch, make_engine, prompts, 64, cfg.name, smi)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _step_bytes(eng) -> int:
+    """Bytes a decode step must move: every layer weight and the coded head
+    read once (the embedding and the uncoded head are not read), the cache
+    read once, and the Mamba states and positions written once."""
+    def nbytes(tree, skip=()):
+        if isinstance(tree, dict):
+            return sum(nbytes(v) for k, v in tree.items() if k not in skip)
+        if isinstance(tree, (list, tuple)):
+            return sum(nbytes(v) for v in tree)
+        return tree.numel() * tree.element_size()
+
+    def written(tree, name=""):
+        if isinstance(tree, dict):
+            return sum(written(v, k) for k, v in tree.items())
+        if isinstance(tree, list):
+            return sum(written(v, name) for v in tree)
+        return nbytes(tree) if name in ("ssm", "conv", "pos") else 0
+
+    return (nbytes(eng.params, skip=("embed", "lm_head")) + nbytes(eng.cache)
+            + written(eng.cache))
+
+
+def phase_macro_pair(torch, make_engine, prompts, max_new: int, arch: str, smi: str) -> dict:
+    """The workload through ``make_engine(1)`` (scalar steps) and
+    ``make_engine(16)`` (fused blocks, one CUDA graph per K bucket), three
+    waves of the same prompts on one engine.  Every wave is counted: equal
+    tokens, ``coded_matvec_decode`` launches = prefills + steps + the
+    captures' warm-up steps, the replays counted from their graphs' kernel
+    nodes.  Wave 1 holds the captures (and the Mamba-2 engines' raise, after which the
+    graphs are captured anew), wave 2 whatever bucket wave 1 did not reach
+    after a raise, and wave 3 is timed and must capture nothing: its first
+    step admits every slot and is not timed; the rest is ms per decoded
+    step on the host clock (the device synchronized around it), host syncs
+    per token and fused blocks.  Each capture's seconds (its warm-up step
+    included) and the reserved bytes it adds (the graph pool) are read
+    around it here."""
+    from repro_torch.serve import Request
+
+    runs = {}
+    for k in (1, 16):
+        eng = make_engine(k)
+        captures = _measure_captures(torch, eng)
+        waves = []
+        for wave in range(3):
+            uid0 = 100 * wave
+            for i, p in enumerate(prompts):
+                eng.submit(Request(uid=uid0 + i, prompt=p, max_new_tokens=max_new))
+            _reset_launches()
+            steps0, syncs0, blocks0, tok0, caps0 = (eng._steps, eng.sync_count, eng.macro_blocks,
+                                                    eng.tokens_emitted, len(eng.graph_log))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if wave:
+                check(eng.step() == len(prompts), f"{arch} macro: wave 2 did not fill every slot")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            steps_t0 = eng._steps
+            eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launches()
+            done = [r for r in eng.completed if uid0 <= r.uid < uid0 + len(prompts)]
+            tokens = {r.uid - uid0: r.out_tokens for r in done}
+            steps = eng._steps - steps0
+            check(len(done) == len(prompts) and all(len(t) == max_new for t in tokens.values()),
+                  f"{arch} macro K={k} wave {wave}: requests or token counts short")
+            warmups = len(eng.graph_log) - caps0   # one eager step before each capture
+            check(launches["coded_matvec_decode"] == len(prompts) + steps + warmups,
+                  f"{arch} macro K={k} wave {wave}: coded_matvec_decode launches {launches} != "
+                  f"{len(prompts)} prefills + {steps} steps + {warmups} warm-ups")
+            waves.append({"tokens": tokens, "steps": steps, "wall_s": wall,
+                          "ms_per_step": wall * 1e3 / max(eng._steps - steps_t0, 1),
+                          "timed_steps": eng._steps - steps_t0,
+                          "sync_count": eng.sync_count - syncs0,
+                          "syncs_per_token": (eng.sync_count - syncs0)
+                          / max(eng.tokens_emitted - tok0, 1),
+                          "macro_blocks": eng.macro_blocks - blocks0, "launches": launches,
+                          "captures": warmups,
+                          "parity_events": len(eng.parity_events)})
+        runs[k] = {"waves": waves, "graph_log": eng.graph_log, "captures": captures,
+                   "graph_replays": eng.graph_replays,
+                   "pool_bytes": sum(e["pool_bytes_added"] for e in captures),
+                   # the device time of the 16-step graph alone, a step
+                   "graph_device_ms_per_step": (time_ms(torch, eng._graphs[16].graph.replay, 5,
+                                                        warmup=1) / 16
+                                                if 16 in getattr(eng, "_graphs", {}) else None),
+                   "step_bytes": _step_bytes(eng)}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    scalar, fused = runs[1], runs[16]
+    for wave in range(3):
+        check(fused["waves"][wave]["tokens"] == scalar["waves"][wave]["tokens"],
+              f"{arch} macro wave {wave + 1}: fused (graph) tokens differ from scalar tokens")
+    check(fused["waves"][2]["macro_blocks"] > 0 and fused["graph_log"],
+          f"{arch} macro: no fused block ran")
+    check(fused["waves"][2]["captures"] == 0, f"{arch} macro: the timed wave captured a graph")
+    timed = [run["waves"][2] for run in (scalar, fused)]
+    bound_ms = scalar["step_bytes"] / HBM_BYTES_PER_S * 1e3
+    s_ms, f_ms = timed[0]["ms_per_step"], timed[1]["ms_per_step"]
+    row = {"phase": "macro_serve", "arch": arch, "requests": len(prompts),
+           "prompt_len": len(prompts[0]), "max_new": max_new,
+           "scalar_ms_per_step": s_ms, "fused_ms_per_step": f_ms, "fused_over_scalar": f_ms / s_ms,
+           "timed_steps": [w["timed_steps"] for w in timed],
+           "sync_count": [w["sync_count"] for w in timed],
+           "syncs_per_token": [w["syncs_per_token"] for w in timed],
+           "macro_blocks": timed[1]["macro_blocks"],
+           "wave1_ms_per_step": [scalar["waves"][0]["ms_per_step"],
+                                 fused["waves"][0]["ms_per_step"]],
+           "captures_per_wave": [w["captures"] for w in fused["waves"]],
+           "graph_device_ms_per_step": fused["graph_device_ms_per_step"],
+           "captures": [dict(e, launches_per_replay=g["launches_per_replay"])
+                        for e, g in zip(fused["captures"], fused["graph_log"])],
+           "graph_pool_bytes": fused["pool_bytes"], "graph_replays": fused["graph_replays"],
+           "launches": [scalar["waves"][0]["launches"], fused["waves"][0]["launches"]],
+           "parity_events": fused["waves"][0]["parity_events"],
+           "step_bytes": scalar["step_bytes"], "step_bound_ms": bound_ms,
+           "bound_share": [bound_ms / s_ms, bound_ms / f_ms],
+           "tokens_equal": True, "card": smi}
+    emit(row)
+    return row
+
+
+def _measure_captures(torch, eng) -> list:
+    """Wrap ``eng``'s captures: for each, the seconds of its warm-up step
+    and capture and the reserved bytes it adds, the device synchronized and
+    the allocator's cache emptied before (the capture empties it as it
+    starts, so the growth is the graph pool's).  Returns the list it
+    fills, one entry a capture."""
+    log = []
+    capture = eng._capture
+
+    def reserved() -> int:
+        return torch.cuda.memory_stats().get("reserved_bytes.all.current", 0)
+
+    def measured(k):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0, t0 = reserved(), time.perf_counter()
+        blk = capture(k)
+        torch.cuda.synchronize()
+        log.append({"k": k, "n_parity": eng.graph_log[-1]["n_parity"],
+                    "capture_s": time.perf_counter() - t0, "pool_bytes_added": reserved() - r0})
+        return blk
+
+    eng._capture = measured
+    return log
+
+
+def phase_trace_serve(torch, args, serve: dict, results: dict, smi: str) -> None:
+    """glm4-9b under open-loop traffic, driven as the launcher's trace mode
+    drives it: a TraceScheduler over a Poisson trace at about 70 % offered
+    load, deadline-aware parity over a HealthMonitor-fed latency stream with
+    three persistent stragglers (one raise), fused blocks up to 16 steps."""
+    from repro_torch.core.adaptive import DeadlineAwareParity, ParityController
+    from repro_torch.models.registry import build_model
+    from repro_torch.runtime import HealthMonitor
+    from repro_torch.serve import Request, ServeEngine, TraceScheduler, poisson_trace
+
+    cfg = serve["cfg"]
+    n_slots, n_req, prompt_len, max_new = 4, 12, 16, 64
+    t_step = results["serve"]["step_ms"] / 1e3
+    # the token draws do not depend on the rate: size the rate on them
+    mk = lambda rate: poisson_trace(rate, n_req, seed=args.seed, mean_tokens=max_new,  # noqa: E731
+                                    max_tokens=max_new, t_token=t_step, slo_factor=4.0)
+    rate = 0.7 * n_slots / (float(mk(1.0).n_tokens.mean()) * t_step)
+    trace = mk(rate)
+    rng = np.random.default_rng(args.seed + 5)
+    payloads = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, prompt_len),
+                        max_new_tokens=int(trace.n_tokens[i])) for i in range(n_req)]
+    sched = TraceScheduler(trace, n_slots, t_step_init=t_step, payloads=payloads)
+    monitor = HealthMonitor(n_workers=16)
+
+    def latency_fn():  # three persistent stragglers, seen through the monitor
+        lat = 1e-3 * (1.0 + 0.1 * rng.random(16))
+        lat[[2, 7, 11]] = 5e-2
+        monitor.observe_step_latencies(lat)
+        return monitor.shard_latencies()
+
+    policy = DeadlineAwareParity(ParityController(16, decay=0.5))
+    t0 = time.monotonic()
+    clock = lambda: time.monotonic() - t0  # noqa: E731
+    eng = ServeEngine(build_model(cfg), serve["params"], n_slots=n_slots, s_max=96,
+                      latency_fn=latency_fn, parity_policy=policy, parity_topup=1,
+                      topup_patience=2, scheduler=sched, clock=clock, macro_steps=16,
+                      head_kernel_mode="cuda", encode_mode="cuda", device=torch.device("cuda"))
+    _reset_launches()
+    t0 = time.monotonic()
+    while not sched.finished:
+        if eng.macro_step() == 0:
+            nxt = sched.next_arrival()
+            if nxt is None:
+                break
+            time.sleep(max(0.0, nxt - clock()))
+    torch.cuda.synchronize()
+    wall = clock()
+    launches = _launches()
+    res = sched.results()
+    done = np.isfinite(res["t_complete"])
+    rejected = res["rejected"]
+    n_tok = int(res["n_tokens"][done].sum())
+    by_uid = {r.uid: r for r in eng.completed}
+    row = {"phase": "trace_serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "requests": n_req, "rate_per_s": rate, "t_token_est_s": t_step,
+           "offered_load": rate * float(trace.n_tokens.mean()) * t_step / n_slots,
+           "slo_factor": 4.0, "completed": int(done.sum()), "rejected": int(rejected.sum()),
+           "slo_attainment": float(res["slo_met"].mean()),
+           "est_step_ms": sched.est_step_time * 1e3, "wall_s": wall, "tokens": n_tok,
+           "tokens_per_s": n_tok / wall, "decode_steps": eng._steps,
+           "syncs_per_token": eng.sync_count / max(eng.tokens_emitted, 1),
+           "fused_blocks": eng.macro_blocks,
+           "captures": eng.graph_log,
+           "parity_events": eng.parity_events, "launches": launches, "card": smi}
+    emit(row)
+    results["trace_serve"] = row
+    check(bool((done | rejected).all()) and not bool((done & rejected).any()),
+          "trace serve: a request neither completed nor was rejected")
+    check(all(len(by_uid[i].out_tokens) == int(trace.n_tokens[i]) for i in np.flatnonzero(done)),
+          "trace serve: a completed request missed its token budget")
+    check(len(eng.parity_events) == 1 and eng.parity_events[0]["n_parity"] == 3,
+          f"trace serve: parity events {eng.parity_events}")
+    check(eng.macro_blocks > 0 and eng.graph_replays == eng.macro_blocks,
+          f"trace serve: {eng.macro_blocks} fused blocks, {eng.graph_replays} graph replays")
+    warmups = len(eng.graph_log)  # one eager step before each capture
+    check(launches["coded_matvec_decode"] == int(done.sum()) + eng._steps + warmups
+          and launches["gaussian_encode"] == 1,
+          f"trace serve launches {launches}: want {int(done.sum())} prefills + {eng._steps} "
+          f"steps + {warmups} warm-ups and one raise")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_macro_glm(torch, serve: dict, results: dict, smi: str) -> None:
+    """Phase 9: glm4-9b's macro pair under a fixed mask of two erasures."""
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = serve["cfg"]
+    model = build_model(cfg)
+    mask = np.ones(16)
+    mask[[3, 12]] = 0.0
+
+    def make_engine(macro_steps):
+        return ServeEngine(model, serve["params"], n_slots=4, s_max=128, mask_fn=lambda: mask,
+                           head_kernel_mode="cuda", macro_steps=macro_steps,
+                           device=torch.device("cuda"))
+
+    prompts = [serve["rng"].integers(0, cfg.vocab, 16) for _ in range(4)]
+    results["macro glm4-9b"] = phase_macro_pair(torch, make_engine, prompts, 64, cfg.name, smi)
 
 
 def phase_profile(torch, eng) -> None:
@@ -1970,6 +2242,8 @@ def main() -> int:
     phase_mesh_head(torch, serve, mesh, torch.Generator(device="cuda").manual_seed(args.seed + 2),
                     results, smi)
     phase_mesh_serve(torch, serve, mesh, results, smi)
+    phase_trace_serve(torch, args, serve, results, smi)
+    phase_macro_glm(torch, serve, results, smi)
     del serve, mesh
     gc.collect()
     torch.cuda.empty_cache()
@@ -1996,6 +2270,27 @@ def main() -> int:
         ("gaussian_encode", "src/repro_torch/kernels/csrc/gaussian_encode.cu",
          "src/repro/kernels/lt_encode.py:107", "mesh serve", results["mesh_serve"],
          "glm4-9b raise"),
+        ("coded_matvec_decode", "src/repro_torch/kernels/csrc/coded_decode.cu",
+         "src/repro/kernels/coded_decode.py:65", "trace serve", results["trace_serve"],
+         "glm4-9b decode"),
+        ("gaussian_encode", "src/repro_torch/kernels/csrc/gaussian_encode.cu",
+         "src/repro/kernels/lt_encode.py:107", "trace serve", results["trace_serve"],
+         "glm4-9b raise"),
+        ("coded_matvec_decode", "src/repro_torch/kernels/csrc/coded_decode.cu",
+         "src/repro/kernels/coded_decode.py:65", "macro serve (graphs)",
+         {"launches": results["macro glm4-9b"]["launches"][1]}, "glm4-9b decode"),
+        *((name, src, replaces, f"{arch} macro serve (graphs)",
+           {"launches": results[f"macro {arch}"]["launches"][1]}, shape)
+          for arch in ("mamba2-130m", "zamba2-1.2b")
+          for name, src, replaces, shape in (
+              ("ssd_chunk", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+               "src/repro/kernels/ssd_scan.py:52", f"{arch} {SSD_TIMED} bfloat16"),
+              ("ssd_combine", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+               "src/repro/kernels/ssd_scan.py:99", f"{arch} {SSD_TIMED} bfloat16"),
+              ("coded_matvec_decode", "src/repro_torch/kernels/csrc/coded_decode.cu",
+               "src/repro/kernels/coded_decode.py:65", f"{arch} decode"),
+              ("gaussian_encode", "src/repro_torch/kernels/csrc/gaussian_encode.cu",
+               "src/repro/kernels/lt_encode.py:107", f"{arch} raise"))),
         *((name, src, replaces, f"{fam} serve", results[f"serve {arch}"], shape)
           for arch, fam in (("mamba2-130m", "ssm"), ("zamba2-1.2b", "hybrid"))
           for name, src, replaces, shape in (

@@ -44,6 +44,7 @@ from repro_torch.core.decoding import (  # noqa: F401
     ls_decode,
     masked_pinv_decode,
     peel_decode_np,
+    peel_decode_plan,
     peel_decode_torch,
 )
 from repro_torch.core.coded_ops import (  # noqa: F401

@@ -5,7 +5,8 @@ the serving head's mask-keyed decoder cache.
     ``StreamingDecoder.for_plan``) — the master's incremental decode path:
     batches are ingested as they arrive so recovery overlaps waiting.
     ``peel_decode_np`` and ``ls_decode_np`` are the one-shot references,
-    each a single-ingest streaming run.  Numpy and scipy, copied from
+    each a single-ingest streaming run; ``peel_decode_plan`` decodes a
+    plan's received rows from the full coded buffer.  Numpy and scipy, copied from
     ``repro.core.decoding``; the tests hold them bit-equal to the reference.
   * ``DecoderCache`` — every erasure pattern of at most ``n_parity`` blocks
     gets its recovery pseudo-inverse computed once, host-side in float64
@@ -38,6 +39,7 @@ __all__ = [
     "ls_decode_np",
     "masked_pinv_decode",
     "peel_decode_np",
+    "peel_decode_plan",
     "peel_decode_torch",
     "MAX_LUT_BLOCKS",
     "MAX_LUT_PATTERNS",
@@ -401,6 +403,14 @@ def ls_decode_np(
     return dec.finalize()
 
 
+def peel_decode_plan(
+    coded_full: np.ndarray, plan: EncodePlan, received: np.ndarray
+) -> tuple[np.ndarray, bool, int]:
+    """Convenience: decode from the full coded buffer + a bool received-mask."""
+    sel = np.flatnonzero(received)
+    return peel_decode_np(coded_full[sel], plan.indices[sel], plan.coeffs[sel], plan.r)
+
+
 def peel_decode_torch(coded: torch.Tensor, membership: torch.Tensor, r: int):
     """Peeling with dense membership [n, r] (float coefficients; 0 = absent).
 
@@ -536,7 +546,7 @@ class DecoderCache:
         self.table = np.stack(mats)                       # [P, n_data, n_blocks]
         self.lut = lut                                    # [2^n_blocks]
         self.pows = (1 << np.arange(n_blocks, dtype=np.int64)).astype(np.int32)
-        self.recovery_calls = 0
+        self.recovery_calls = 0  # Python calls: a replayed CUDA graph adds none
         self._dev: dict[torch.device, tuple[torch.Tensor, ...]] = {}
         DecoderCache.builds += 1
 

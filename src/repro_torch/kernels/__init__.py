@@ -1,1 +1,74 @@
 """Hand-written Hopper kernels, their plain PyTorch versions and mode-switching wrappers."""
+from __future__ import annotations
+
+import os
+import re
+import tempfile
+import warnings
+
+# a substring of each kernel's symbol, by kernel name: what names the
+# kernel's nodes in a captured CUDA graph
+_SYMBOLS = {"coded_matvec": "MatvecTask",
+            "coded_matvec_decode": "DecodeTask",
+            "gaussian_encode": "gaussian_encode_kernel",
+            "lt_encode": "lt_encode_kernel",
+            "ssd_chunk": "ssd_chunk_",
+            "ssd_combine": "ssd_combine_"}
+_NODE = re.compile(r'^\s*"?graph_\d+_node_\d+"?\s*\[', re.M)
+
+
+def kernel_wrappers() -> dict:
+    """Each hand-written kernel's wrapper, by kernel name.  A wrapper adds
+    one to its ``.launches`` where it launches its kernel (``count_launch``);
+    the serving engine adds a captured CUDA graph's kernel nodes on each
+    replay."""
+    from repro_torch.kernels.coded_decode import coded_matvec_decode_cuda
+    from repro_torch.kernels.coded_matvec import coded_matvec_cuda
+    from repro_torch.kernels.lt_encode import gaussian_encode_cuda, lt_encode_cuda
+    from repro_torch.kernels.ssd_scan import ssd_chunk_cuda, ssd_combine_cuda
+
+    return {"coded_matvec": coded_matvec_cuda,
+            "coded_matvec_decode": coded_matvec_decode_cuda,
+            "gaussian_encode": gaussian_encode_cuda,
+            "lt_encode": lt_encode_cuda,
+            "ssd_chunk": ssd_chunk_cuda,
+            "ssd_combine": ssd_combine_cuda}
+
+
+def count_launch(wrapper) -> None:
+    """Count one call of ``wrapper``'s C entry on the current stream.  While
+    that stream captures a CUDA graph nothing launches: the kernel is
+    recorded into the graph and goes to ``wrapper.captured``; it runs, and
+    is counted, at each replay."""
+    import torch
+
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1
+    else:
+        wrapper.launches += 1
+
+
+def graph_kernel_nodes(graph) -> dict[str, int]:
+    """The kernel nodes of each hand-written kernel in a captured
+    ``torch.cuda.CUDAGraph``, by kernel name, read from the graph itself
+    (CUDA's DOT dump of it).  The graph must have been made with
+    ``keep_graph=True``, which keeps the captured graph to dump."""
+    with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "DEBUG: calling", UserWarning)  # the dump's notices
+        path = os.path.join(tmp, "graph.dot")
+        graph.debug_dump(path)
+        if not os.path.exists(path):
+            raise RuntimeError("the CUDA graph was not dumped: make it with keep_graph=True")
+        with open(path) as f:
+            return count_kernel_nodes(f.read())
+
+
+def count_kernel_nodes(dot: str) -> dict[str, int]:
+    """Count, in a CUDA graph's DOT text, the nodes whose label names each
+    kernel's symbol; a node is counted once however often its label names
+    it (mangled and demangled)."""
+    starts = [m.start() for m in _NODE.finditer(dot)]
+    if not starts:
+        raise ValueError("no graph node in the DOT text")
+    nodes = [dot[a:b] for a, b in zip(starts, starts[1:] + [len(dot)])]
+    return {name: sum(sym in node for node in nodes) for name, sym in _SYMBOLS.items()}

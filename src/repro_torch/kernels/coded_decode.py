@@ -16,7 +16,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import thin_rows
+from repro_torch.kernels import count_launch, thin_rows
 from repro_torch.kernels._build import c_function
 
 __all__ = ["MAX_B", "MAX_BLOCKS", "coded_matvec_decode_cuda"]
@@ -60,13 +60,14 @@ def coded_matvec_decode_cuda(
     err = thin_rows.call_on(w_coded.device, _entry(), w_coded.data_ptr(), x.data_ptr(),
                             rec.data_ptr(), out.data_ptr(), br, m, b, nb, n_data, int(vec),
                             plan.grid, plan.group_rows, plan.x_panel, plan.smem_bytes)
-    coded_matvec_decode_cuda.launches += 1
+    count_launch(coded_matvec_decode_cuda)
     if err != 0:
         raise RuntimeError(f"coded_matvec_decode launch failed: cudaError {err}")
     return out
 
 
 coded_matvec_decode_cuda.launches = 0
+coded_matvec_decode_cuda.captured = 0
 
 
 @functools.lru_cache(maxsize=None)

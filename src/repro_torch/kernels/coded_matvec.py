@@ -15,7 +15,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import thin_rows
+from repro_torch.kernels import count_launch, thin_rows
 from repro_torch.kernels._build import c_function
 
 __all__ = ["MAX_B", "coded_matvec_cuda"]
@@ -56,13 +56,14 @@ def coded_matvec_cuda(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     err = thin_rows.call_on(a.device, _entry(), a.data_ptr(), x.data_ptr(), out.data_ptr(), r,
                             m, b, int(half), int(vec), plan.grid, plan.group_rows,
                             plan.x_panel, plan.smem_bytes)
-    coded_matvec_cuda.launches += 1
+    count_launch(coded_matvec_cuda)
     if err != 0:
         raise RuntimeError(f"coded_matvec launch failed: cudaError {err}")
     return out
 
 
 coded_matvec_cuda.launches = 0
+coded_matvec_cuda.captured = 0
 
 
 @functools.lru_cache(maxsize=None)

@@ -25,6 +25,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.kernels import count_launch
 from repro_torch.kernels._build import c_function
 
 __all__ = [
@@ -146,13 +147,14 @@ def gaussian_encode_cuda(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(g.data_ptr(), a.data_ptr(), out.data_ptr(), q, r, m, plan.qt, plan.n_qtiles,
                  plan.panel, plan.smem_bytes, plan.grid, int(vec4), stream)
-    gaussian_encode_cuda.launches += 1
+    count_launch(gaussian_encode_cuda)
     if err != 0:
         raise RuntimeError(f"gaussian_encode launch failed: cudaError {err}")
     return out
 
 
 gaussian_encode_cuda.launches = 0
+gaussian_encode_cuda.captured = 0
 
 
 class LTCsr(NamedTuple):
@@ -196,7 +198,7 @@ def _lt_launch(a: torch.Tensor, csr: LTCsr) -> torch.Tensor:
         err = fn(a.data_ptr(), csr.row_ptr.data_ptr(), csr.cols.data_ptr(),
                  csr.vals.data_ptr(), csr.order.data_ptr(), out.data_ptr(), q, m, csr.n_heavy,
                  next_unit.data_ptr(), stream)
-    lt_encode_cuda.launches += 1
+    count_launch(lt_encode_cuda)
     if err != 0:
         raise RuntimeError(f"lt_encode launch failed: cudaError {err}")
     return out
@@ -237,3 +239,4 @@ def lt_encode_cuda(
 
 
 lt_encode_cuda.launches = 0
+lt_encode_cuda.captured = 0

@@ -22,6 +22,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.kernels import count_launch
 from repro_torch.kernels._build import c_function
 
 __all__ = ["MAX_N_BF16", "MAX_P", "MAX_Q", "SsdPlan", "split_bf16", "ssd_chunk_cuda",
@@ -165,13 +166,14 @@ def ssd_chunk_cuda(x: torch.Tensor, da: torch.Tensor, b: torch.Tensor, c: torch.
         err = fn(x.data_ptr(), da.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(),
                  states.data_ptr(), decay.data_ptr(), cum.data_ptr(), g, q, p, n,
                  int(x.dtype == torch.bfloat16), stream)
-    ssd_chunk_cuda.launches += 1
+    count_launch(ssd_chunk_cuda)
     if err != 0:
         raise RuntimeError(f"ssd_chunk launch failed: cudaError {err}")
     return y, states, decay, cum
 
 
 ssd_chunk_cuda.launches = 0
+ssd_chunk_cuda.captured = 0
 
 
 def ssd_combine_cuda(c: torch.Tensor, cum: torch.Tensor, states_in: torch.Tensor) -> torch.Tensor:
@@ -199,10 +201,11 @@ def ssd_combine_cuda(c: torch.Tensor, cum: torch.Tensor, states_in: torch.Tensor
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(c.data_ptr(), cum.data_ptr(), states_in.data_ptr(), y.data_ptr(), g, q, p, n,
                  int(c.dtype == torch.bfloat16), stream)
-    ssd_combine_cuda.launches += 1
+    count_launch(ssd_combine_cuda)
     if err != 0:
         raise RuntimeError(f"ssd_combine launch failed: cudaError {err}")
     return y
 
 
 ssd_combine_cuda.launches = 0
+ssd_combine_cuda.captured = 0

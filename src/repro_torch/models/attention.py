@@ -36,7 +36,8 @@ def _sdpa(q, k, v, mask) -> torch.Tensor:
     kvh = k.shape[2]
     q = q.reshape(b, sq, kvh, h // kvh, hd)
     logits = torch.einsum("bqgmd,bkgd->bgmqk", q, k).to(torch.float32)
-    logits = logits / torch.sqrt(torch.tensor(hd, dtype=torch.float32, device=q.device))
+    # a fill, not a host copy, so a decode step can be captured in a CUDA graph
+    logits = logits / torch.sqrt(torch.full((), hd, dtype=torch.float32, device=q.device))
     if mask is not None:
         logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)

@@ -906,3 +906,208 @@ def test_cuda_engine_prefill_runs_the_ssd_kernels(arch):
         want = cfg.n_layers * len(prompts) if mode is None else 0
         assert launched == (want, want)
     assert out[None] == out["off"]
+
+
+# --------------------------------------------------------------------------
+# fused macro-steps as CUDA graphs
+# --------------------------------------------------------------------------
+def _straggling_latency(seed, healthy_calls=0, persistent=False):
+    """A shard-latency stream: random stragglers (or, with ``persistent``,
+    shards 2, 5 and 9 always slow) after ``healthy_calls`` healthy calls."""
+    rng = np.random.default_rng(seed)
+    calls = [0]
+
+    def latency_fn():
+        calls[0] += 1
+        lat = 1e-3 * (1.0 + 0.1 * rng.random(16))
+        if calls[0] > healthy_calls:
+            if persistent:
+                lat[[2, 5, 9]] = 0.5
+            else:
+                lat[rng.random(16) < 0.2] *= 400.0
+        return lat
+
+    return latency_fn
+
+
+def _graph_run(arch, macro_steps, *, mesh=False, max_new=18, n_req=4, topup=0,
+               latency=None, masked=True):
+    """A float32 smoke engine on the card, masked head under a straggler
+    posterior (or, without ``masked``, a coded head with no mask source);
+    returns the engine, its tokens and the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.adaptive import ParityController
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.sharding import HeadMesh
+
+    dev = _cuda()
+    cfg = get_config(arch, smoke=True).scaled(coded=True, coded_parity=2, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    eng = ServeEngine(model, params, n_slots=4, s_max=64, device=dev, macro_steps=macro_steps,
+                      latency_fn=(latency or _straggling_latency(3)) if masked else None,
+                      parity_controller=ParityController(16, decay=0.5) if masked else None,
+                      parity_topup=topup, topup_patience=3,
+                      mesh=HeadMesh((dev,) * 16) if mesh else None)
+    rng = np.random.default_rng(1)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, 5 + 3 * i), max_new_tokens=max_new)
+            for i in range(n_req)]
+    for r in reqs:
+        eng.submit(r)
+    before = (coded_matvec_decode_cuda.launches, coded_matvec_cuda.launches)
+    eng.run()
+    torch.cuda.synchronize()
+    launches = (coded_matvec_decode_cuda.launches - before[0],
+                coded_matvec_cuda.launches - before[1])
+    return eng, {r.uid: list(r.out_tokens) for r in reqs}, launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,mesh", [("glm4-9b", False), ("mamba2-130m", False),
+                                       ("zamba2-1.2b", False), ("glm4-9b", True)])
+def test_cuda_graph_blocks_equal_scalar_steps(arch, mesh):
+    """Fused blocks replayed from captured graphs give the scalar route's
+    tokens, for the dense, ssm and hybrid layouts and the head mesh of
+    sixteen logical devices.  The launch counters after the replays are the
+    scalar run's (prefills + steps, or 16 a call on the mesh) plus one
+    eager warm-up step a capture; a replay counts its graph's kernel nodes,
+    one head call a captured step."""
+    ref, ref_toks, ref_launches = _graph_run(arch, 1, mesh=mesh)
+    eng, toks, launches = _graph_run(arch, 16, mesh=mesh)
+    assert toks == ref_toks
+    assert eng._steps == ref._steps and eng.macro_blocks > 0
+    assert eng.graph_replays == eng.macro_blocks and eng.graph_log
+    assert eng.sync_count < ref.sync_count
+    n_calls = 4 + eng._steps
+    assert ref_launches == ((0, 16 * n_calls) if mesh else (n_calls, 0))
+    n_calls += len(eng.graph_log)
+    assert launches == ((0, 16 * n_calls) if mesh else (n_calls, 0))
+    for entry in eng.graph_log:
+        want = {"coded_matvec": 16 * entry["k"]} if mesh else {"coded_matvec_decode": entry["k"]}
+        assert entry["launches_per_replay"] == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh", [False, True])
+def test_cuda_graph_blocks_without_a_mask_source_decode_unmasked(mesh):
+    """A coded head with neither ``mask_fn`` nor ``latency_fn``: the graphs
+    read no mask buffer and decode every shard, as the scalar step does,
+    on the single device and on the head mesh (where an all-erased mask
+    would zero every logit); the tokens are the scalar route's."""
+    ref, ref_toks, _ = _graph_run("glm4-9b", 1, mesh=mesh, masked=False)
+    eng, toks, _ = _graph_run("glm4-9b", 16, mesh=mesh, masked=False)
+    assert eng._mask_buf is None and eng.macro_blocks > 0 and eng.graph_log
+    assert toks == ref_toks
+    assert len({t for out in toks.values() for t in out}) > 1
+
+
+@pytest.mark.gpu
+def test_cuda_count_launch_under_capture_counts_the_replays():
+    """A wrapper called while its stream captures records its kernel into
+    the graph without counting a launch; the graph's kernel nodes, read
+    back from the graph, are what each replay launches."""
+    from repro_torch.kernels import graph_kernel_nodes
+    from repro_torch.kernels.coded_decode import coded_matvec_decode_cuda
+
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w = torch.randn(16 * 32, 64, generator=gen, device=dev)
+    x = torch.randn(64, 2, generator=gen, device=dev)
+    rec = torch.eye(14, 16, device=dev)
+    y = coded_matvec_decode_cuda(w, x, rec)  # eager: the first-use set-up
+    before = (coded_matvec_decode_cuda.launches, coded_matvec_decode_cuda.captured)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    stream = torch.cuda.Stream(dev)
+    with torch.cuda.graph(graph, stream=stream):
+        out = [coded_matvec_decode_cuda(w, x, rec) for _ in range(3)]
+    assert (coded_matvec_decode_cuda.launches, coded_matvec_decode_cuda.captured) == (
+        before[0], before[1] + 3)
+    nodes = graph_kernel_nodes(graph)
+    assert nodes["coded_matvec_decode"] == 3
+    assert sum(nodes.values()) == 3
+    graph.instantiate()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, y) for o in out)
+
+
+@pytest.mark.gpu
+def test_cuda_graph_parity_raise_drops_graphs_and_captures_anew():
+    """A raise re-binds: every graph of the (14, 2) head is dropped and the
+    next block captures anew on the (13, 3) head; tokens stay the scalar
+    route's."""
+    lat = dict(healthy_calls=14, persistent=True)
+    ref, ref_toks, _ = _graph_run("glm4-9b", 1, max_new=40, topup=1,
+                                  latency=_straggling_latency(5, **lat))
+    eng, toks, _ = _graph_run("glm4-9b", 4, max_new=40, topup=1,
+                              latency=_straggling_latency(5, **lat))
+    assert len(ref.parity_events) == len(eng.parity_events) == 1
+    assert eng.parity_events == ref.parity_events
+    assert toks == ref_toks
+    parities = [e["n_parity"] for e in eng.graph_log]
+    assert 2 in parities and 3 in parities
+    assert parities == sorted(parities)       # nothing of the old bind after the raise
+    assert all(blk for blk in eng._graphs.values())
+    assert eng.model.cfg.coded_parity == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["glm4-9b", "zamba2-1.2b"])
+def test_cuda_graph_cache_leaves_keep_their_addresses(arch):
+    """The graphs read fixed addresses: steps, replays and splices all
+    write into the tensors the engine made at build time."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import Request, ServeEngine
+
+    dev = _cuda()
+    cfg = get_config(arch, smoke=True).scaled(coded=True, coded_parity=2, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    eng = ServeEngine(model, params, n_slots=2, s_max=48, device=dev, macro_steps=4)
+
+    def ptrs(tree):
+        if isinstance(tree, dict):
+            return [p for v in tree.values() for p in ptrs(v)]
+        if isinstance(tree, list):
+            return [p for v in tree for p in ptrs(v)]
+        return [tree.data_ptr()]
+
+    before = ptrs(eng.cache) + [eng._last_tok.data_ptr()]
+    rng = np.random.default_rng(2)
+    for i in range(4):  # two waves: splices into slots the graphs read
+        eng.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab, 3 + 2 * i), max_new_tokens=10))
+    eng.run()
+    assert eng.graph_replays > 0 and eng.splice_rebuilds == 2
+    assert ptrs(eng.cache) + [eng._last_tok.data_ptr()] == before
+
+
+@pytest.mark.gpu
+def test_cuda_macro_steps_refuse_what_a_graph_cannot_hold():
+    """On the card, fused blocks with a head whose decode is svd_recovery (a
+    geometry the DecoderCache refuses, or the 'svd' mode) raise when the
+    engine is built; scalar steps still serve them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import ServeEngine
+    from repro_torch.sharding import HeadMesh
+
+    dev = _cuda()
+    cfg = get_config("glm4-9b", smoke=True).scaled(coded=True, coded_parity=6, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    with pytest.raises(NotImplementedError, match=r"\(10, 6\) head"):
+        ServeEngine(model, params, device=dev, macro_steps=4)
+    ServeEngine(model, params, device=dev, macro_steps=1)
+    cfg2 = cfg.scaled(coded_parity=2)
+    model2 = build_model(cfg2)
+    params2 = model2.init(torch.Generator(device=dev).manual_seed(0), dev)
+    with pytest.raises(NotImplementedError, match="svd"):
+        ServeEngine(model2, params2, device=dev, macro_steps=4, head_kernel_mode="svd")
+    with pytest.raises(NotImplementedError, match=r"\(10, 6\) head"):
+        ServeEngine(model2, params2, device=dev, macro_steps=4, parity_topup=4)
+    if torch.cuda.device_count() >= 2:
+        mesh = HeadMesh(tuple(torch.device("cuda", i % 2) for i in range(16)))
+        with pytest.raises(NotImplementedError, match="several cards"):
+            ServeEngine(model2, params2, device=dev, macro_steps=4, mesh=mesh)

@@ -155,11 +155,36 @@ def test_parity_raise_on_device_equals_reference():
 
 
 def test_engine_refuses_unported_options_and_foreign_devices():
+    """A parity policy around another controller is refused, as the
+    reference refuses it.  Fused blocks are CUDA graphs on the card, which
+    cannot hold ``svd_recovery``'s decode or launches on several cards: the
+    engine's capture check refuses a geometry the DecoderCache refuses (now
+    or after the allowed raises) and a head mesh over several devices (on
+    the CPU the engine runs them, so the check is called directly here;
+    ``tests/test_torch_cuda.py`` builds them on the card)."""
+    from repro_torch.core.adaptive import DeadlineAwareParity
+    from repro_torch.sharding import HeadMesh
+
     _, _, _, tm, tp = _models("glm4-9b", True)
-    for kw in (dict(scheduler=object()), dict(parity_policy=object()),
-               dict(macro_steps=4)):
-        with pytest.raises(NotImplementedError):
-            ServeEngine(tm, tp, device="cpu", **kw)
+    with pytest.raises(ValueError, match="different ParityController"):
+        ServeEngine(tm, tp, device="cpu", parity_controller=ParityController(16),
+                    parity_policy=DeadlineAwareParity(ParityController(16)))
+    eng = ServeEngine(tm, tp, device="cpu", macro_steps=4)
+    eng._check_capturable()  # (14, 2): cacheable, one device
+    eng.parity_topup = 4     # raises up to (10, 6), which the DecoderCache refuses
+    with pytest.raises(NotImplementedError, match=r"\(10, 6\) head"):
+        eng._check_capturable()
+    eng.parity_topup = 0
+    eng._mesh = HeadMesh((torch.device("cpu"),) * 15 + (torch.device("meta"),))
+    with pytest.raises(NotImplementedError, match="several cards"):
+        eng._check_capturable()
+    _, _, _, tm6, tp6 = _models("glm4-9b", True, parity=6)
+    eng6 = ServeEngine(tm6, tp6, device="cpu", macro_steps=4)
+    with pytest.raises(NotImplementedError, match=r"\(10, 6\) head"):
+        eng6._check_capturable()
+    eng6.head_kernel_mode = "svd"
+    with pytest.raises(NotImplementedError, match="svd"):
+        eng6._check_capturable()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ServeEngine(tm, tp)
