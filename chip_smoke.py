@@ -92,10 +92,40 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    and block 0's SSD of the served bf16 prefill against its plain route;
    then the macro pair of phase 9 on the same engine factory, four requests
    of 100 prompt tokens and 64 new tokens;
-11. a ``kernels`` line with every kernel on every path it runs (launch
+11. train glm4-9b: full width, depth cut to 2 layers (printed as a cut),
+   bf16 activations, fp32 params and moments, batch 8 of 512 tokens in 4
+   microbatches: from one seeded state the FRC (s = 1) step under an
+   all-ones and a one-straggler mask gives the plain step's loss (1e-5
+   relative) and gradient (1e-4 of each leaf's max, read from the first
+   moment), and under an undecodable mask leaves params and optimizer state
+   bit-equal; the loss along AdamW's first update in fp32 activations (the
+   whole update, the head's part and the rest, at steps 1e-5 to 3e-3), with
+   the gradient held to a central difference of the loss along it (1e-2
+   relative); then 10 plain and 10 FRC steps, timed (step ms, tokens/s,
+   peak GB), one profiled (device busy share); the loss must go down;
+12. train zamba2-1.2b: whole (38 layers), batch 8 of 1024 tokens (4 SSD
+   chunks a block) in 4 microbatches: the cyclic (s = 1) step against the
+   plain step as in phase 11 (two stragglers undecodable); through
+   ``repro_torch.launch.train`` a 3-step run with adaptive s, then the timed
+   run at a fixed s = 1 with int8 messages and error feedback under Markov
+   stragglers at 0.2 and 3x; ``ssd_chunk`` and ``ssd_combine`` launch once per Mamba
+   block per forward and per checkpoint recompute; at block 0's real SSD
+   inputs the kernels against their plain versions (timed), ``SSDScan``'s
+   forward bit-equal to the kernels' and its gradients within 1e-5 of
+   autograd through ``ssd_chunked``, its recompute's share of a step; every
+   kernel wrapper refuses an input that requires grad; one step of the timed
+   configuration profiled;
+13. train drill: mamba2-130m through the launcher on 8 logical devices
+   (2 DP slices), FRC s = 0, 10 steps, a checkpoint every 3 steps, the last
+   slice killed at step 7: 2 skipped steps, the grid shrinks 2 -> 1, the run
+   resumes from step 6, and (under deterministic algorithms) its losses
+   after the restore equal a fresh run's from that checkpoint bit for bit;
+   then the SSD kernels and ``SSDScan`` at its block 0 as in phase 12;
+14. a ``kernels`` line with every kernel on every path it runs (launch
    counts read around that path's run; ``lt_encode``'s ``ms`` is the
    call with its compaction, its ``kernel_ms`` the kernel alone, which its
-   ``library_ms`` is held to), then the device line.
+   ``library_ms`` is held to), then the device line.  The seconds of each
+   phase are printed before it.
 
 It imports nothing of JAX, and exits non-zero without CUDA or without the
 repository's ``src/repro_torch`` beside it.
@@ -1653,6 +1683,604 @@ def phase_profile(torch, eng) -> None:
           "launches_per_step": sum(r["launches_per_step"] for r in rows), "top": rows[:10]})
 
 
+# --------------------------------------------------------------------------
+# training
+TRAIN_GLM_LAYERS = 2      # glm4-9b train depth (of 40): the cut
+TRAIN_BATCH, TRAIN_MICRO = 8, 4
+TRAIN_GLM_SEQ, TRAIN_ZAMBA_SEQ, TRAIN_DRILL_SEQ = 512, 1024, 512
+TRAIN_STEPS = 10          # glm4-9b: 10 plain and 10 FRC steps
+TRAIN_ZAMBA_STEPS = 6     # zamba2-1.2b's timed launcher run (the first step is not timed)
+TRAIN_ADAPTIVE_STEPS = 3  # zamba2-1.2b's short run under --adaptive-s
+TRAIN_LR = 1e-4           # peak lr of the full-width phases (warmup-cosine)
+# a coded step against the plain step from the same state, both on the card:
+# the same per-microbatch losses and gradients, summed in another order in
+# fp32 (FRC: group sums, then the decode), so the loss within 1e-5 relative
+# and each gradient leaf within 1e-4 of its max (the CPU differential tests'
+# bounds)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+
+
+def _state_gb(tree) -> float:
+    from repro_torch.utils.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)) / 1e9
+
+
+def _train_memory(params, m: int, compress: bool) -> dict:
+    """What a coded step keeps on the card, reckoned from the code
+    (``train/loop.py``): params, one microbatch's gradients, the decoded
+    gradients, both moments (fp32), m fp32 messages a leaf, and with
+    compression the old residual beside the new one (written into the
+    message buffers)."""
+    p = _state_gb(params)
+    out = {"params_gb": p, "grads_gb": p, "decoded_grads_gb": p, "moments_gb": 2 * p,
+           "messages_gb": m * p}
+    if compress:
+        out["err_gb"] = m * p
+    out["total_gb"] = sum(out.values())
+    return out
+
+
+def _profile_one(torch, fn) -> dict:
+    """One call of ``fn`` under torch.profiler, tracing the device only: its
+    wall ms, the device's kernel time and its busy share of the wall,
+    kernel launches; with the profiler on (the caller adds the device time
+    over the unprofiled step's wall, ``device_ms_over_step_ms``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_evts = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev_evts) / 1e3
+    top = sorted(dev_evts, key=lambda e: -e.self_device_time_total)[:8]
+    return {"wall_ms": wall_ms, "device_ms": busy, "busy_share": busy / wall_ms,
+            "launches": sum(e.count for e in dev_evts),
+            "top": [{"kernel": e.key[:80], "device_ms": e.self_device_time_total / 1e3,
+                     "count": e.count} for e in top]}
+
+
+def _timed_train(torch, step, box: dict, pipe, first: int, n: int, mask_fn) -> tuple:
+    """``n`` steps from ``box["state"]``, which each step replaces (the box
+    holds the only reference, so no older state outlives its step); per
+    step its ms (host clock, the device synchronized around it) and loss.
+    Returns (ms list, loss list)."""
+    ms, losses = [], []
+    for i in range(first, first + n):
+        mask = mask_fn(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        box["state"], met = step(box["state"], pipe.batch(i),
+                                 *(() if mask is None else (mask,)))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+        check(np.isfinite(losses[-1]), f"train step {i}: loss {losses[-1]}")
+        if mask is not None:
+            check(float(met["ok"]) == 1.0, f"train step {i}: a decodable mask gave ok = 0")
+    return ms, losses
+
+
+def _m_close(torch, got_tree, want_leaves: list, what: str) -> float:
+    """Worst |got - want| of the first moments (``want_leaves`` in leaf
+    order, on the host; each goes to the card in turn), over each leaf's
+    max|want|; fails above TRAIN_GRAD_TOL."""
+    from repro_torch.utils.tree import tree_leaves
+
+    worst = 0.0
+    for a, b in zip(tree_leaves(got_tree), want_leaves):
+        b = b.to(a.device)
+        worst = max(worst, float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
+    check(worst <= TRAIN_GRAD_TOL, f"{what}: gradient off by {worst} of a leaf's max "
+                                   f"(allowed {TRAIN_GRAD_TOL})")
+    return worst
+
+
+def _coded_step_checks(torch, what: str, plain, coded, state0, batch0, decodable,
+                       undecodable) -> dict:
+    """From one state and batch: the plain step, then the coded step under
+    each decodable mask (ok = 1, the loss within TRAIN_LOSS_RTOL of the
+    plain step's, the gradient -- the first moment after one step, (1 - b1)
+    · clip · g -- within TRAIN_GRAD_TOL of each leaf's max) and under an
+    undecodable one (ok = 0, params and optimizer state bit-equal to the
+    state it was given).  The plain first moment waits on the host while
+    the coded steps run."""
+    from repro_torch.utils.tree import tree_leaves
+
+    dev = tree_leaves(state0["params"])[0].device
+    sp, mp = plain(state0, batch0)
+    m_plain, loss_plain = [t.cpu() for t in tree_leaves(sp["opt"]["m"])], float(mp["loss"])
+    del sp
+    torch.cuda.empty_cache()
+    checks = {}
+    for mask in decodable:
+        label = "all ones" if min(mask) == 1.0 else f"mask {mask}"
+        sc, mc = coded(state0, batch0, torch.tensor(mask, device=dev))
+        rel = abs(float(mc["loss"]) - loss_plain) / abs(loss_plain)
+        check(float(mc["ok"]) == 1.0, f"{what}: under {label} ok = 0")
+        check(rel <= TRAIN_LOSS_RTOL, f"{what}: {label} loss off the plain by {rel}")
+        checks[label] = {"loss_rel_err": rel,
+                         "grad_rel_err": _m_close(torch, sc["opt"]["m"], m_plain,
+                                                  f"{what} {label}")}
+        del sc, mc
+        torch.cuda.empty_cache()
+    del m_plain
+    sk, mk = coded(state0, batch0, torch.tensor(undecodable, device=dev))
+    kept = all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(sk["params"]) + tree_leaves(sk["opt"]),
+                   tree_leaves(state0["params"]) + tree_leaves(state0["opt"])))
+    checks[f"undecodable {undecodable}"] = {"ok": float(mk["ok"]), "state_bit_equal": kept}
+    check(float(mk["ok"]) == 0.0 and kept,
+          f"{what}: the undecodable mask {undecodable} changed the state (ok {float(mk['ok'])})")
+    del sk, mk
+    return checks
+
+
+LR_LINE = (1e-5, 3e-5, 1e-4, 3e-4, 1e-3, 3e-3)   # the steps t along Adam's first update
+FD_TOL = 1e-2   # central difference vs <g, u>, relative (fp32; about 1e-4 expected)
+
+
+def _lr_line(torch, cfg, state0, batch0, batch1, opt) -> dict:
+    """Why the full-width loss rises above lr ~1e-4: the loss along AdamW's
+    first update from ``state0``, in fp32 activations.  g is the gradient
+    of ``batch0``'s loss, u = (AdamW's new params - params) / lr, and the
+    losses of ``batch0`` (the step's own) and of ``batch1`` (the next
+    step's) are read at p + t u for each t of LR_LINE, with u whole, u on
+    the head alone and u on every other leaf.  The gradient at full width
+    is held to a central difference of ``batch0``'s loss along u (FD_TOL):
+    a port fault in the loss or its gradient would show there, the
+    optimizer's step length would not."""
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw_update
+    from repro_torch.utils.tree import tree_leaves, tree_unflatten
+
+    model = build_model(cfg.scaled(dtype="float32"))
+    params = state0["params"]
+    leaves = tree_leaves(params)
+    is_head = [t is params["lm_head"] for t in leaves]
+    batch, nxt = ({k: torch.as_tensor(v, device=leaves[0].device).long() for k, v in b.items()}
+                  for b in (batch0, batch1))
+    req = [p.detach().requires_grad_(True) for p in leaves]
+    loss0, _ = model.loss(tree_unflatten(params, req), batch)
+    g = torch.autograd.grad(loss0, req)
+    del req
+    new_p, new_opt, om = adamw_update(params, tree_unflatten(params, list(g)), state0["opt"],
+                                      opt)
+    del new_opt
+    lr0 = float(om["lr"])
+    u = [(n - p).div_(lr0) for n, p in zip(tree_leaves(new_p), leaves)]
+    del new_p
+    gu = {"all": sum(float(torch.dot(a.flatten(), b.flatten())) for a, b in zip(g, u)),
+          "head": sum(float(torch.dot(a.flatten(), b.flatten()))
+                      for a, b, h in zip(g, u, is_head) if h)}
+    gu["rest"] = gu["all"] - gu["head"]
+    del g
+    head_u = u[is_head.index(True)]
+    moved = float((head_u.abs() >= 0.5).to(torch.float32).mean())
+    seen = int(torch.unique(batch["labels"]).numel())
+
+    @torch.no_grad()
+    def loss_at(t: float, part: str, on=None) -> float:
+        shifted = [p + t * d if (part == "all" or h == (part == "head")) else p
+                   for p, d, h in zip(leaves, u, is_head)]
+        return float(model.loss(tree_unflatten(params, shifted), batch if on is None else on)[0])
+
+    base = float(loss0.detach())
+    eps = 1e-2 / abs(gu["all"])
+    slope = (loss_at(eps, "all") - loss_at(-eps, "all")) / (2 * eps)
+    fd_rel = abs(slope - gu["all"]) / abs(gu["all"])
+    line = {part: [loss_at(t, part) for t in LR_LINE] for part in ("all", "head", "rest")}
+    line_next = {part: [loss_at(t, part, nxt) for t in LR_LINE]
+                 for part in ("all", "head", "rest")}
+    next_base = loss_at(0.0, "all", nxt)
+    del u, head_u
+    out = {"lr_first_step": lr0, "t": list(LR_LINE), "loss_at_0": base, "loss": line,
+           "next_batch_loss_at_0": next_base, "next_batch_loss": line_next,
+           "first_order": {part: [base + t * gu[part] for t in LR_LINE] for part in gu},
+           "g_dot_u": gu, "fd_eps": eps, "fd_slope": slope, "fd_rel_err": fd_rel,
+           "fd_tol": FD_TOL, "head_entries_moved_half_lr": moved,
+           "vocab_ids_in_batch_labels": seen, "vocab": cfg.vocab, "activations": "float32"}
+    check(fd_rel <= FD_TOL, f"train glm4-9b: the gradient along Adam's update is off the "
+                            f"loss's central difference by {fd_rel} (allowed {FD_TOL})")
+    return out
+
+
+def phase_train_glm(torch, args, results: dict, smi: str) -> None:
+    """glm4-9b at full width, depth cut to TRAIN_GLM_LAYERS: bf16
+    activations, fp32 params and moments, batch 8 of 512 tokens in 4
+    microbatches.  From one seeded state: the plain step, the FRC (s = 1)
+    step under an all-ones and a one-straggler mask (loss and gradient —
+    the first moment after one step, (1 - b1) · clip · g — against the
+    plain step's), and under an undecodable mask (a whole group dead:
+    params and optimizer state bit-equal).  Then 10 plain steps and 10 FRC
+    steps under a rotating straggler, timed; one FRC step profiled; the
+    loss must go down."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+    from repro_torch.train.loop import TrainConfig, init_train_state, make_train_step
+    from repro_torch.utils.tree import tree_leaves
+
+    dev = torch.device("cuda")
+    full = get_config("glm4-9b")
+    cfg = full.scaled(n_layers=TRAIN_GLM_LAYERS)
+    emit({"phase": "cut", "path": "train glm4-9b", "n_layers": cfg.n_layers,
+          "of": full.n_layers, "why": "params, gradients, fp32 moments and 4 fp32 coded "
+                                      "messages of all 40 layers (9.4 G params) need about "
+                                      "300 GB; the widths are full"})
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=warmup_cosine(TRAIN_LR, 1, 2 * TRAIN_STEPS))
+    torch.cuda.reset_peak_memory_stats()
+    state0 = init_train_state(model, torch.Generator(device=dev).manual_seed(args.seed), opt,
+                              device=dev)
+    plain = make_train_step(model, opt, TrainConfig(microbatches=TRAIN_MICRO))
+    coded = make_train_step(model, opt, TrainConfig(microbatches=TRAIN_MICRO,
+                                                    gradient_coding="frc", gc_stragglers=1))
+    pipe = make_pipeline(cfg, seq=TRAIN_GLM_SEQ, global_batch=TRAIN_BATCH, seed=args.seed)
+    n_params = sum(p.numel() for p in tree_leaves(state0["params"]))
+    memory = _train_memory(state0["params"], TRAIN_MICRO, compress=False)
+    emit({"phase": "init", "path": "train glm4-9b", "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab, "params": n_params,
+          "memory_reckoned": memory})
+
+    batch0 = pipe.batch(0)
+    checks = _coded_step_checks(torch, "train glm4-9b FRC", plain, coded, state0, batch0,
+                                ([1.0, 1.0, 1.0, 1.0], [1.0, 0.0, 1.0, 1.0]),
+                                [0.0, 0.0, 1.0, 1.0])
+    check_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    lr_line = _lr_line(torch, cfg, state0, batch0, pipe.batch(1), opt)
+    emit({"phase": "lr line", "path": "train glm4-9b", **lr_line, "card": smi})
+    torch.cuda.empty_cache()
+
+    runs = {}
+    box = {"state": state0}
+    del state0
+    for name, step, mask_fn in (
+            ("plain", plain, lambda i: None),
+            ("frc", coded, lambda i: torch.tensor([0.0 if w == i % TRAIN_MICRO else 1.0
+                                                   for w in range(TRAIN_MICRO)], device=dev))):
+        torch.cuda.reset_peak_memory_stats()
+        first = 1 + (TRAIN_STEPS if name == "frc" else 0)
+        ms, losses = _timed_train(torch, step, box, pipe, first, TRAIN_STEPS, mask_fn)
+        med = float(np.median(ms[1:]))
+        runs[name] = {"step_ms": ms, "median_step_ms": med,
+                      "tokens_per_s": TRAIN_BATCH * TRAIN_GLM_SEQ / med * 1e3,
+                      "losses": losses, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"train glm4-9b {name}: {med:.1f} ms a step, "
+              f"{runs[name]['tokens_per_s']:.0f} tokens/s, peak {runs[name]['peak_gb']:.1f} GB",
+              flush=True)
+    mask = torch.tensor([1.0, 1.0, 0.0, 1.0], device=dev)
+    prof = _profile_one(torch, lambda: coded(box["state"], pipe.batch(99), mask))
+    prof["device_ms_over_step_ms"] = prof["device_ms"] / runs["frc"]["median_step_ms"]
+    losses = runs["plain"]["losses"] + runs["frc"]["losses"]
+    row = {"phase": "train", "path": "train glm4-9b", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "batch": TRAIN_BATCH, "seq": TRAIN_GLM_SEQ, "microbatches": TRAIN_MICRO,
+           "activations": cfg.dtype, "params": n_params, "memory_reckoned": memory,
+           "checks_peak_gb": check_peak, "checks": checks, "lr_line": lr_line, "runs": runs,
+           "profile_frc": prof, "card": smi}
+    emit(row)
+    results["train glm4-9b"] = row
+    check(np.mean(losses[-3:]) < np.mean(losses[:3]),
+          f"train glm4-9b: the loss did not go down over 20 steps: {losses}")
+    del box
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _ssd_call_inputs(torch, cfg, params, tokens) -> tuple:
+    """The (x, da, b, c, chunk) block 0's SSD gets in a train forward of
+    ``tokens``: the embedding, the block's norm, then its projection, conv
+    and split (``models.ssm.ssd_prefill_inputs``, as ``mamba_block_apply``
+    makes them)."""
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.ssm import ssd_prefill_inputs
+    from repro_torch.utils.tree import tree_map
+
+    blocks = params["blocks"]
+    gp = blocks[0] if isinstance(blocks, list) else tree_map(lambda t: t[0], blocks)
+    with torch.no_grad():
+        x = params["embed"][tokens].to(getattr(torch, cfg.dtype))
+        return (*ssd_prefill_inputs(gp["mamba"], cfg, rmsnorm(x, gp["ln1"], cfg.norm_eps)),
+                cfg.ssm_chunk)
+
+
+def _ssd_cells_of(torch, x, da, b, c, chunk: int) -> tuple:
+    """ssd_forward's cells of a block's SSD inputs: x [G, Q, P], da [G, Q],
+    b, c [G, Q, N] (heads expanded), as ops.ssd_forward builds them."""
+    bsz, s, h, p = x.shape
+    n, q = b.shape[3], min(chunk, s)
+    nc, rep = s // q, h // b.shape[2]
+
+    def cells(t, feat):
+        t = t.reshape(bsz, nc, q, h, feat).permute(0, 3, 1, 2, 4)
+        return t.reshape(bsz * h * nc, q, feat).contiguous()
+
+    dac = da.to(torch.float32).reshape(bsz, nc, q, h).permute(0, 3, 1, 2)
+    return (cells(x, p), dac.reshape(bsz * h * nc, q).contiguous(),
+            cells(torch.repeat_interleave(b, rep, dim=2), n),
+            cells(torch.repeat_interleave(c, rep, dim=2), n))
+
+
+def _train_ssd_checks(torch, cfg, params, tokens, label: str, results: dict) -> dict:
+    """At one block's real SSD inputs of a train forward: ssd_chunk and
+    ssd_combine against their plain versions (and timed, as the kernel
+    phase times them), and SSDScan's gradients against autograd through
+    ssd_chunked; the time of SSDScan's backward (the ssd_chunked
+    recompute)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ssd_scan import ssd_chunk_cuda, ssd_combine_cuda
+    from repro_torch.models.ssm import ssd_chunked
+
+    dev = torch.device("cuda")
+    x, da, b, c, chunk = _ssd_call_inputs(torch, cfg, params, tokens)
+    xc, dac, bc, cc = _ssd_cells_of(torch, x, da, b, c, chunk)
+    g, q, p = xc.shape
+    n = bc.shape[2]
+    got, want = ssd_chunk_cuda(xc, dac, bc, cc), ref.ref_ssd_chunk(xc, dac, bc, cc)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    s_in = 0.1 * torch.randn(g, p, n, device=dev, generator=gen)
+    y_off, y_off_want = ssd_combine_cuda(cc, want[3], s_in), ref.ref_ssd_combine(cc, want[3], s_in)
+    torch.cuda.synchronize()
+    checks = dict(zip(("y_diag", "states", "decay", "cum"),
+                      (_ssd_check(torch, gv, wv) for gv, wv in zip(got, want))))
+    comb = _ssd_check(torch, y_off, y_off_want)
+    dname = str(xc.dtype).removeprefix("torch.")
+    row_c = {"phase": "kernel", "kernel": "ssd_chunk", "shape": label, "g": g, "q": q, "p": p,
+             "n": n, "dtype": dname, "da_draw": "a train forward's block 0",
+             "errors": {k: v[0] for k, v in checks.items()},
+             "tols": {k: v[1] for k, v in checks.items()},
+             "max_abs_err": checks["y_diag"][0], "tol": checks["y_diag"][1]}
+    row_m = {"phase": "kernel", "kernel": "ssd_combine", "shape": label, "g": g, "q": q, "p": p,
+             "n": n, "dtype": dname, "da_draw": "a train forward's block 0",
+             "max_abs_err": comb[0], "tol": comb[1]}
+    _ssd_timed(torch, row_c, row_m, xc, dac, bc, cc, want[3], s_in)
+    emit(row_c)
+    emit(row_m)
+    for k, (err, tol, ok) in checks.items():
+        check(ok, f"ssd_chunk {label} {k}: max err {err}, allowed {tol}")
+    check(comb[2], f"ssd_combine {label}: max err {comb[0]}, allowed {comb[1]}")
+    results.setdefault("ssd_chunk", {})[label] = row_c
+    results.setdefault("ssd_combine", {})[label] = row_m
+    del xc, dac, bc, cc, got, want, s_in, y_off, y_off_want
+
+    # SSDScan: forward = the kernels', gradients = ssd_chunked's
+    ins = [t.detach().clone().requires_grad_(True) for t in (x, da, b, c)]
+    y, fin = ops.SSDScan.apply(*ins, chunk, None)
+    with torch.no_grad():
+        wy, wfin = ops.ssd_forward(x, da, b, c, chunk, mode="cuda")
+    gy = torch.randn(y.shape, device=dev, generator=gen).to(y.dtype)
+    gots = torch.autograd.grad(y, ins, gy)
+    ref_in = [t.detach().clone().requires_grad_(True) for t in (x, da, b, c)]
+    wants = torch.autograd.grad(ssd_chunked(*ref_in, chunk)[0], ref_in, gy)
+    grad_err = max(float((a.float() - w.float()).abs().max()) / max(float(w.float().abs().max()),
+                                                                     1.0)
+                   for a, w in zip(gots, wants))
+    fwd_equal = bool(torch.equal(y, wy) and torch.equal(fin, wfin))
+
+    def recompute():
+        inp = [t.detach().requires_grad_(True) for t in (x, da, b, c)]
+        torch.autograd.grad(ssd_chunked(*inp, chunk)[0], inp, gy)
+
+    recompute_ms = time_ms(torch, recompute, 5)
+    out = {"inputs": [list(t.shape) for t in (x, da, b, c)], "dtype": dname,
+           "forward_bit_equal": fwd_equal, "grad_rel_err": grad_err, "grad_tol": 1e-5,
+           "recompute_ms": recompute_ms}
+    check(fwd_equal, f"{label}: SSDScan's forward differs from ssd_forward on the kernels")
+    check(grad_err <= 1e-5, f"{label}: SSDScan's gradients off ssd_chunked's by {grad_err}")
+    return out
+
+
+def _refusals(torch) -> dict:
+    """Each kernel wrapper called under grad mode with an input that
+    requires grad: it must raise, naming itself, and launch nothing."""
+    from repro_torch.kernels import kernel_wrappers
+
+    dev = torch.device("cuda")
+    x = torch.ones(4, 4, device=dev, requires_grad=True)
+    one = torch.ones(4, 4, device=dev)
+    n_args = {"coded_matvec": 2, "coded_matvec_decode": 3, "gaussian_encode": 2,
+              "lt_encode": 3, "ssd_chunk": 4, "ssd_combine": 3}
+    out = {}
+    for name, wrapper in kernel_wrappers().items():
+        before = wrapper.launches
+        try:
+            wrapper(x, *[one] * (n_args[name] - 1))
+            out[name] = "launched"
+        except RuntimeError as e:
+            out[name] = "raised" if wrapper.__name__ in str(e) else f"raised: {e}"
+        check(out[name] == "raised" and wrapper.launches == before,
+              f"{name}'s wrapper took an input that requires grad: {out[name]}")
+    return out
+
+
+def phase_train_zamba(torch, args, results: dict, smi: str) -> None:
+    """zamba2-1.2b whole (38 layers, full width): batch 8 of 1024 tokens
+    (4 SSD chunks a block) in 4 microbatches.  First, from one seeded
+    state: the cyclic (s = 1) step against the plain step under an
+    all-ones and a one-straggler mask, and under two stragglers
+    (undecodable: the state bit-equal).  Then the train launcher
+    (``repro_torch.launch.train.main``): a short run with ``--adaptive-s``
+    (the controller's levels), and the timed run at a fixed s = 1 with
+    int8 message compression and error feedback under Markov stragglers at
+    the paper's 0.2 and 3x (each step decodes around the slowest worker).
+    The timed run's SSD launches must be one of each kernel per Mamba block
+    per forward and per checkpoint recompute.  Then, at block 0's real
+    inputs of a microbatch: the kernels against their plain versions
+    (timed), SSDScan against ssd_chunked's autograd, and the time of its
+    recompute; the wrappers' refusals; one step of the timed configuration
+    profiled."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch import train
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+    from repro_torch.train.loop import TrainConfig, init_train_state, make_train_step
+
+    dev = torch.device("cuda")
+    cfg = get_config("zamba2-1.2b")
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=warmup_cosine(TRAIN_LR, 1, TRAIN_ZAMBA_STEPS))
+    pipe = make_pipeline(cfg, seq=TRAIN_ZAMBA_SEQ, global_batch=TRAIN_BATCH, seed=args.seed)
+    batch = pipe.batch(0)
+    state0 = init_train_state(model, torch.Generator(device=dev).manual_seed(args.seed), opt,
+                              device=dev)
+    checks = _coded_step_checks(
+        torch, "train zamba2-1.2b cyclic", make_train_step(model, opt, TrainConfig(
+            microbatches=TRAIN_MICRO)),
+        make_train_step(model, opt, TrainConfig(microbatches=TRAIN_MICRO,
+                                                gradient_coding="cyclic", gc_stragglers=1)),
+        state0, batch, ([1.0, 1.0, 1.0, 1.0], [1.0, 1.0, 0.0, 1.0]), [0.0, 1.0, 0.0, 1.0])
+    del state0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    base = ["--arch", "zamba2-1.2b", "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_ZAMBA_SEQ),
+            "--microbatches", str(TRAIN_MICRO), "--lr", str(TRAIN_LR),
+            "--gradient-coding", "cyclic", "--gc-stragglers", "1", "--compress", "int8",
+            "--straggler-prob", "0.2", "--straggler-slowdown", "3", "--log-every", "1",
+            "--seed", str(args.seed)]
+    rec = train.main(base + ["--steps", str(TRAIN_ADAPTIVE_STEPS), "--adaptive-s"])
+    adaptive = {"levels": [lvl for _, _, _, lvl, _ in rec["steps"]],
+                "ok": [ok for _, _, ok, _, _ in rec["steps"]],
+                "losses": [loss for _, loss, _, _, _ in rec["steps"]]}
+    check(len(adaptive["levels"]) == TRAIN_ADAPTIVE_STEPS
+          and set(adaptive["levels"]) <= {0, 1} and all(np.isfinite(adaptive["losses"])),
+          f"train zamba2-1.2b --adaptive-s: {adaptive}")
+    del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    argv = base + ["--steps", str(TRAIN_ZAMBA_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    rec = train.main(argv)
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    state = rec["state"]
+    steps = rec["steps"]
+    want = cfg.n_layers * TRAIN_MICRO * 2 * len(steps)   # forward + recompute, every microbatch
+    check(launches["ssd_chunk"] == want and launches["ssd_combine"] == want,
+          f"train zamba2-1.2b: SSD launches {launches}, want {want} of each "
+          f"({cfg.n_layers} blocks x {TRAIN_MICRO} microbatches x 2 x {len(steps)} steps)")
+    losses = [loss for _, loss, _, _, _ in steps]
+    levels = [lvl for _, _, _, lvl, _ in steps]
+    oks = [ok for _, _, ok, _, _ in steps]
+    check(all(np.isfinite(losses)), f"train zamba2-1.2b: losses {losses}")
+    check(levels == [1] * len(steps) and oks == [1.0] * len(steps),
+          f"train zamba2-1.2b: levels {levels}, ok {oks}: every step must decode at s = 1")
+    ms = [sec * 1e3 for _, _, _, _, sec in steps]
+    med = float(np.median(ms[1:]))
+    tokens = torch.as_tensor(batch["tokens"][:TRAIN_BATCH // TRAIN_MICRO], device="cuda").long()
+    ssd = _train_ssd_checks(torch, cfg, state["params"], tokens,
+                            f"zamba2-1.2b train {TRAIN_BATCH // TRAIN_MICRO}x{TRAIN_ZAMBA_SEQ} "
+                            f"bfloat16", results)
+    ssd["recompute_share_of_step"] = ssd["recompute_ms"] * cfg.n_layers * TRAIN_MICRO / med
+    refusals = _refusals(torch)
+    step = make_train_step(model, opt, TrainConfig(
+        microbatches=TRAIN_MICRO, gradient_coding="cyclic", gc_stragglers=1, compression="int8"))
+    mask = torch.tensor([1.0, 1.0, 0.0, 1.0], device="cuda")
+    prof = _profile_one(torch, lambda: step(state, batch, mask))
+    prof["device_ms_over_step_ms"] = prof["device_ms"] / med
+    row = {"phase": "train", "path": "train zamba2-1.2b", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_ZAMBA_SEQ,
+           "microbatches": TRAIN_MICRO, "checks": checks, "adaptive": adaptive, "argv": argv,
+           "launches": launches,
+           "memory_reckoned": _train_memory(state["params"], TRAIN_MICRO, compress=True),
+           "peak_gb": peak, "step_ms": ms, "median_step_ms": med,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_ZAMBA_SEQ / med * 1e3, "losses": losses,
+           "levels": levels, "ok": oks, "skipped": rec["skipped"], "ssd_scan": ssd,
+           "refusals": refusals, "profile": prof, "card": smi}
+    emit(row)
+    results["train zamba2-1.2b"] = row
+    del rec, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_drill(torch, args, results: dict, smi: str) -> None:
+    """The death drill: mamba2-130m (full width and depth) through the
+    train launcher on a grid of 8 logical devices (TP 4, so 2 DP slices),
+    FRC at s = 0 over 4 microbatches of 2 x 512 tokens, 10 steps, a
+    checkpoint every 3 steps under a temporary directory, the last DP slice
+    killed at step 7.  Its workers' steps cannot decode: 2 skipped steps,
+    the grid shrinks 2 -> 1 DP slices, the run resumes from step 6.  The losses
+    after the restore must equal, bit for bit, those of a run started fresh
+    from a copy of that checkpoint: both run under
+    ``torch.use_deterministic_algorithms`` (the embedding and gather
+    backwards add without atomics)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch import train
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config("mamba2-130m")
+    base = ["--arch", "mamba2-130m", "--steps", "10", "--batch", str(TRAIN_BATCH),
+            "--seq", str(TRAIN_DRILL_SEQ), "--microbatches", str(TRAIN_MICRO),
+            "--gradient-coding", "frc", "--gc-stragglers", "0", "--log-every", "4",
+            "--seed", str(args.seed)]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = os.path.join(tmp, "ck")
+            _reset_launches()
+            t0 = time.perf_counter()
+            rec = train.main(base + ["--logical-devices", "8", "--mesh-model", "4",
+                                     "--ckpt-dir", ck, "--ckpt-every", "3", "--kill-at", "7",
+                                     "--detect-steps", "2"])
+            wall = time.perf_counter() - t0
+            launches = _launches()
+            fresh = os.path.join(tmp, "fresh")
+            os.makedirs(fresh)
+            shutil.copytree(os.path.join(ck, "step_00000006"),
+                            os.path.join(fresh, "step_00000006"))
+            rec2 = train.main(base + ["--ckpt-dir", fresh, "--ckpt-every", "100"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    batch = make_pipeline(cfg, seq=TRAIN_DRILL_SEQ, global_batch=TRAIN_BATCH,
+                          seed=args.seed).batch(0)
+    tokens = torch.as_tensor(batch["tokens"][:TRAIN_BATCH // TRAIN_MICRO], device="cuda").long()
+    ssd = _train_ssd_checks(torch, cfg, rec["state"]["params"], tokens,
+                            f"mamba2-130m train {TRAIN_BATCH // TRAIN_MICRO}x{TRAIN_DRILL_SEQ} "
+                            f"bfloat16", results)
+    steps = rec["steps"]
+    ok_first = [ok for _, _, ok, _, _ in steps[:9]]
+    after = [(s, loss) for s, loss, _, _, _ in steps[9:]]
+    fresh_after = [(s, loss) for s, loss, _, _, _ in rec2["steps"]]
+    diffs = [abs(a[1] - b[1]) for a, b in zip(after, fresh_after)]
+    want = cfg.n_layers * TRAIN_MICRO * 2 * len(steps)
+    row = {"phase": "train", "path": "train drill", "arch": "mamba2-130m",
+           "batch": TRAIN_BATCH, "seq": TRAIN_DRILL_SEQ, "microbatches": TRAIN_MICRO,
+           "events": rec["events"], "skipped": rec["skipped"], "grid_after": rec["mesh"],
+           "ok_first_9": ok_first, "losses_after_restore": after,
+           "median_step_ms": float(np.median([sec * 1e3 for _, _, _, _, sec in steps[1:]])),
+           "losses_fresh_from_checkpoint": fresh_after, "max_loss_diff": max(diffs),
+           "launches": launches, "wall_s": wall, "ssd_scan": ssd, "card": smi}
+    emit(row)
+    results["train drill"] = row
+    check(rec["events"] == [{"at": 9, "dp_before": 2, "dp_after": 1, "restored_step": 6}],
+          f"train drill: elastic events {rec['events']}")
+    check(rec["skipped"] == 2 and ok_first == [1.0] * 7 + [0.0, 0.0],
+          f"train drill: ok over the first 9 steps {ok_first}")
+    check(rec["mesh"] == {"data": 1, "model": 4}, f"train drill: grid after {rec['mesh']}")
+    check([s for s, _ in after] == list(range(7, 11)) and after == fresh_after,
+          f"train drill: losses after the restore {after} differ from a fresh run from the "
+          f"checkpoint {fresh_after}")
+    check(launches["ssd_chunk"] == want and launches["ssd_combine"] == want,
+          f"train drill: SSD launches {launches}, want {want} of each")
+    del rec, rec2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     """The tensors of a params tree of dicts and lists."""
     if isinstance(tree, dict):
@@ -2234,21 +2862,33 @@ def main() -> int:
         kernel_coded_matvec(torch, gen, results)
         sweep_head(torch, args, smi)
         return 0
-    phase_kernels(torch, gen, results)
-    phase_task_lt(torch, args, results, smi)
-    phase_task_gaussian(torch, args, results, smi)
-    serve = phase_serve(torch, args, results, smi)
+    seconds: dict = {}
+
+    def timed(name: str, fn, *fn_args):
+        t0 = time.perf_counter()
+        out = fn(*fn_args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    timed("kernels", phase_kernels, torch, gen, results)
+    timed("task lt", phase_task_lt, torch, args, results, smi)
+    timed("task gaussian", phase_task_gaussian, torch, args, results, smi)
+    serve = timed("serve glm4-9b", phase_serve, torch, args, results, smi)
     mesh = _head_mesh(torch)
-    phase_mesh_head(torch, serve, mesh, torch.Generator(device="cuda").manual_seed(args.seed + 2),
-                    results, smi)
-    phase_mesh_serve(torch, serve, mesh, results, smi)
-    phase_trace_serve(torch, args, serve, results, smi)
-    phase_macro_glm(torch, serve, results, smi)
+    timed("mesh head", phase_mesh_head, torch, serve, mesh,
+          torch.Generator(device="cuda").manual_seed(args.seed + 2), results, smi)
+    timed("mesh serve", phase_mesh_serve, torch, serve, mesh, results, smi)
+    timed("trace serve", phase_trace_serve, torch, args, serve, results, smi)
+    timed("macro glm4-9b", phase_macro_glm, torch, serve, results, smi)
     del serve, mesh
     gc.collect()
     torch.cuda.empty_cache()
     for arch in SSD_WIDTHS:
-        phase_mamba_serve(torch, args, results, smi, arch)
+        timed(f"serve {arch}", phase_mamba_serve, torch, args, results, smi, arch)
+    timed("train glm4-9b", phase_train_glm, torch, args, results, smi)
+    timed("train zamba2-1.2b", phase_train_zamba, torch, args, results, smi)
+    timed("train drill", phase_train_drill, torch, args, results, smi)
+    emit({"phase": "seconds", **seconds})
 
     kernels = []
     for name, source, replaces, path, phase, shape in (
@@ -2302,6 +2942,17 @@ def main() -> int:
                "src/repro/kernels/coded_decode.py:65", f"{arch} decode"),
               ("gaussian_encode", "src/repro_torch/kernels/csrc/gaussian_encode.cu",
                "src/repro/kernels/lt_encode.py:107", f"{arch} raise"))),
+        *((name, src, replaces, f"{fam} train", results[phase_key], shape)
+          for phase_key, fam, shape in (
+              ("train zamba2-1.2b", "hybrid",
+               f"zamba2-1.2b train {TRAIN_BATCH // TRAIN_MICRO}x{TRAIN_ZAMBA_SEQ} bfloat16"),
+              ("train drill", "ssm",
+               f"mamba2-130m train {TRAIN_BATCH // TRAIN_MICRO}x{TRAIN_DRILL_SEQ} bfloat16"))
+          for name, src, replaces in (
+              ("ssd_chunk", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+               "src/repro/kernels/ssd_scan.py:52"),
+              ("ssd_combine", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+               "src/repro/kernels/ssd_scan.py:99"))),
     ):
         r = results[name][shape]
         launches = phase.get("device_encode", phase)["launches"]
@@ -2317,7 +2968,8 @@ def main() -> int:
         kernels.append(entry)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump({"card": smi, "results": results, "kernels": kernels}, f, indent=1)
+        json.dump({"card": smi, "seconds": seconds, "results": results, "kernels": kernels}, f,
+                  indent=1)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,7 @@ Re-exports what the reference's ``repro.core`` does, where it is ported
         peel_decode_np, ls_decode, masked_pinv_decode,
         simulate_scheme, accumulation_curve,
         CodedLinear, coded_block_matmul, bpcc_batched_matvec,
+        GradCode, frc_code, cyclic_code, decode_weights,
     )
 """
 from repro_torch.core.distributions import (  # noqa: F401
@@ -73,4 +74,11 @@ from repro_torch.core.adaptive import (  # noqa: F401
     ParityController,
     ReallocationPolicy,
     simulate_adaptive,
+)
+from repro_torch.core.gradient_coding import (  # noqa: F401
+    GradCode,
+    cyclic_code,
+    decode_weights,
+    decode_weights_checked,
+    frc_code,
 )

@@ -1,0 +1,2 @@
+"""Synthetic LM data (port of ``repro.data``)."""
+from repro_torch.data.pipeline import SyntheticLM, make_pipeline  # noqa: F401

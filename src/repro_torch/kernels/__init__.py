@@ -35,6 +35,21 @@ def kernel_wrappers() -> dict:
             "ssd_combine": ssd_combine_cuda}
 
 
+def refuse_grad(wrapper, *tensors) -> None:
+    """Raise if ``wrapper``'s kernel would drop a gradient: grad mode is on
+    and an input requires grad.  A kernel writes into plain output tensors
+    with no ``grad_fn``, so the product would be cut out of the graph
+    silently; a path that trains goes through an autograd Function instead
+    (``kernels.ops.SSDScan`` for the SSD)."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{wrapper.__name__} got an input that requires grad under grad mode: the "
+            f"kernel has no backward; call it under torch.no_grad() or through an "
+            f"autograd Function")
+
+
 def count_launch(wrapper) -> None:
     """Count one call of ``wrapper``'s C entry on the current stream.  While
     that stream captures a CUDA graph nothing launches: the kernel is

@@ -16,7 +16,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import count_launch, thin_rows
+from repro_torch.kernels import count_launch, refuse_grad, thin_rows
 from repro_torch.kernels._build import c_function
 
 __all__ = ["MAX_B", "MAX_BLOCKS", "coded_matvec_decode_cuda"]
@@ -30,6 +30,7 @@ def coded_matvec_decode_cuda(
 ) -> torch.Tensor:
     """w_coded [nb*br, M], x [M] or [M, B] (B <= 16), rec [n_data, nb] —
     all fp32, contiguous, on one CUDA device -> y [n_data*br(, B)] fp32."""
+    refuse_grad(coded_matvec_decode_cuda, w_coded, x, rec)
     for name, t in (("w_coded", w_coded), ("x", x), ("rec", rec)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")

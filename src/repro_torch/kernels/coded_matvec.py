@@ -15,7 +15,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import count_launch, thin_rows
+from repro_torch.kernels import count_launch, refuse_grad, thin_rows
 from repro_torch.kernels._build import c_function
 
 __all__ = ["MAX_B", "coded_matvec_cuda"]
@@ -28,6 +28,7 @@ def coded_matvec_cuda(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """a [R, M], x [M] or [M, B] (B <= 16) — both fp32 or both fp16,
     contiguous, on one CUDA device -> y [R(, B)] fp32.  ``a`` may be a row
     view (a code block of a coded weight) at any element offset."""
+    refuse_grad(coded_matvec_cuda, a, x)
     for name, t in (("a", a), ("x", x)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")

@@ -25,7 +25,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from repro_torch.kernels import count_launch
+from repro_torch.kernels import count_launch, refuse_grad
 from repro_torch.kernels._build import c_function
 
 __all__ = [
@@ -118,6 +118,7 @@ def _vec4(m: int, *tensors: torch.Tensor) -> bool:
 
 def gaussian_encode_cuda(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """g [q, r], a [r, M] — fp32, contiguous, on one CUDA device -> [q, M] fp32."""
+    refuse_grad(gaussian_encode_cuda, g, a)
     for name, t in (("g", g), ("a", a)):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
@@ -215,6 +216,7 @@ def lt_encode_cuda(
     kernel reads the rows of A that the sum needs and nothing else.  An
     index of a nonzero entry outside [0, r) raises.
     """
+    refuse_grad(lt_encode_cuda, a, coeffs)
     if not a.is_cuda:
         raise ValueError(f"a must be a CUDA tensor, got device {a.device}")
     for name, t in (("indices", indices), ("coeffs", coeffs)):

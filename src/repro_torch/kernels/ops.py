@@ -28,6 +28,7 @@ __all__ = [
     "encode_rows",
     "encode_blocks_device",
     "ssd_forward",
+    "SSDScan",
 ]
 
 _MODES = {"off": "off", "interpret": "off", "cuda": "cuda", "compile": "cuda"}
@@ -240,3 +241,40 @@ def ssd_forward(
     y_tot = (y + y_off).reshape(bsz, h, nc, q, p).permute(0, 2, 3, 1, 4)
     y_tot = y_tot.reshape(bsz, s, h, p).to(x.dtype)
     return y_tot, carry.reshape(bsz, h, p, n)
+
+
+class SSDScan(torch.autograd.Function):
+    """The full SSD under autograd: the forward is :func:`ssd_forward` (the
+    hand-written ``ssd_chunk`` and ``ssd_combine`` on a CUDA tensor), the
+    backward differentiates ``repro_torch.models.ssm.ssd_chunked`` — the
+    einsum form the reference differentiates — recomputed at the saved
+    inputs, as XLA's remat recomputes it.
+
+        y, final = SSDScan.apply(x, da, b, c, chunk, mode)
+
+    The kernels have no backward of their own, and they write into tensors
+    with no ``grad_fn``; a train step reaches them only through here.
+    """
+
+    @staticmethod
+    def forward(ctx, x, da, b, c, chunk: int, mode: str | None = None):
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)   # an unused output's grad stays None
+        ctx.save_for_backward(x, da, b, c)
+        return ssd_forward(x, da, b, c, chunk, mode=mode)
+
+    @staticmethod
+    def backward(ctx, gy, gfinal):
+        from repro_torch.models.ssm import ssd_chunked
+
+        needs = ctx.needs_input_grad[:4]
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
+        pairs = [(k, g) for k, g in enumerate((gy, gfinal)) if g is not None]
+        if not pairs or not any(needs):
+            return (None,) * 6
+        with torch.enable_grad():
+            outs = ssd_chunked(*inputs, ctx.chunk)
+        wrt = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad([outs[k] for k, _ in pairs], wrt,
+                                         [g for _, g in pairs], allow_unused=True))
+        return (*(next(grads) if n else None for n in needs), None, None)

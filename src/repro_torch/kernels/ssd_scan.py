@@ -22,7 +22,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.kernels import count_launch
+from repro_torch.kernels import count_launch, refuse_grad
 from repro_torch.kernels._build import c_function
 
 __all__ = ["MAX_N_BF16", "MAX_P", "MAX_Q", "SsdPlan", "split_bf16", "ssd_chunk_cuda",
@@ -138,6 +138,7 @@ def ssd_chunk_cuda(x: torch.Tensor, da: torch.Tensor, b: torch.Tensor, c: torch.
     """x [G, Q, P], b and c [G, Q, N] — one dtype, fp32 or bf16 (then N <=
     128) — and da [G, Q] fp32, contiguous, on one CUDA device -> (y_diag [G,
     Q, P], states [G, P, N], total_decay [G], cum [G, Q]), all fp32."""
+    refuse_grad(ssd_chunk_cuda, x, da, b, c)
     _check({"x": x, "da": da, "b": b, "c": c}, x.device)
     if x.dtype not in _INPUT_DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
         raise TypeError(f"x, b and c must share one dtype of float32 or bfloat16, got "
@@ -179,6 +180,7 @@ ssd_chunk_cuda.captured = 0
 def ssd_combine_cuda(c: torch.Tensor, cum: torch.Tensor, states_in: torch.Tensor) -> torch.Tensor:
     """c [G, Q, N] fp32 or bf16 (then N <= 128), cum [G, Q] fp32, states_in
     [G, P, N] fp32 — contiguous, on one CUDA device -> y_off [G, Q, P] fp32."""
+    refuse_grad(ssd_combine_cuda, c, cum, states_in)
     _check({"c": c, "cum": cum, "states_in": states_in}, c.device)
     if c.dtype not in _INPUT_DTYPES:
         raise TypeError(f"c must be float32 or bfloat16, got {c.dtype}")

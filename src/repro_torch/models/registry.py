@@ -1,7 +1,9 @@
-"""Model facade: one object per architecture with a uniform serving API.
+"""Model facade: one object per architecture with a uniform train and serve API.
 
     model = build_model(cfg)
     params = model.init(torch.Generator("cuda").manual_seed(0))
+    loss, metrics = model.loss(params, {"tokens": tokens, "labels": labels})
+    hidden = model.forward(params, tokens)
     cache = model.init_cache(batch, s_max)
     logits, cache1 = model.prefill(params, {"tokens": tokens}, s_max=s_max)
     logits, cache = model.decode_step(params, cache, tokens)
@@ -46,6 +48,18 @@ class Model:
             generator = torch.Generator(device=device).manual_seed(0)
         return tf.init_lm(self.cfg, generator, device)
 
+    # ---- training -------------------------------------------------------
+    def loss(self, params, batch: dict):
+        """(loss, metrics) of a batch {"tokens", "labels"} [B, S]; the train
+        objective (chunked CE).  Takes the params as they are: a train step
+        never calls :meth:`prepare`, so gradients reach the fp32 leaves."""
+        return tf.lm_loss(params, self.cfg, batch)
+
+    def forward(self, params, tokens):
+        """Final hidden states [B, S, D] in the activation dtype."""
+        return tf.lm_forward(params, self.cfg, tokens)[0]
+
+    # ---- serving ----------------------------------------------------------
     def prepare(self, params: Any) -> Any:
         """Params with the layer matmul weights cast to the activation dtype
         once (same bits as the per-use cast); see ``cast_matmul_weights``."""

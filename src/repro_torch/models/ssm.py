@@ -6,8 +6,10 @@ terms are matmul-shaped, and a short recurrence over chunks carries the
 running state [H, P, N].  The prefill of every block runs it through
 ``kernels.ops.ssd_forward``, whose intra-chunk terms are the hand-written
 ``ssd_chunk`` and ``ssd_combine`` kernels on a CUDA tensor (their plain
-versions on the CPU).  ``ssd_chunked`` is the reference's einsum oracle,
-kept for tests.  Decode is the O(1) recurrent update, in plain torch.
+versions on the CPU); a train step reaches them through
+``kernels.ops.SSDScan``, whose backward differentiates ``ssd_chunked``, the
+reference's einsum form (also the tests' oracle).  Decode is the O(1)
+recurrent update, in plain torch.
 
 Structure per block (as the reference, biases omitted):
   in_proj -> [z | xBC | dt], causal depthwise conv(width w) on xBC, silu,
@@ -27,6 +29,7 @@ __all__ = [
     "ssd_decode_step",
     "init_mamba_block",
     "mamba_block_apply",
+    "ssd_prefill_inputs",
     "init_mamba_state",
 ]
 
@@ -178,6 +181,38 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _ssd_args(p: Params, cfg: ModelConfig, u: torch.Tensor, conv_cache):
+    """A block's input projection, causal conv and split.  Returns the SSD's
+    arguments (x·dt [B,S,H,P], da [B,S,H] fp32, b, c [B,S,G,N]) and what the
+    rest of the block needs: (z, x, the conv input, the new conv cache)."""
+    din, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.n_ssm_heads
+    dt_ = u.dtype
+    zxbcdt = u @ p["in_proj"].to(dt_)
+    z, xbc_in, dtv = _split_in_proj(cfg, zxbcdt)
+    xbc, new_conv = _causal_conv(xbc_in, p["conv_w"], conv_cache)
+    x, b_, c_ = torch.split(xbc, [din, g * n, g * n], dim=-1)
+    x = x.reshape(*x.shape[:-1], h, cfg.ssm_head_dim)
+    b_ = b_.reshape(*b_.shape[:-1], g, n)
+    c_ = c_.reshape(*c_.shape[:-1], g, n)
+    dtv = _softplus(dtv.to(torch.float32) + p["dt_bias"])           # [B,S,H]
+    a = -torch.exp(p["a_log"])                                      # [H]
+    return (x * dtv[..., None].to(dt_), dtv * a, b_, c_), (z, x, xbc_in, new_conv)
+
+
+def _pad_to_chunks(cfg: ModelConfig, args: tuple) -> tuple:
+    """The SSD's arguments with S zero-padded to a multiple of the chunk."""
+    s = args[0].shape[1]
+    pad = -s % min(cfg.ssm_chunk, s)
+    return tuple(_pad_seq(t, pad) for t in args) if pad else args
+
+
+def ssd_prefill_inputs(p: Params, cfg: ModelConfig, u: torch.Tensor) -> tuple:
+    """The (x·dt, da, b, c) that a prefill (or train forward) of ``u``
+    [B,S,D] hands its SSD in :func:`mamba_block_apply`, padded to whole
+    chunks."""
+    return _pad_to_chunks(cfg, _ssd_args(p, cfg, u, None)[0])
+
+
 def mamba_block_apply(
     p: Params,
     cfg: ModelConfig,
@@ -192,42 +227,31 @@ def mamba_block_apply(
     zero-padded to a multiple of the chunk (dt = 0 at the pad, so the final
     state is untouched), the SSD runs through ``kernels.ops.ssd_forward``
     (kernel mode ``ssd_kernel_mode``: None is by device) and y is cut back
-    to S; the state is the final SSM state and the conv tail."""
-    din, g, n, h = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.n_ssm_heads
-    pdim = cfg.ssm_head_dim
+    to S; the state is the final SSM state and the conv tail.  Under grad
+    mode with an input that requires grad (a train step) the SSD runs
+    through ``kernels.ops.SSDScan``: the same forward, and the backward of
+    ``ssd_chunked``."""
     dt_ = u.dtype
-
-    zxbcdt = u @ p["in_proj"].to(dt_)
-    z, xbc_in, dtv = _split_in_proj(cfg, zxbcdt)
-    xbc, new_conv = _causal_conv(xbc_in, p["conv_w"], None if state is None else state["conv"])
-    x, b_, c_ = torch.split(xbc, [din, g * n, g * n], dim=-1)
-    x = x.reshape(*x.shape[:-1], h, pdim)
-    b_ = b_.reshape(*b_.shape[:-1], g, n)
-    c_ = c_.reshape(*c_.shape[:-1], g, n)
-    dtv = _softplus(dtv.to(torch.float32) + p["dt_bias"])           # [B,S,H]
-    a = -torch.exp(p["a_log"])                                      # [H]
-    xdt = x * dtv[..., None].to(dt_)
-    da = dtv * a
+    ssd_args, (z, x, xbc_in, new_conv) = _ssd_args(
+        p, cfg, u, None if state is None else state["conv"])
 
     if state is None:
-        from repro_torch.kernels.ops import ssd_forward
+        from repro_torch.kernels.ops import SSDScan, ssd_forward
 
-        s = u.shape[1]
-        q = min(cfg.ssm_chunk, s)
-        pad = -s % q
-        args = (xdt, da, b_, c_)
-        if pad:
-            args = tuple(_pad_seq(t, pad) for t in args)
-        y, final = ssd_forward(*args, cfg.ssm_chunk, mode=ssd_kernel_mode)
-        y = y[:, :s]
+        args = _pad_to_chunks(cfg, ssd_args)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+            y, final = SSDScan.apply(*args, cfg.ssm_chunk, ssd_kernel_mode)
+        else:
+            y, final = ssd_forward(*args, cfg.ssm_chunk, mode=ssd_kernel_mode)
+        y = y[:, :u.shape[1]]
         new_state = {"ssm": final, "conv": _conv_tail(cfg, xbc_in)}
     else:
-        y1, new_ssm = ssd_decode_step(state["ssm"], xdt[:, 0], da[:, 0], b_[:, 0], c_[:, 0])
+        y1, new_ssm = ssd_decode_step(state["ssm"], *(t[:, 0] for t in ssd_args))
         y = y1[:, None]
         new_state = {"ssm": new_ssm, "conv": new_conv}
 
     y = y + x * p["d_skip"][:, None].to(dt_)
-    y = y.reshape(*y.shape[:-2], din)
+    y = y.reshape(*y.shape[:-2], cfg.d_inner)
     y = y * F.silu(z)
     y = rmsnorm(y, p["gate_norm"], cfg.norm_eps)
     return y @ p["out_proj"].to(dt_), new_state

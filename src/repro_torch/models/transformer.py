@@ -19,10 +19,22 @@ logits.  On CUDA tensors it runs as the fused hand-written kernel
 ``repro_torch.sharding.HeadMesh``) it runs one code block per device.  The
 head mesh and kernel modes are explicit arguments where the reference reads
 contextvars.
+
+Training: ``lm_forward`` and ``lm_loss`` (chunked cross-entropy).  With
+``cfg.remat`` every layer (zamba2: every ``_hybrid_layer``) runs under
+``torch.utils.checkpoint``, and the loss recomputes each sequence chunk's
+fp32 logits in the backward, so [B, S, V] fp32 logits are never resident.
+Weights are cast to the activation dtype at use inside the graph, so the
+gradients reach the fp32 leaves (training never calls
+``cast_matmul_weights``).
 """
 from __future__ import annotations
 
+import math
+from functools import partial
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import attention_decode, attention_full, init_attn
 from repro_torch.models.config import ModelConfig, coded_blocks
@@ -39,6 +51,9 @@ from repro_torch.models.ssm import init_mamba_block, init_mamba_state, mamba_blo
 
 __all__ = [
     "init_lm",
+    "lm_forward",
+    "lm_loss",
+    "chunked_ce",
     "lm_init_cache",
     "lm_prefill",
     "lm_decode_step",
@@ -143,6 +158,135 @@ def cast_matmul_weights(params: Params, cfg: ModelConfig) -> Params:
 def _layer(blocks: Params, i: int) -> Params:
     """Layer ``i``'s params: views into the stacked tensors."""
     return {k: (_layer(v, i) if isinstance(v, dict) else v[i]) for k, v in blocks.items()}
+
+
+def _unstack(blocks: Params, n: int) -> list[Params]:
+    """Each layer's params from the stacked ones, one ``unbind`` a leaf (so
+    a backward stacks each leaf's gradient once, not layer by layer)."""
+    per_leaf = {k: (_unstack(v, n) if isinstance(v, dict) else torch.unbind(v))
+                for k, v in blocks.items()}
+    return [{k: v[i] for k, v in per_leaf.items()} for i in range(n)]
+
+
+# ==========================================================================
+# forward (train)
+# ==========================================================================
+def _remat(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, under activation checkpointing when ``cfg.remat`` and
+    grad mode are on (the reference's per-layer ``jax.checkpoint``)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
+
+
+def _dense_layer(gp: Params, x, positions, *, cfg: ModelConfig):
+    h = rmsnorm(x, gp["ln1_0"], cfg.norm_eps)
+    x = x + attention_full(gp["attn_0"], h, positions, cfg.rope_theta)
+    h2 = rmsnorm(x, gp["ln2_0"], cfg.norm_eps)
+    return x + mlp_apply(gp["mlp_0"], h2, cfg.mlp)
+
+
+def _mamba_layer(gp: Params, x, *, cfg: ModelConfig):
+    h, _ = mamba_block_apply(gp["mamba"], cfg, rmsnorm(x, gp["ln1"], cfg.norm_eps))
+    return x + h
+
+
+def _hybrid_layer(gp, sp, x, positions, *, cfg: ModelConfig, use_attn: bool):
+    x = _mamba_layer(gp, x, cfg=cfg)
+    if use_attn:
+        x = _shared_attn_apply(sp, cfg, x, positions)
+    return x
+
+
+def lm_forward(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,                     # [B, S]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (final hidden [B,S,D] in the activation dtype, MoE aux loss:
+    0 for these families).  Every Mamba block's SSD runs the SSD kernels
+    on a CUDA tensor (their plain versions on the CPU), through ``SSDScan``
+    when the step takes gradients."""
+    adt = _dtype(cfg.dtype)
+    x = params["embed"][tokens].to(adt)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "hybrid":
+        for i, gp in enumerate(params["blocks"]):
+            body = partial(_hybrid_layer, cfg=cfg, use_attn=_uses_shared_attn(cfg, i))
+            x = _remat(cfg, body, gp, params["shared_attn"], x, positions)
+    elif cfg.family == "ssm":
+        body = partial(_mamba_layer, cfg=cfg)
+        for gp in _unstack(params["blocks"], cfg.n_layers):
+            x = _remat(cfg, body, gp, x)
+    else:
+        body = partial(_dense_layer, cfg=cfg)
+        for gp in _unstack(params["blocks"], cfg.n_layers):
+            x = _remat(cfg, body, gp, x, positions)
+    return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+# ==========================================================================
+# loss (chunked cross-entropy — never keeps [B,S,V] fp32 logits)
+# ==========================================================================
+def _ce_chunk(h: torch.Tensor, head: torch.Tensor, lab: torch.Tensor, onehot_pick: bool):
+    """(sum of token NLL, count of valid tokens) over one chunk, fp32."""
+    logits = h.to(torch.float32) @ head.to(torch.float32)            # [B,c,V]
+    lse = torch.logsumexp(logits, dim=-1)
+    valid = lab >= 0
+    idx = torch.clamp_min(lab, 0).to(torch.int64)
+    if onehot_pick:
+        hot = torch.nn.functional.one_hot(idx, logits.shape[-1]).to(torch.float32)
+        pick = torch.einsum("bcv,bcv->bc", logits, hot)
+    else:
+        pick = torch.take_along_dim(logits, idx[..., None], dim=-1)[..., 0]
+    nll = (lse - pick) * valid
+    return nll.sum(), valid.sum().to(torch.float32)
+
+
+def chunked_ce(
+    hidden: torch.Tensor,    # [B, S, D]
+    head: torch.Tensor,      # [D, V]
+    labels: torch.Tensor,    # [B, S] int; -1 = padding (ignored)
+    chunk: int,
+    onehot_pick: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean token CE + token count, over sequence chunks in order.
+
+    Under grad mode each chunk runs under ``torch.utils.checkpoint``: its
+    fp32 logits [B, c, V] are freed after the forward and recomputed in the
+    backward, so no chunk's logits stay alive for it (at glm4-9b's vocabulary
+    each 1,024 tokens' logits take 0.62 GB)."""
+    b, s, _ = hidden.shape
+    c = min(chunk, s)
+    if s % c != 0:
+        c = math.gcd(s, c) or s
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for k in range(0, s, c):
+        args = (hidden[:, k:k + c], head, labels[:, k:k + c], onehot_pick)
+        if torch.is_grad_enabled():
+            nll, n = checkpoint(_ce_chunk, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            nll, n = _ce_chunk(*args)
+        tot = tot + nll
+        cnt = cnt + n
+    return tot / torch.clamp_min(cnt, 1.0), cnt
+
+
+def lm_loss(
+    params: Params,
+    cfg: ModelConfig,
+    batch: dict[str, torch.Tensor],
+    aux_weight: float = 0.01,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """batch: tokens [B,S], labels [B,S] -> (loss, {"ce", "aux", "tokens"})."""
+    hidden, aux = lm_forward(params, cfg, batch["tokens"])
+    head = params["lm_head"] if "lm_head" in params else params["embed"].T
+    ce, cnt = chunked_ce(hidden, head, batch["labels"], cfg.logit_chunk,
+                         onehot_pick=cfg.onehot_ce)
+    loss = ce + aux_weight * aux
+    return loss, {"ce": ce, "aux": aux, "tokens": cnt}
 
 
 # ==========================================================================

@@ -1111,3 +1111,120 @@ def test_cuda_macro_steps_refuse_what_a_graph_cannot_hold():
         mesh = HeadMesh(tuple(torch.device("cuda", i % 2) for i in range(16)))
         with pytest.raises(NotImplementedError, match="several cards"):
             ServeEngine(model2, params2, device=dev, macro_steps=4, mesh=mesh)
+
+
+# ---- the training path ------------------------------------------------------------
+def _wrapper_calls(dev):
+    """Each kernel wrapper with small valid inputs on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    rec = get_decoder_cache(4, 2).recovery(torch.ones(6, device=dev))
+    idx = torch.tensor([[0, 1], [2, 0]], dtype=torch.int32, device=dev)
+    cells = (rnd(3, 16, 8), -torch.rand(3, 16, generator=g, device=dev), rnd(3, 16, 4),
+             rnd(3, 16, 4))
+    return [
+        (coded_matvec_cuda, (rnd(24, 16), rnd(16, 2))),
+        (coded_matvec_decode_cuda, (rnd(24, 16), rnd(16, 2), rec)),
+        (gaussian_encode_cuda, (rnd(5, 3), rnd(3, 40))),
+        (lt_encode_cuda, (rnd(3, 40), idx, torch.ones(2, 2, device=dev))),
+        (ssd_chunk_cuda, cells),
+        (ssd_combine_cuda, (cells[3], torch.cumsum(cells[1], 1), rnd(3, 8, 4))),
+    ]
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_wrappers_refuse_inputs_that_require_grad():
+    """Under grad mode every wrapper raises, naming itself, when an input
+    requires grad (its kernel has no backward); under no_grad it launches."""
+    dev = _cuda()
+    for wrapper, args in _wrapper_calls(dev):
+        for k, a in enumerate(args):
+            if not a.is_floating_point():
+                continue
+            grad_args = [t.clone().requires_grad_(i == k) for i, t in enumerate(args)]
+            before = wrapper.launches
+            with pytest.raises(RuntimeError, match=wrapper.__name__):
+                wrapper(*grad_args)
+            assert wrapper.launches == before
+            with torch.no_grad():
+                wrapper(*grad_args)
+            assert wrapper.launches == before + 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,chunk,p,n", [(512, 256, 64, 64), (1024, 256, 48, 128), (96, 32, 8, 16)])
+def test_cuda_ssd_scan_forward_is_the_kernels_and_grads_are_ssd_chunkeds(s, chunk, p, n, dtype):
+    """SSDScan on the card: its forward is ssd_forward through the two
+    kernels (one launch of each, bit-equal outputs), and its gradients are
+    those of autograd through ssd_chunked at the same inputs (1e-5 of each
+    gradient's max: the same computation, recomputed)."""
+    from repro_torch.models.ssm import ssd_chunked
+
+    dev = _cuda()
+    g = torch.Generator(device=dev).manual_seed(s + p)
+    bsz, h = 2, 4
+    x = (torch.randn(bsz, s, h, p, generator=g, device=dev) * 0.5).to(dtype)
+    da = -torch.rand(bsz, s, h, generator=g, device=dev) * 0.1
+    b = torch.randn(bsz, s, 1, n, generator=g, device=dev).to(dtype)
+    c = torch.randn(bsz, s, 1, n, generator=g, device=dev).to(dtype)
+    ins = [t.clone().requires_grad_(True) for t in (x, da, b, c)]
+    before = (ssd_chunk_cuda.launches, ssd_combine_cuda.launches)
+    y, fin = ops.SSDScan.apply(*ins, chunk, None)
+    assert (ssd_chunk_cuda.launches - before[0], ssd_combine_cuda.launches - before[1]) == (1, 1)
+    with torch.no_grad():
+        wy, wfin = ops.ssd_forward(x, da, b, c, chunk, mode="cuda")
+    assert torch.equal(y, wy) and torch.equal(fin, wfin)
+    gy = torch.randn(y.shape, generator=g, device=dev).to(dtype)
+    gf = torch.randn(fin.shape, generator=g, device=dev)
+    before = (ssd_chunk_cuda.launches, ssd_combine_cuda.launches)
+    gots = torch.autograd.grad((y, fin), ins, (gy, gf))
+    assert (ssd_chunk_cuda.launches, ssd_combine_cuda.launches) == before  # no kernel backward
+    ref_in = [t.clone().requires_grad_(True) for t in (x, da, b, c)]
+    wants = torch.autograd.grad(ssd_chunked(*ref_in, chunk), ref_in, (gy, gf))
+    for got, want in zip(gots, wants):
+        assert got.dtype == want.dtype and bool(torch.isfinite(got).all())
+        scale = float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= 1e-5 * max(scale, 1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["glm4-9b", "mamba2-130m", "zamba2-1.2b"])
+def test_cuda_train_step_matches_the_cpu(arch):
+    """A coded train step of a float32 smoke config on the card gives the
+    CPU's loss (1e-5 relative) and gradient (the first moment, 1e-4 of each
+    leaf's max), and the next step's loss (1e-5); the Mamba blocks launch
+    ssd_chunk and ssd_combine once a block a forward and once a recompute."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.loop import TrainConfig, init_train_state, make_train_step
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    dev = _cuda()
+    cfg = get_config(arch, smoke=True).scaled(dtype="float32")
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=1e-3)
+    tc = TrainConfig(microbatches=2, gradient_coding="frc")
+    step = make_train_step(model, opt, tc)
+    pipe = make_pipeline(cfg, seq=32, global_batch=4)
+    cpu = init_train_state(model, torch.Generator().manual_seed(0), opt, tc, device="cpu")
+    gpu = tree_map(lambda t: t.to(dev), cpu)
+    out = {}
+    for name, st in (("cpu", cpu), ("gpu", gpu)):
+        before = (ssd_chunk_cuda.launches, ssd_combine_cuda.launches)
+        st1, m1 = step(st, pipe.batch(0), torch.ones(2))
+        launches = (ssd_chunk_cuda.launches - before[0], ssd_combine_cuda.launches - before[1])
+        _, m2 = step(st1, pipe.batch(1), torch.ones(2))
+        out[name] = (st1, float(m1["loss"]), float(m2["loss"]), launches)
+    want_launches = (0, 0) if cfg.family == "dense" else (cfg.n_layers * 2 * 2,) * 2
+    assert out["cpu"][3] == (0, 0) and out["gpu"][3] == want_launches
+    for k in (1, 2):
+        assert abs(out["gpu"][k] - out["cpu"][k]) <= 1e-5 * abs(out["cpu"][k])
+    for a, b in zip(tree_leaves(out["gpu"][0]["opt"]["m"]), tree_leaves(out["cpu"][0]["opt"]["m"])):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), 1e-30)

@@ -245,3 +245,37 @@ def test_launcher_runs_on_cpu(arch, capsys):
     serve.main(["--arch", arch, "--smoke", "--coded", "--device", "cpu", "--requests", "3",
                 "--max-new", "3", "--prompt-len", "20", "--straggler-prob", "0.3"])
     assert "[serve] 3 requests, 9 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_ssd_prefill_inputs_are_what_the_block_hands_its_ssd(arch, monkeypatch):
+    """``ssd_prefill_inputs`` gives, bit for bit, the (x·dt, da, b, c) that
+    ``mamba_block_apply`` passes to ``ssd_forward`` in block 0 of a forward,
+    padded to whole chunks (a 40-token prompt)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.ssm import ssd_prefill_inputs
+    from repro_torch.utils.tree import tree_map
+
+    cfg = get_config(arch, smoke=True).scaled(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (2, 40)))
+    seen, real = [], ops.ssd_forward
+
+    def record(*args, **kw):
+        seen.append(args)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(ops, "ssd_forward", record)
+    with torch.no_grad():
+        model.forward(params, tokens)
+    blocks = params["blocks"]
+    gp = blocks[0] if isinstance(blocks, list) else tree_map(lambda t: t[0], blocks)
+    with torch.no_grad():
+        x = params["embed"][tokens]
+        got = ssd_prefill_inputs(gp["mamba"], cfg, rmsnorm(x, gp["ln1"], cfg.norm_eps))
+    assert len(seen) == cfg.n_layers
+    assert got[0].shape[1] % min(cfg.ssm_chunk, 40) == 0 and got[0].shape[1] >= 40
+    for a, b in zip(got, seen[0][:4]):
+        assert torch.equal(a, b)
