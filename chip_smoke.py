@@ -27,7 +27,8 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    (one ``nvcc`` per source, started together);
 2. kernels: the serving kernels against their plain PyTorch versions on the
    card, at the serving path's shapes (the glm4-9b, mamba2-130m and
-   zamba2-1.2b heads at B = 1 and B = 4, the (13, 3) parity re-encodes,
+   zamba2-1.2b, llama-3.2-vision-11b and dbrx-132b heads at B = 1 and B = 4
+   (dbrx's x in panels at B = 4), the (13, 3) parity re-encodes,
    the mesh head's [10826, 4096] code block at B = 1 and 4, each head
    kernel launched twice and held to its own bits; ``ssd_chunk`` and
    ``ssd_combine`` at both Mamba-2 widths for prompts of 4096, 1000 (padded
@@ -121,7 +122,32 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    resumes from step 6, and (under deterministic algorithms) its losses
    after the restore equal a fresh run's from that checkpoint bit for bit;
    then the SSD kernels and ``SSDScan`` at its block 0 as in phase 12;
-14. a ``kernels`` line with every kernel on every path it runs (launch
+14. vlm serve: llama-3.2-vision-11b whole (40 layers, 8 with tanh-gated image
+   cross-attention, every gate set to 0.5: at init tanh(0) = 0 hides them),
+   coded head (14, 2) = W_c [146592, 4096], seeded init on the card, 4
+   slots, six requests of 8192, 1000, 100, 16, 16 and 16 prompt tokens with
+   a seeded image [1024, 4096] each and 8 new tokens, the three stragglers
+   forcing the (13, 3) raise (``gaussian_encode`` at A [13, 9866 x 4096]);
+   the 8192-token prompt runs ``_sdpa_chunked`` in all 40 self-attentions
+   and 8 cross-attentions (counted), and block 0's call is held to the
+   dense ``_sdpa`` on the same q, k, v; the coded head under 0 and 2
+   erasures within 1e-3 of the uncoded head; prefill ms per prompt length,
+   step ms, tokens/s, peak GB; then the macro pair of phase 9 (four
+   requests of 16 + 64 tokens, scalar against fused, equal tokens);
+15. moe serve: dbrx-132b at full width (d 6144, 48/8 heads, 16 experts
+   top-4, d_ff 10752), depth cut to 3 of 40 layers (printed as a cut),
+   coded head (14, 2) = W_c [114688, 6144] (x in panels at B = 4), raised
+   to (13, 3) = [123520, 6144]; the same mix without the 8192-token prompt;
+   the share of (token, k) assignments dropped by capacity at prefill and
+   at decode (B = 4: T = 4, cap = 2); block 0's ``moe_apply`` against its
+   per-token loop (``moe_apply_loop``, the same keep mask) at the 100-token
+   prefill and a B = 4 decode; times and the macro pair as in phase 14;
+16. encdec serve: seamless-m4t-large-v2 whole (24 + 24 layers) through the
+   engine as the reference serves it, zero frames and the uncoded head: no
+   TPU kernel on this path, and none may launch; then a prefill and a
+   decode step from seeded frames, the decode within 0.05 of max|logit| of
+   ``encdec_forward`` at the next position;
+17. a ``kernels`` line with every kernel on every path it runs (launch
    counts read around that path's run; ``lt_encode``'s ``ms`` is the
    call with its compaction, its ``kernel_ms`` the kernel alone, which its
    ``library_ms`` is held to), then the device line.  The seconds of each
@@ -286,14 +312,16 @@ def phase_kernels(torch, gen, results: dict) -> None:
 def kernel_coded_decode(torch, gen, results: dict) -> None:
     """coded_matvec_decode against ref_coded_matvec_decode: the glm4-9b head
     (14 + 2 blocks of 10826 rows x 4096), the mamba2-130m (tied, [50280,
-    768]) and zamba2-1.2b ([32000, 2048]) heads (br = ceil(vocab / n_data))
+    768]), zamba2-1.2b ([32000, 2048]), llama-3.2-vision-11b ([128256,
+    4096]) and dbrx-132b ([100352, 6144]; x in panels at B = 4) heads
+    (br = ceil(vocab / n_data))
     at B = 1 (prefill) and 4 (decode), timed in turns with torch.matmul(W_c,
     x), and through the wrapper against the bare C entry (head_host_cost);
     and ragged shapes: odd br, M % 4 != 0 (scalar loads), B up to 16 with
     x in panels, tiles below the SM count, 1, 17 and 32 blocks.  Each is
     launched twice and the two results must be bit-equal."""
     from repro_torch.core.decoding import get_decoder_cache
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, thin_rows
 
     dev = torch.device("cuda")
     rtol = 1e-4  # |kernel - plain| <= rtol * max(1, max|plain|): fp32, other sum order
@@ -306,6 +334,14 @@ def kernel_coded_decode(torch, gen, results: dict) -> None:
                    ("zamba2-1.2b prefill", 14, 2, 2286, 2048, 1),
                    ("zamba2-1.2b decode", 14, 2, 2286, 2048, 4),
                    ("zamba2-1.2b decode after raise", 13, 3, 2462, 2048, 4),
+                   ("llama-3.2-vision-11b prefill", 14, 2, 9162, 4096, 1),
+                   ("llama-3.2-vision-11b decode", 14, 2, 9162, 4096, 4),
+                   ("llama-3.2-vision-11b decode after raise", 13, 3, 9866, 4096, 4),
+                   # x [6144, 4] fp32 is 96 KB, over thin_rows.cuh's 64 KB
+                   # resident cap: the decode at B = 4 runs x in panels
+                   ("dbrx-132b prefill", 14, 2, 7168, 6144, 1),
+                   ("dbrx-132b decode", 14, 2, 7168, 6144, 4),
+                   ("dbrx-132b decode after raise", 13, 3, 7720, 6144, 4),
                    ("ragged", 13, 3, 1001, 4097, 3),
                    ("ragged", 6, 2, 77, 516, 16),
                    ("ragged x in panels", 6, 2, 300, 4100, 16),
@@ -315,7 +351,8 @@ def kernel_coded_decode(torch, gen, results: dict) -> None:
                    ("ragged one row a tile", 17, 0, 133, 132, 5),
                    ("ragged 32 blocks", 30, 2, 70, 1028, 1)]
     timed = ("glm4-9b prefill", "glm4-9b decode", "mamba2-130m prefill", "mamba2-130m decode",
-             "zamba2-1.2b prefill", "zamba2-1.2b decode")
+             "zamba2-1.2b prefill", "zamba2-1.2b decode", "llama-3.2-vision-11b prefill",
+             "llama-3.2-vision-11b decode", "dbrx-132b prefill", "dbrx-132b decode")
     for label, n_data, n_parity, br, m, b in head_shapes:
         nb = n_data + n_parity
         w = torch.randn(nb * br, m, device=dev, generator=gen)
@@ -337,6 +374,7 @@ def kernel_coded_decode(torch, gen, results: dict) -> None:
             tol = rtol * max(1.0, scale)
             row = {"phase": "kernel", "kernel": "coded_matvec_decode", "shape": label,
                    "w": [nb * br, m], "b": b, "erased": list(erased),
+                   "x_in_panels": b * -(-m // 4) * 4 * 4 > thin_rows.X_CAP_BYTES,
                    "max_abs_err": err, "tol": tol, "bit_equal_relaunch": torch.equal(got, again)}
             del got, want, again
             if not erased and label in timed:
@@ -389,7 +427,7 @@ def gaussian_row(torch, g, a, label: str, timed_iters: int = 0) -> dict:
 
 def kernel_gaussian(torch, gen, results: dict) -> None:
     """gaussian_encode at the (13, 3) parity re-encodes of the glm4-9b,
-    mamba2-130m and zamba2-1.2b heads, G [16, 13] x A [13, br * d_model],
+    mamba2-130m, zamba2-1.2b, llama-3.2-vision-11b and dbrx-132b heads, G [16, 13] x A [13, br * d_model],
     timed; then ragged shapes: every q-tile edge, an r across G's
     shared-memory panel, M = 1, M % 4 != 0 and a misaligned view of A
     (scalar loads)."""
@@ -397,6 +435,8 @@ def kernel_gaussian(torch, gen, results: dict) -> None:
     enc_shapes = [("glm4-9b raise", 16, 13, 11658 * 4096),
                   ("mamba2-130m raise", 16, 13, 3868 * 768),
                   ("zamba2-1.2b raise", 16, 13, 2462 * 2048),
+                  ("llama-3.2-vision-11b raise", 16, 13, 9866 * 4096),
+                  ("dbrx-132b raise", 16, 13, 7720 * 6144),
                   ("ragged", 33, 40, 257), ("ragged", 5, 3, 1001), ("ragged", 16, 14, 1),
                   *(("ragged q-tile edge", q, 13, 100_003) for q in (1, 8, 9, 17, 26, 32, 33, 70)),
                   ("ragged r across panels", 32, 1500, 20_000),
@@ -1023,13 +1063,8 @@ def phase_serve(torch, args, results: dict, smi: str) -> dict:
 
     phase_head(torch, params, cfg, torch.Generator(device=dev).manual_seed(args.seed + 1))
 
-    def latency_fn():  # three persistent stragglers: more than the budget of 2
-        lat = np.full(16, 1e-3)
-        lat[2] = lat[7] = lat[11] = 5e-2
-        return lat
-
     def make_engine(engine_params, mesh=None):
-        return ServeEngine(model, engine_params, n_slots=4, s_max=64, latency_fn=latency_fn,
+        return ServeEngine(model, engine_params, n_slots=4, s_max=64, latency_fn=_stragglers(),
                            parity_controller=ParityController(16, decay=0.5),
                            parity_topup=1, topup_patience=2,
                            head_kernel_mode="cuda", encode_mode="cuda", mesh=mesh, device=dev)
@@ -1068,7 +1103,7 @@ def phase_serve(torch, args, results: dict, smi: str) -> dict:
     # times after the counted run.  The model's prefill call alone (B = 1,
     # no engine around it), by CUDA events; then whole engine steps.
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (1, prompt_len)), device=dev)
-    prefill_call_ms = time_ms(torch, lambda: eng._prefill1(prompt), 5)
+    prefill_call_ms = time_ms(torch, lambda: eng._prefill1({"tokens": prompt}), 5)
     step_ms = _timed_steps(torch, eng, rng, cfg.vocab, prompt_len)
     row = {"phase": "serve", "arch": cfg.name, "n_layers": cfg.n_layers, "n_slots": 4,
            "s_max": 64, "requests": n_req, "prompt_len": prompt_len, "max_new": max_new,
@@ -1090,16 +1125,17 @@ def phase_serve(torch, args, results: dict, smi: str) -> dict:
             "tokens": tokens, "rng": rng}
 
 
-def _timed_steps(torch, eng, rng, vocab: int, prompt_len: int, n_timed: int = 5) -> float:
+def _timed_steps(torch, eng, rng, vocab: int, prompt_len: int, n_timed: int = 5,
+                 req_kw: dict | None = None) -> float:
     """Mean ms of whole engine steps on a refilled queue, host clock: the
     first step admits every slot, each timed one decodes all of them
     (control plane, mask upload, model call, argmax and its host copy) and
-    admits none."""
+    admits none.  ``req_kw``: more fields of each request (a vlm's image)."""
     from repro_torch.serve import Request
 
     for i in range(eng.n_slots):
         eng.submit(Request(uid=1000 + i, prompt=rng.integers(0, vocab, prompt_len),
-                           max_new_tokens=32))
+                           max_new_tokens=32, **(req_kw or {})))
     eng.step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1294,13 +1330,9 @@ def phase_mamba_serve(torch, args, results: dict, smi: str, arch: str) -> None:
           "init_s": time.perf_counter() - t0,
           "param_gb": sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9})
 
-    def latency_fn():  # three persistent stragglers: more than the budget of 2
-        lat = np.full(16, 1e-3)
-        lat[2] = lat[7] = lat[11] = 5e-2
-        return lat
-
     def make_engine(macro_steps=1):
-        return ServeEngine(model, params, n_slots=4, s_max=MAMBA_S_MAX, latency_fn=latency_fn,
+        return ServeEngine(model, params, n_slots=4, s_max=MAMBA_S_MAX,
+                           latency_fn=_stragglers(),
                            parity_controller=ParityController(16, decay=0.5), parity_topup=1,
                            topup_patience=2, head_kernel_mode="cuda", encode_mode="cuda",
                            ssd_kernel_mode="cuda", macro_steps=macro_steps, device=dev)
@@ -1342,7 +1374,7 @@ def phase_mamba_serve(torch, args, results: dict, smi: str, arch: str) -> None:
     prefill_ms = {}
     for length in sorted(set(MAMBA_PROMPTS), reverse=True):
         prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (1, length)), device=dev)
-        prefill_ms[length] = time_ms(torch, lambda: eng._prefill1(prompt), 3, warmup=1)
+        prefill_ms[length] = time_ms(torch, lambda: eng._prefill1({"tokens": prompt}), 3, warmup=1)
     step_ms = _timed_steps(torch, eng, rng, cfg.vocab, 100)
 
     # the prefill's last-position logits (a 1000-token prompt) with the SSD
@@ -1424,7 +1456,8 @@ def _step_bytes(eng) -> int:
             + written(eng.cache))
 
 
-def phase_macro_pair(torch, make_engine, prompts, max_new: int, arch: str, smi: str) -> dict:
+def phase_macro_pair(torch, make_engine, prompts, max_new: int, arch: str, smi: str,
+                     req_kw: dict | None = None) -> dict:
     """The workload through ``make_engine(1)`` (scalar steps) and
     ``make_engine(16)`` (fused blocks, one CUDA graph per K bucket), three
     waves of the same prompts on one engine.  Every wave is counted: equal
@@ -1437,7 +1470,8 @@ def phase_macro_pair(torch, make_engine, prompts, max_new: int, arch: str, smi: 
     step on the host clock (the device synchronized around it), host syncs
     per token and fused blocks.  Each capture's seconds (its warm-up step
     included) and the reserved bytes it adds (the graph pool) are read
-    around it here."""
+    around it here.  ``req_kw``: more fields of every request (a vlm's
+    image)."""
     from repro_torch.serve import Request
 
     runs = {}
@@ -1448,7 +1482,8 @@ def phase_macro_pair(torch, make_engine, prompts, max_new: int, arch: str, smi: 
         for wave in range(3):
             uid0 = 100 * wave
             for i, p in enumerate(prompts):
-                eng.submit(Request(uid=uid0 + i, prompt=p, max_new_tokens=max_new))
+                eng.submit(Request(uid=uid0 + i, prompt=p, max_new_tokens=max_new,
+                                   **(req_kw or {})))
             _reset_launches()
             steps0, syncs0, blocks0, tok0, caps0 = (eng._steps, eng.sync_count, eng.macro_blocks,
                                                     eng.tokens_emitted, len(eng.graph_log))
@@ -1681,6 +1716,358 @@ def phase_profile(torch, eng) -> None:
     emit({"phase": "profile", "wall_ms_per_step": wall_ms, "device_ms_per_step": busy,
           "busy_share": busy / wall_ms if wall_ms else None,
           "launches_per_step": sum(r["launches_per_step"] for r in rows), "top": rows[:10]})
+
+
+# --------------------------------------------------------------------------
+# the moe, vlm and encdec serves
+FAMILY_ARCHS = {"llama-3.2-vision-11b": "vlm", "dbrx-132b": "moe"}
+VLM_PROMPTS = (8192, 1000, 100, 16, 16, 16)  # tokens of the six vlm requests
+MOE_PROMPTS = VLM_PROMPTS[1:]                # the same mix without the 8192-token prompt
+ENCDEC_PROMPTS = (1000, 100, 16, 16, 16, 16)
+FAMILY_MAX_NEW = 8
+GATE = 0.5          # every vlm cross-attention gate: at init tanh(0) = 0 hides the layer
+MOE_LAYERS = 3      # dbrx-132b depth (of 40): 19.4 GB a layer with its fp32 leaves and
+#                     their bf16 copy both resident, beside the fp32 embedding and heads
+MACRO_S_MAX = 128   # the macro pairs' 16 prompt + 64 new tokens
+ENCDEC_REL_TOL = 0.05   # decode vs forward, of max|logit| (tests/test_models.py:63)
+
+
+def _stragglers():
+    """A latency stream with three persistent stragglers: more than the
+    coded head's budget of 2, so the parity controller raises once."""
+    def latency_fn():
+        lat = np.full(16, 1e-3)
+        lat[2] = lat[7] = lat[11] = 5e-2
+        return lat
+
+    return latency_fn
+
+
+def _init_served(torch, args, cfg, extra: dict) -> tuple:
+    """The model and its seeded params on the card, with their init line."""
+    from repro_torch.models.registry import build_model
+
+    dev = torch.device("cuda")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(args.seed), dev)
+    torch.cuda.synchronize()
+    emit({"phase": "init", "arch": cfg.name, "family": cfg.family, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab, "init_s": time.perf_counter() - t0,
+          "param_gb": sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9,
+          **extra})
+    return model, params
+
+
+def _served_run(torch, eng, reqs) -> tuple:
+    """The requests through ``eng.run()``, the launch counts set to 0 just
+    before: (completed requests, wall seconds, launches)."""
+    for r in reqs:
+        eng.submit(r)
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    return done, time.perf_counter() - t0, _launches()
+
+
+def _check_served(done, cfg, n_req: int, what: str) -> dict:
+    """Every request completed with its token count, in the vocabulary; the
+    tokens by uid."""
+    tokens = {r.uid: r.out_tokens for r in done}
+    check(len(done) == n_req, f"{what}: {len(done)} of {n_req} requests completed")
+    check(all(len(t) == FAMILY_MAX_NEW for t in tokens.values()), f"{what}: a request missed "
+          "its token count")
+    check(all(0 <= t < cfg.vocab for ts in tokens.values() for t in ts),
+          f"{what}: token out of vocab")
+    return tokens
+
+
+def _sdpa_chunked_vs_dense(torch, q, k, v, causal: bool) -> dict:
+    """Block 0's chunked SDPA against the dense ``_sdpa`` on the same q, k
+    and v (upcast to fp32, so both compute in fp32 as the chunked loop
+    does), one kv head's query group at a time (the dense logits of all 32
+    heads at 8192 tokens would take 8.6 GB); within one bf16 step of
+    max|dense|, the rounding of the chunked output."""
+    from repro_torch.models import attention
+
+    got = attention._sdpa_chunked(q, k, v, causal=causal)
+    mask = attention._causal_mask5(q.shape[1], k.shape[1], q.device) if causal else None
+    kvh = k.shape[2]
+    gs = q.shape[2] // kvh
+    err = scale = 0.0
+    for g in range(kvh):
+        dense = attention._sdpa(q[:, :, g * gs:(g + 1) * gs].float(),
+                                k[:, :, g:g + 1].float(), v[:, :, g:g + 1].float(), mask)
+        err = max(err, float((got[:, :, g * gs:(g + 1) * gs].float() - dense).abs().max()))
+        scale = max(scale, float(dense.abs().max()))
+        del dense
+    ms = time_ms(torch, lambda: attention._sdpa_chunked(q, k, v, causal=causal), 2, warmup=1)
+    return {"q": list(q.shape), "k": list(k.shape), "dtype": str(q.dtype).removeprefix("torch."),
+            "max_abs_err": err, "tol": BF16_STEP * scale, "max_abs_dense": scale,
+            "finite": bool(torch.isfinite(got).all()), "chunked_ms": ms}
+
+
+def _moe_drops(seen: list) -> dict:
+    """The share of (token, k) assignments dropped by capacity over the
+    recorded ``moe_apply`` calls, at prefill (S > 1) and at decode."""
+    from repro_torch.models.moe import route
+
+    out = {}
+    for phase, calls in (("prefill", [c for c in seen if c[1].shape[1] > 1]),
+                         ("decode", [c for c in seen if c[1].shape[1] == 1])):
+        dropped = total = 0
+        caps = set()
+        for p, x, kw in calls:
+            r = route(p, x.reshape(-1, x.shape[-1]), top_k=kw["top_k"],
+                      capacity_factor=kw["capacity_factor"],
+                      dispatch_groups=kw["dispatch_groups"])
+            dropped += int((~r.keep).sum())
+            total += r.keep.numel()
+            caps.add((x.shape[0] * x.shape[1], r.cap))
+        out[phase] = {"calls": len(calls), "assignments": total, "dropped": dropped,
+                      "dropped_share": dropped / max(total, 1),
+                      "tokens_and_cap": sorted(caps)}
+    return out
+
+
+def _moe_vs_loop(torch, call) -> dict:
+    """``moe_apply`` against ``moe_apply_loop`` (token by token, the same
+    keep mask) at one recorded call's real input, bf16: within two bf16
+    steps of max|loop| (the expert output's rounding and the combine's)."""
+    from repro_torch.models.moe import moe_apply, moe_apply_loop, route
+
+    p, x, kw = call
+    y, _ = moe_apply(p, x, **kw)
+    loop = moe_apply_loop(p, x, **kw)
+    torch.cuda.synchronize()
+    err, scale = max_err(torch, y.float(), loop.float())
+    keep = route(p, x.reshape(-1, x.shape[-1]), top_k=kw["top_k"],
+                 capacity_factor=kw["capacity_factor"], dispatch_groups=kw["dispatch_groups"]).keep
+    return {"x": list(x.shape), "dtype": str(x.dtype).removeprefix("torch."),
+            "kept": int(keep.sum()), "assignments": keep.numel(), "max_abs_err": err,
+            "tol": 2 * BF16_STEP * scale, "max_abs_loop": scale,
+            "finite": bool(torch.isfinite(y).all())}
+
+
+def phase_family_serve(torch, args, results: dict, smi: str, arch: str) -> None:
+    """llama-3.2-vision-11b (vlm, whole: 40 layers, 8 of them with gated
+    image cross-attention, every gate set to ``GATE``) or dbrx-132b (moe,
+    full width, depth cut to ``MOE_LAYERS``, printed as a cut), coded head
+    (14, 2), seeded init on the card: 4 slots, requests of ``VLM_PROMPTS``
+    (vlm, each with a seeded image [1024, 4096]) or ``MOE_PROMPTS`` tokens
+    and 8 new tokens each, the three persistent stragglers forcing the
+    (13, 3) raise.  The vlm's 8192-token prompt runs ``_sdpa_chunked`` in
+    every layer (and in its cross-attentions): the calls are counted, and
+    block 0's is held to the dense ``_sdpa``.  The moe's ``moe_apply`` calls
+    are recorded: the share of assignments dropped by capacity at prefill
+    and at decode, and block 0's call against ``moe_apply_loop`` at the
+    100-token prefill and the first B = 4 decode.  Then prefill ms per
+    prompt length, whole steps, and the macro pair (four requests of 16
+    prompt tokens and 64 new tokens)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.adaptive import ParityController
+    from repro_torch.models import attention, transformer
+    from repro_torch.serve import Request, ServeEngine
+
+    dev = torch.device("cuda")
+    full = get_config(arch)
+    vlm = full.family == "vlm"
+    cfg = full.scaled(coded=True, coded_parity=2)
+    if not vlm:
+        cfg = cfg.scaled(n_layers=MOE_LAYERS)
+        emit({"phase": "cut", "arch": arch, "n_layers": MOE_LAYERS, "of": full.n_layers,
+              "reason": "a layer's 16 experts take 13.0 GB in fp32 and 6.5 GB as the serving "
+                        "bf16 copy, both resident while the engine prepares them; widths "
+                        "are not cut"})
+    prompt_lens = VLM_PROMPTS if vlm else MOE_PROMPTS
+    s_max = max(prompt_lens) + FAMILY_MAX_NEW
+    extra = ({"cross_attn_layers": cfg.n_layers // cfg.cross_attn_every, "gate": GATE,
+              "img_tokens": cfg.img_tokens} if vlm else
+             {"n_experts": cfg.n_experts, "top_k": cfg.top_k, "d_ff": cfg.d_ff,
+              "capacity_factor": cfg.capacity_factor})
+    model, params = _init_served(torch, args, cfg, extra)
+    if vlm:
+        for name, sub in params["blocks"].items():
+            if name.startswith("xattn_"):
+                sub["gate"].fill_(GATE)
+    phase_head(torch, params, cfg, torch.Generator(device=dev).manual_seed(args.seed + 1))
+
+    def make_engine(engine_params, macro_steps=1, s_max=s_max):
+        return ServeEngine(model, engine_params, n_slots=4, s_max=s_max,
+                           latency_fn=_stragglers(),
+                           parity_controller=ParityController(16, decay=0.5), parity_topup=1,
+                           topup_patience=2, head_kernel_mode="cuda", encode_mode="cuda",
+                           macro_steps=macro_steps, device=dev)
+
+    eng = make_engine(params)
+    del params  # the engine keeps the bf16 layer weights and the fp32 embedding and heads
+    gc.collect()
+    torch.cuda.empty_cache()
+    served = dict(eng.params)  # with the (14, 2) head, for the macro pair
+    rng = np.random.default_rng(args.seed + 20)
+
+    def req_kw():
+        if not vlm:
+            return {}
+        return {"img_embed": rng.standard_normal((cfg.img_tokens, cfg.d_model),
+                                                 dtype=np.float32)}
+
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, n), max_new_tokens=FAMILY_MAX_NEW,
+                    **req_kw()) for i, n in enumerate(prompt_lens)]
+    seen_chunked, seen_moe = [], []
+    real_chunked, real_moe = attention._sdpa_chunked, transformer.moe_apply
+
+    def chunked(q, k, v, **kw):  # block 0's arguments, then each call's kind
+        seen_chunked.append(kw["causal"] if seen_chunked else (q, k, v, kw["causal"]))
+        return real_chunked(q, k, v, **kw)
+
+    def moe(p, x, **kw):
+        seen_moe.append((p, x, kw))
+        return real_moe(p, x, **kw)
+
+    attention._sdpa_chunked, transformer.moe_apply = chunked, moe
+    try:
+        done, wall, launches = _served_run(torch, eng, reqs)
+    finally:
+        attention._sdpa_chunked, transformer.moe_apply = real_chunked, real_moe
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps, n_req = eng._steps, len(prompt_lens)
+    tokens = _check_served(done, cfg, n_req, arch)
+    check(len(eng.parity_events) == 1 and eng.parity_events[0]["n_parity"] == 3,
+          f"{arch}: parity events {eng.parity_events}")
+    br13 = -(-cfg.vocab // 13)
+    check(tuple(eng.params["lm_head_coded"].shape) == (16 * br13, cfg.d_model),
+          f"{arch}: head not re-split to (13, 3)")
+    check(launches["coded_matvec_decode"] == n_req + steps and launches["gaussian_encode"] == 1,
+          f"{arch}: head launches {launches} ({n_req} prefills + {steps} steps, one raise)")
+    row = {"phase": "serve", "arch": cfg.name, "family": cfg.family, "n_layers": cfg.n_layers,
+           "n_slots": 4, "s_max": s_max, "requests": n_req, "prompt_lens": prompt_lens,
+           "max_new": FAMILY_MAX_NEW, "tokens": sum(len(t) for t in tokens.values()),
+           "decode_steps": steps, "wall_s": wall}
+    row["tokens_per_s"] = row["tokens"] / wall
+    if vlm:
+        n_cross = cfg.n_layers // cfg.cross_attn_every
+        kinds = [seen_chunked[0][3]] + seen_chunked[1:]
+        check(kinds.count(True) == cfg.n_layers and kinds.count(False) == n_cross,
+              f"{arch}: _sdpa_chunked ran {kinds.count(True)} causal and {kinds.count(False)} "
+              f"cross calls, want {cfg.n_layers} and {n_cross} (the 8192-token prompt)")
+        row["sdpa_chunked_calls"] = {"self": cfg.n_layers, "cross": n_cross}
+        row["block0_sdpa_chunked_vs_dense"] = _sdpa_chunked_vs_dense(torch, *seen_chunked[0])
+    else:
+        row["moe_drops"] = _moe_drops(seen_moe)
+        row["block0_moe_vs_loop"] = {
+            "prefill 100": _moe_vs_loop(torch, next(c for c in seen_moe if c[1].shape[1] == 100)),
+            "decode B=4": _moe_vs_loop(torch, next(c for c in seen_moe if c[1].shape[1] == 1))}
+    del seen_chunked, seen_moe
+    gc.collect()
+
+    # after the counted run: the prefill call (B = 1) per prompt length, by
+    # CUDA events, then whole engine steps on a refilled queue
+    prefill_ms = {}
+    for length in sorted(set(prompt_lens), reverse=True):
+        batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (1, length)), device=dev)}
+        if vlm:
+            batch["img_embed"] = torch.as_tensor(req_kw()["img_embed"][None], device=dev)
+        prefill_ms[length] = time_ms(torch, lambda: eng._prefill1(batch),
+                                     2 if length > 4096 else 3, warmup=1)
+    row.update(prefill_call_ms=prefill_ms,
+               step_ms=_timed_steps(torch, eng, rng, cfg.vocab, 16, req_kw=req_kw()),
+               sync_count=eng.sync_count, parity_events=eng.parity_events, launches=launches,
+               peak_mem_gb=peak_gb, card=smi, first_tokens=tokens[0])
+    emit(row)
+    results[f"serve {arch}"] = row
+    if vlm:
+        r = row["block0_sdpa_chunked_vs_dense"]
+        check(r["finite"] and r["max_abs_err"] <= r["tol"],
+              f"{arch}: block 0's _sdpa_chunked differs from the dense _sdpa by "
+              f"{r['max_abs_err']} (allowed {r['tol']})")
+    else:
+        for label, r in row["block0_moe_vs_loop"].items():
+            check(r["finite"] and r["max_abs_err"] <= r["tol"],
+                  f"{arch}: block 0's moe_apply ({label}) differs from its per-token loop by "
+                  f"{r['max_abs_err']} (allowed {r['tol']})")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = [rng.integers(0, cfg.vocab, 16) for _ in range(4)]
+    results[f"macro {arch}"] = phase_macro_pair(
+        torch, lambda k: make_engine(served, k, MACRO_S_MAX), prompts, 64, cfg.name, smi,
+        req_kw=req_kw())
+    del served
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_encdec_serve(torch, args, results: dict, smi: str) -> None:
+    """seamless-m4t-large-v2 whole (24 encoder + 24 decoder layers), seeded
+    init on the card, served through the engine as the reference serves it:
+    zero source frames of each prompt's length and the uncoded head (the
+    reference's encdec makes no coded head), so this path runs no TPU
+    kernel, and the phase checks that none launched.  4 slots, requests of
+    ``ENCDEC_PROMPTS`` tokens and 8 new tokens.  Then, since zero frames
+    give a zero encoder memory, a prefill and a decode step from seeded
+    frames: decode within ``ENCDEC_REL_TOL`` of ``encdec_forward`` at the
+    next position."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.encdec import encdec_forward
+    from repro_torch.serve import Request, ServeEngine
+
+    dev = torch.device("cuda")
+    cfg = get_config("seamless-m4t-large-v2")
+    model, params = _init_served(torch, args, cfg, {"enc_layers": cfg.enc_layers,
+                                                     "head": "uncoded, as the reference's"})
+    s_max = max(ENCDEC_PROMPTS) + FAMILY_MAX_NEW
+    eng = ServeEngine(model, params, n_slots=4, s_max=s_max, device=dev)
+    del params
+    rng = np.random.default_rng(args.seed + 30)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, n), max_new_tokens=FAMILY_MAX_NEW)
+            for i, n in enumerate(ENCDEC_PROMPTS)]
+    done, wall, launches = _served_run(torch, eng, reqs)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tokens = _check_served(done, cfg, len(reqs), cfg.name)
+    check(not any(launches.values()), f"{cfg.name}: a kernel launched on the encdec path "
+          f"{launches}")
+    prefill_ms = {}
+    for length in sorted(set(ENCDEC_PROMPTS), reverse=True):
+        batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (1, length)), device=dev),
+                 "frames": torch.zeros((1, length, cfg.d_model), device=dev)}
+        prefill_ms[length] = time_ms(torch, lambda: eng._prefill1(batch), 3, warmup=1)
+    step_ms = _timed_steps(torch, eng, rng, cfg.vocab, 16)
+
+    # seeded frames: decode after a 64-token prefix against the forward
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 31)
+    frames = torch.randn(1, 512, cfg.d_model, device=dev, generator=gen)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 65)), device=dev)
+    _, cache = model.prefill(eng.params, {"tokens": toks[:, :64], "frames": frames}, s_max=72)
+    logits, _ = model.decode_step(eng.params, cache, toks[:, 64])
+    hidden = encdec_forward(eng.params, cfg, frames, toks)
+    want = hidden[:, -1].float() @ eng.params["lm_head"].float()
+    torch.cuda.synchronize()
+    err, scale = max_err(torch, logits, want)
+    seeded = {"frames": list(frames.shape), "prefix": 64, "rel_err": err / scale,
+              "tol": ENCDEC_REL_TOL, "finite": bool(torch.isfinite(logits).all()),
+              "cross_kv_nonzero": bool(cache["ck"].any()),
+              "argmax_equal": bool((logits.argmax(-1) == want.argmax(-1)).all())}
+    row = {"phase": "serve", "arch": cfg.name, "family": cfg.family, "n_layers": cfg.n_layers,
+           "enc_layers": cfg.enc_layers, "n_slots": 4, "s_max": s_max,
+           "requests": len(reqs), "prompt_lens": ENCDEC_PROMPTS, "max_new": FAMILY_MAX_NEW,
+           "tokens": sum(len(t) for t in tokens.values()), "decode_steps": eng._steps,
+           "wall_s": wall, "tokens_per_s": sum(len(t) for t in tokens.values()) / wall,
+           "prefill_call_ms": prefill_ms, "step_ms": step_ms, "sync_count": eng.sync_count,
+           "launches": launches, "tpu_kernels": "none: the reference's encdec head is uncoded",
+           "seeded_frames_decode_vs_forward": seeded, "peak_mem_gb": peak_gb, "card": smi,
+           "first_tokens": tokens[0]}
+    emit(row)
+    results[f"serve {cfg.name}"] = row
+    check(seeded["finite"] and seeded["cross_kv_nonzero"] and seeded["rel_err"] <= ENCDEC_REL_TOL,
+          f"{cfg.name}: decode from seeded frames differs from the forward by "
+          f"{seeded['rel_err']} of max|logit| (allowed {ENCDEC_REL_TOL})")
+    del eng, cache, hidden
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -2888,6 +3275,12 @@ def main() -> int:
     timed("train glm4-9b", phase_train_glm, torch, args, results, smi)
     timed("train zamba2-1.2b", phase_train_zamba, torch, args, results, smi)
     timed("train drill", phase_train_drill, torch, args, results, smi)
+    # the new families' serves come last: the glm4-9b FRC step peaks at 73 GB
+    # of the card's 85, and it runs out of memory to fragmentation when these
+    # phases (66.5 GB peaks) run before it, though they leave nothing reserved
+    for arch in FAMILY_ARCHS:
+        timed(f"serve {arch}", phase_family_serve, torch, args, results, smi, arch)
+    timed("serve seamless-m4t-large-v2", phase_encdec_serve, torch, args, results, smi)
     emit({"phase": "seconds", **seconds})
 
     kernels = []
@@ -2942,6 +3335,16 @@ def main() -> int:
                "src/repro/kernels/coded_decode.py:65", f"{arch} decode"),
               ("gaussian_encode", "src/repro_torch/kernels/csrc/gaussian_encode.cu",
                "src/repro/kernels/lt_encode.py:107", f"{arch} raise"))),
+        *((name, src, replaces, path, phase, f"{arch} {shape}")
+          for arch, fam in FAMILY_ARCHS.items()
+          for path, phase in ((f"{fam} serve", results[f"serve {arch}"]),
+                              (f"{arch} macro serve (graphs)",
+                               {"launches": results[f"macro {arch}"]["launches"][1]}))
+          for name, src, replaces, shape in (
+              ("coded_matvec_decode", "src/repro_torch/kernels/csrc/coded_decode.cu",
+               "src/repro/kernels/coded_decode.py:65", "decode"),
+              ("gaussian_encode", "src/repro_torch/kernels/csrc/gaussian_encode.cu",
+               "src/repro/kernels/lt_encode.py:107", "raise"))),
         *((name, src, replaces, f"{fam} train", results[phase_key], shape)
           for phase_key, fam, shape in (
               ("train zamba2-1.2b", "hybrid",

@@ -4,8 +4,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --coded --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --coded
 
-``--arch`` takes the dense glm4-9b and phi3-mini-3.8b, the Mamba-2
-mamba2-130m and the hybrid zamba2-1.2b (``repro_torch.configs.ARCHS``).
+``--arch`` takes any of the ten configs (``repro_torch.configs.ARCHS``):
+dense, moe, ssm, hybrid and encdec serve synthetic prompts (an encdec
+request gets zero source frames of its prompt's length, as the reference's
+engine gives); a vlm config is refused with a ``ValueError``, since its
+requests need image embeddings (``Request.img_embed``) that this launcher
+does not make, and the reference's launcher fails there too.
 
 Continuous batching (``serve.engine.ServeEngine``) over a pre-loaded queue
 of ``--requests`` synthetic prompts, or with ``--trace poisson|bursty`` over
@@ -141,6 +145,12 @@ def main(argv: list[str] | None = None) -> None:
                   f"tenants={args.tenants} tenant_parity={args.tenant_parity} "
                   f"prefill_budget={args.prefill_budget}")
         return
+
+    if cfg.family == "vlm":
+        raise ValueError(
+            f"{cfg.name}: vision requests need img_embed (precomputed image embeddings), "
+            "which this launcher does not supply; serve it through ServeEngine with "
+            "Request(img_embed=...)")
 
     import torch
 

@@ -8,9 +8,13 @@
     logits, cache1 = model.prefill(params, {"tokens": tokens}, s_max=s_max)
     logits, cache = model.decode_step(params, cache, tokens)
 
-Port of ``repro.models.registry`` for the dense, ssm and hybrid families;
-every entry point runs on CUDA unless a device is named (``device="cpu"``
-in tests).
+Port of ``repro.models.registry`` for all six families (dense, moe, ssm,
+hybrid, vlm, encdec) and padded heads.  A vlm prefill takes the request's
+image embeddings as ``batch["img_embed"]`` [B, n_img, D], an encdec
+prefill its source frames as ``batch["frames"]`` [B, S_src, D].  Training
+(``loss``, ``forward``) covers dense, ssm and hybrid; the moe, vlm and
+encdec losses are queued for the next training slice.  Every entry point
+runs on CUDA unless a device is named (``device="cpu"`` in tests).
 """
 from __future__ import annotations
 
@@ -20,25 +24,18 @@ from typing import Any
 import torch
 
 from repro_torch import default_device
+from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["Model", "build_model"]
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+TRAINED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-
-    def __post_init__(self):
-        if self.cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"family {self.cfg.family!r} is not ported yet "
-                f"(ported: {', '.join(PORTED_FAMILIES)})")
-        if self.cfg.pad_heads:
-            raise NotImplementedError("pad_heads is not ported yet")
 
     def init(self, generator: torch.Generator | None = None, device=None) -> Any:
         """Seeded random params on ``device`` (default: CUDA).  Without a
@@ -46,17 +43,28 @@ class Model:
         device = default_device(device)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
+        if self.cfg.family == "encdec":
+            return ed.init_encdec(self.cfg, generator, device)
         return tf.init_lm(self.cfg, generator, device)
 
     # ---- training -------------------------------------------------------
+    def _check_trained(self, what: str) -> None:
+        if self.cfg.family not in TRAINED_FAMILIES:
+            raise NotImplementedError(
+                f"Model.{what} for the {self.cfg.family!r} family waits for the next "
+                f"training slice (lm_loss with aux_weight, encdec_loss, img_embed and "
+                f"frames batches); trained today: {', '.join(TRAINED_FAMILIES)}")
+
     def loss(self, params, batch: dict):
         """(loss, metrics) of a batch {"tokens", "labels"} [B, S]; the train
         objective (chunked CE).  Takes the params as they are: a train step
         never calls :meth:`prepare`, so gradients reach the fp32 leaves."""
+        self._check_trained("loss")
         return tf.lm_loss(params, self.cfg, batch)
 
     def forward(self, params, tokens):
         """Final hidden states [B, S, D] in the activation dtype."""
+        self._check_trained("forward")
         return tf.lm_forward(params, self.cfg, tokens)[0]
 
     # ---- serving ----------------------------------------------------------
@@ -66,19 +74,29 @@ class Model:
         return tf.cast_matmul_weights(params, self.cfg)
 
     def init_cache(self, batch: int, s_max: int, device=None) -> Any:
-        return tf.lm_init_cache(self.cfg, batch, s_max, default_device(device))
+        device = default_device(device)
+        if self.cfg.family == "encdec":
+            return ed.encdec_init_cache(self.cfg, batch, s_max, s_max, device)
+        return tf.lm_init_cache(self.cfg, batch, s_max, device)
 
     def prefill(self, params, batch: dict, s_max: int | None = None,
                 head_mask=None, head_kernel_mode: str | None = None, head_mesh=None,
                 ssd_kernel_mode: str | None = None):
         """``ssd_kernel_mode`` is the kernel mode of every Mamba block's SSD
-        (None: by device); the dense family has none."""
-        return tf.lm_prefill(params, self.cfg, batch["tokens"], s_max=s_max,
-                             head_mask=head_mask, head_kernel_mode=head_kernel_mode,
-                             head_mesh=head_mesh, ssd_kernel_mode=ssd_kernel_mode)
+        (None: by device).  The encdec head is uncoded and takes no head
+        arguments, as the reference's."""
+        if self.cfg.family == "encdec":
+            return ed.encdec_prefill(params, self.cfg, batch["frames"], batch["tokens"],
+                                     s_max=s_max)
+        return tf.lm_prefill(params, self.cfg, batch["tokens"], batch.get("img_embed"),
+                             s_max=s_max, head_mask=head_mask,
+                             head_kernel_mode=head_kernel_mode, head_mesh=head_mesh,
+                             ssd_kernel_mode=ssd_kernel_mode)
 
     def decode_step(self, params, cache, tokens, head_mask=None,
                     head_kernel_mode: str | None = None, head_mesh=None):
+        if self.cfg.family == "encdec":
+            return ed.encdec_decode_step(params, self.cfg, cache, tokens)
         return tf.lm_decode_step(params, self.cfg, cache, tokens, head_mask=head_mask,
                                  head_kernel_mode=head_kernel_mode, head_mesh=head_mesh)
 

@@ -1,15 +1,27 @@
-"""Decoder-only LM (dense, ssm and hybrid families) with the BPCC coded LM head.
+"""Decoder-only LM (dense, moe, vlm, ssm and hybrid) with the BPCC coded LM head.
 
-Port of the dense, ssm and hybrid paths of ``repro.models.transformer``
-(``Model`` refuses the other families and padded heads).  Params are a dict
-of tensors in the reference's layout: dense and ssm block params stacked
-on a leading layer axis, hybrid (zamba2) blocks a Python list beside one
-*shared* attention+MLP block applied after every ``attn_every``-th Mamba
-block; the layer loop is a Python loop.  The KV caches are bf16 whatever
-the activation dtype, and decode updates them in place; the Mamba states
-of a decode step are new tensors (their conv cache takes the activation
-dtype, as the reference's does).  Every Mamba block's prefill runs the SSD
-kernels (``ssd_kernel_mode``: None is by device).
+Port of ``repro.models.transformer``.  Params are a dict of tensors in the
+reference's layout.  The attention families stack their layers in
+*groups* of ``group_period(cfg)`` layers on a leading group axis, with
+per-layer keys ``ln1_j``, ``attn_j``, ``ln2_j`` and ``mlp_j`` or ``moe_j``:
+
+  dense, dbrx (moe_every=1)  : period 1
+  llama4 (moe_every=2)       : period 2, [dense-FFN layer, MoE layer]
+  vlm (cross_attn_every=5)   : period 5, the last layer of a group with a
+                               tanh-gated image cross-attention (``lnx_j``,
+                               ``xattn_j``)
+
+ssm blocks are stacked on a layer axis; hybrid (zamba2) blocks are a
+Python list beside one *shared* attention+MLP block applied after every
+``attn_every``-th Mamba block.  Layer loops are Python loops.  The KV caches
+are bf16 whatever the activation dtype, and decode updates them in place;
+a vlm cache also holds each group's image cross K/V (``ck``/``cv``),
+written once by the prefill.  The Mamba states of a decode step are new
+tensors (their conv cache takes the activation dtype, as the reference's
+does).  Every Mamba block's prefill runs the SSD kernels
+(``ssd_kernel_mode``: None is by device).  ``cfg.pad_heads`` pads the
+self-attention heads and masks the padding heads' outputs, so the function
+is the unpadded model's.
 
 The last-position logits go through ``_last_logits``: with ``cfg.coded``
 the head matvec runs on the coded blocks (``kernels.ops.coded_head_matvec``)
@@ -20,13 +32,13 @@ logits.  On CUDA tensors it runs as the fused hand-written kernel
 head mesh and kernel modes are explicit arguments where the reference reads
 contextvars.
 
-Training: ``lm_forward`` and ``lm_loss`` (chunked cross-entropy).  With
-``cfg.remat`` every layer (zamba2: every ``_hybrid_layer``) runs under
-``torch.utils.checkpoint``, and the loss recomputes each sequence chunk's
-fp32 logits in the backward, so [B, S, V] fp32 logits are never resident.
-Weights are cast to the activation dtype at use inside the graph, so the
-gradients reach the fp32 leaves (training never calls
-``cast_matmul_weights``).
+Training: ``lm_forward`` (with the vlm image and the summed MoE aux loss)
+and ``lm_loss`` (chunked cross-entropy).  With ``cfg.remat`` every group
+(zamba2: every ``_hybrid_layer``) runs under ``torch.utils.checkpoint``,
+and the loss recomputes each sequence chunk's fp32 logits in the backward,
+so [B, S, V] fp32 logits are never resident.  Weights are cast to the
+activation dtype at use inside the graph, so the gradients reach the fp32
+leaves (training never calls ``cast_matmul_weights``).
 """
 from __future__ import annotations
 
@@ -36,7 +48,15 @@ from functools import partial
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.attention import attention_decode, attention_full, init_attn
+from repro_torch.models.attention import (
+    attention_decode,
+    attention_full,
+    cross_attention,
+    cross_attention_cached,
+    init_attn,
+    init_cross_attn,
+    precompute_cross_kv,
+)
 from repro_torch.models.config import ModelConfig, coded_blocks
 from repro_torch.models.layers import (
     Params,
@@ -47,6 +67,7 @@ from repro_torch.models.layers import (
     mlp_apply,
     rmsnorm,
 )
+from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.models.ssm import init_mamba_block, init_mamba_state, mamba_block_apply
 
 __all__ = [
@@ -58,6 +79,7 @@ __all__ = [
     "lm_prefill",
     "lm_decode_step",
     "cast_matmul_weights",
+    "group_period",
 ]
 
 KV_DTYPE = torch.bfloat16
@@ -72,12 +94,54 @@ def _coded_blocks(cfg: ModelConfig) -> int:
     return coded_blocks(cfg)
 
 
+def group_period(cfg: ModelConfig) -> int:
+    """Layers a stacked group holds (the reference's scan period)."""
+    if cfg.family == "moe":
+        return max(cfg.moe_every, 1)
+    if cfg.family == "vlm":
+        return max(cfg.cross_attn_every, 1)
+    return 1
+
+
+def _n_real(cfg: ModelConfig) -> int | None:
+    """The real head count where ``pad_heads`` pads the heads, else None."""
+    return cfg.n_heads if cfg.pad_heads else None
+
+
 # ==========================================================================
 # init
 # ==========================================================================
+def _init_groups(cfg: ModelConfig, generator, pdt, device) -> Params:
+    """The attention families' groups, stacked on a leading group axis: per
+    layer j of a group its norms, self-attention (``n_heads + pad_heads``
+    heads) and MLP, the group's last layer a MoE (moe) or with a gated
+    cross-attention (vlm)."""
+    d, hd, r = cfg.d_model, cfg.resolved_head_dim, group_period(cfg)
+    if cfg.n_layers % r:
+        raise ValueError(f"n_layers {cfg.n_layers} not divisible by period {r}")
+    lead = (cfg.n_layers // r,)
+    g: Params = {}
+    for j in range(r):
+        g[f"ln1_{j}"] = torch.ones(lead + (d,), dtype=torch.float32, device=device)
+        g[f"attn_{j}"] = init_attn(generator, d, cfg.n_heads + cfg.pad_heads, cfg.n_kv_heads, hd,
+                                   pdt, device, lead=lead)
+        g[f"ln2_{j}"] = torch.ones(lead + (d,), dtype=torch.float32, device=device)
+        if cfg.family == "moe" and j == r - 1:
+            g[f"moe_{j}"] = init_moe(generator, d, cfg.d_ff, cfg.n_experts, cfg.mlp,
+                                     cfg.shared_expert, pdt, device, lead=lead)
+        else:
+            g[f"mlp_{j}"] = init_mlp(generator, d, cfg.d_ff, cfg.mlp, pdt, device, lead=lead)
+        if cfg.family == "vlm" and j == r - 1:
+            g[f"lnx_{j}"] = torch.ones(lead + (d,), dtype=torch.float32, device=device)
+            g[f"xattn_{j}"] = init_cross_attn(generator, d, cfg.n_heads, cfg.n_kv_heads, hd, pdt,
+                                              device, gated=True, lead=lead)
+    return g
+
+
 def init_lm(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
-    """Full parameter dict: dense and ssm blocks stacked on a leading layer
-    axis, hybrid blocks a list beside the shared attention block."""
+    """Full parameter dict: the attention families' groups and ssm blocks
+    stacked on a leading axis, hybrid blocks a list beside the shared
+    attention block."""
     pdt = _dtype(cfg.param_dtype)
     d, hd, n = cfg.d_model, cfg.resolved_head_dim, cfg.n_layers
     params: Params = {
@@ -104,13 +168,7 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
             "mlp": init_mlp(generator, d, cfg.d_ff, cfg.mlp, pdt, device),
         }
     else:
-        params["blocks"] = {
-            "ln1_0": torch.ones((n, d), dtype=torch.float32, device=device),
-            "attn_0": init_attn(generator, d, cfg.n_heads, cfg.n_kv_heads, hd, pdt, device,
-                                lead=(n,)),
-            "ln2_0": torch.ones((n, d), dtype=torch.float32, device=device),
-            "mlp_0": init_mlp(generator, d, cfg.d_ff, cfg.mlp, pdt, device, lead=(n,)),
-        }
+        params["blocks"] = _init_groups(cfg, generator, pdt, device)
     if cfg.coded:
         from repro_torch.core.coded_ops import encode_blocks
 
@@ -124,32 +182,37 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
 
 # the Mamba block's matmul weights; its per-head and norm params stay fp32
 MAMBA_MATMUL_WEIGHTS = ("in_proj", "out_proj", "conv_w")
+# fp32 leaves of a layer's sub-modules: the MoE router (routing is fp32)
+# and the cross-attention's tanh gate
+KEEP_FP32 = ("router", "gate")
 
 
 def cast_matmul_weights(params: Params, cfg: ModelConfig) -> Params:
     """A shallow copy whose block matmul weights are already in the
     activation dtype.  Every layer casts its weight at use; casting once
     here gives the same bits and turns those casts into no-ops.  Norm
-    weights, the Mamba per-head params, embeddings and heads stay as they
-    are."""
+    weights, the Mamba per-head params, the router, the cross-attention
+    gate, embeddings and heads stay as they are."""
     adt = _dtype(cfg.dtype)
 
-    def cast_all(sub: Params) -> Params:
-        return {k: w.to(adt) for k, w in sub.items()}
+    def cast_sub(sub: Params) -> Params:
+        return {k: (cast_sub(w) if isinstance(w, dict) else w if k in KEEP_FP32 else w.to(adt))
+                for k, w in sub.items()}
 
     def cast_mamba(mp: Params) -> Params:
         return {k: (w.to(adt) if k in MAMBA_MATMUL_WEIGHTS else w) for k, w in mp.items()}
 
     def cast_block(blk: Params) -> Params:
         return {name: (cast_mamba(sub) if name == "mamba" else
-                       cast_all(sub) if isinstance(sub, dict) else sub)
+                       cast_sub(sub) if isinstance(sub, dict) else sub)
                 for name, sub in blk.items()}
 
     out = dict(params)
-    if isinstance(params["blocks"], list):
-        out["blocks"] = [cast_block(blk) for blk in params["blocks"]]
-    else:
-        out["blocks"] = cast_block(params["blocks"])
+    for key in ("blocks", "enc_blocks", "dec_blocks"):
+        if isinstance(params.get(key), list):
+            out[key] = [cast_block(blk) for blk in params[key]]
+        elif key in params:
+            out[key] = cast_block(params[key])
     if "shared_attn" in params:
         out["shared_attn"] = cast_block(params["shared_attn"])
     return out
@@ -179,11 +242,41 @@ def _remat(cfg: ModelConfig, fn, *args):
     return fn(*args)
 
 
-def _dense_layer(gp: Params, x, positions, *, cfg: ModelConfig):
-    h = rmsnorm(x, gp["ln1_0"], cfg.norm_eps)
-    x = x + attention_full(gp["attn_0"], h, positions, cfg.rope_theta)
-    h2 = rmsnorm(x, gp["ln2_0"], cfg.norm_eps)
-    return x + mlp_apply(gp["mlp_0"], h2, cfg.mlp)
+def _ffn(gp: Params, j: int, h2: torch.Tensor, cfg: ModelConfig):
+    """Layer j's feed-forward: its MoE (with its aux loss) or its MLP (aux None)."""
+    if f"moe_{j}" in gp:
+        return moe_apply(gp[f"moe_{j}"], h2, top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor, kind=cfg.mlp,
+                         dispatch_groups=cfg.moe_dispatch_groups)
+    return mlp_apply(gp[f"mlp_{j}"], h2, cfg.mlp), None
+
+
+def _group_full(gp: Params, x, positions, img, *, cfg: ModelConfig, kv: Params | None = None,
+                g: int = 0):
+    """One group over the full sequence: (x, its MoE aux loss).  The vlm
+    cross-attention runs where an image is given.  With ``kv`` (the cache's
+    blocks) each layer's roped K and V are written into group ``g`` of it,
+    as the prefill's cache."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    r = group_period(cfg)
+    for j in range(r):
+        h = rmsnorm(x, gp[f"ln1_{j}"], cfg.norm_eps)
+        attn = gp[f"attn_{j}"]
+        if kv is not None:
+            s = h.shape[1]
+            k = torch.einsum("bsd,dhk->bshk", h, attn["w_k"].to(h.dtype))
+            v = torch.einsum("bsd,dhk->bshk", h, attn["w_v"].to(h.dtype))
+            kv[f"attn_{j}"]["k"][g, :, :s] = apply_rope(k, positions, cfg.rope_theta).to(KV_DTYPE)
+            kv[f"attn_{j}"]["v"][g, :, :s] = v.to(KV_DTYPE)
+        x = x + attention_full(attn, h, positions, cfg.rope_theta, n_real=_n_real(cfg))
+        if cfg.family == "vlm" and j == r - 1 and img is not None:
+            hx = rmsnorm(x, gp[f"lnx_{j}"], cfg.norm_eps)
+            x = x + cross_attention(gp[f"xattn_{j}"], hx, img)
+        y, a = _ffn(gp, j, rmsnorm(x, gp[f"ln2_{j}"], cfg.norm_eps), cfg)
+        x = x + y
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def _mamba_layer(gp: Params, x, *, cfg: ModelConfig):
@@ -202,14 +295,17 @@ def lm_forward(
     params: Params,
     cfg: ModelConfig,
     tokens: torch.Tensor,                     # [B, S]
+    img: torch.Tensor | None = None,          # [B, n_img, D] (vlm stub frontend)
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (final hidden [B,S,D] in the activation dtype, MoE aux loss:
-    0 for these families).  Every Mamba block's SSD runs the SSD kernels
-    on a CUDA tensor (their plain versions on the CPU), through ``SSDScan``
-    when the step takes gradients."""
+    """Returns (final hidden [B,S,D] in the activation dtype, the MoE aux
+    loss summed over the MoE layers: 0 for the other families).  Every
+    Mamba block's SSD runs the SSD kernels on a CUDA tensor (their plain
+    versions on the CPU), through ``SSDScan`` when the step takes
+    gradients."""
     adt = _dtype(cfg.dtype)
     x = params["embed"][tokens].to(adt)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    img = img.to(adt) if img is not None else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         for i, gp in enumerate(params["blocks"]):
@@ -220,9 +316,10 @@ def lm_forward(
         for gp in _unstack(params["blocks"], cfg.n_layers):
             x = _remat(cfg, body, gp, x)
     else:
-        body = partial(_dense_layer, cfg=cfg)
-        for gp in _unstack(params["blocks"], cfg.n_layers):
-            x = _remat(cfg, body, gp, x, positions)
+        body = partial(_group_full, cfg=cfg)
+        for gp in _unstack(params["blocks"], cfg.n_layers // group_period(cfg)):
+            x, a = _remat(cfg, body, gp, x, positions, img)
+            aux = aux + a
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
 
@@ -295,7 +392,11 @@ def lm_loss(
 def lm_init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> Params:
     """Decode cache: per-slot positions and, by family,
 
-      * dense:  bf16 K/V stacked on layers, [n_layers, batch, s_max, kv, hd];
+      * dense, moe, vlm: bf16 K/V of each layer j of a group stacked on
+                groups, ``blocks["attn_j"]`` [n_groups, batch, s_max, kv, hd];
+                vlm also the image cross K/V of each group's last layer,
+                ``blocks["xattn_j"]`` ``ck``/``cv`` [n_groups, batch,
+                img_tokens, kv, hd];
       * ssm:    Mamba states stacked on layers (``init_mamba_state``);
       * hybrid: a list of per-layer Mamba states, and bf16 K/V
                 [n_apps, batch, s_max, kv, hd] for the shared block, one
@@ -315,10 +416,18 @@ def lm_init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> Params:
             "v": torch.zeros((n_apps,) + kv, dtype=KV_DTYPE, device=device),
         }
         return cache
-    cache["blocks"] = {"attn_0": {
-        "k": torch.zeros((cfg.n_layers,) + kv, dtype=KV_DTYPE, device=device),
-        "v": torch.zeros((cfg.n_layers,) + kv, dtype=KV_DTYPE, device=device),
-    }}
+    r = group_period(cfg)
+    lead = (cfg.n_layers // r,)
+    cache["blocks"] = {f"attn_{j}": {
+        "k": torch.zeros(lead + kv, dtype=KV_DTYPE, device=device),
+        "v": torch.zeros(lead + kv, dtype=KV_DTYPE, device=device),
+    } for j in range(r)}
+    if cfg.family == "vlm":
+        xkv = lead + (batch, cfg.img_tokens, cfg.n_kv_heads, cfg.resolved_head_dim)
+        cache["blocks"][f"xattn_{r - 1}"] = {
+            "ck": torch.zeros(xkv, dtype=KV_DTYPE, device=device),
+            "cv": torch.zeros(xkv, dtype=KV_DTYPE, device=device),
+        }
     return cache
 
 
@@ -329,6 +438,7 @@ def lm_prefill(
     params: Params,
     cfg: ModelConfig,
     tokens: torch.Tensor,                     # [B, S]
+    img: torch.Tensor | None = None,          # [B, n_img, D] (vlm: required)
     s_max: int | None = None,                 # cache capacity (>= S; default S)
     head_mask: torch.Tensor | None = None,    # coded-head erasure mask [n_blocks]
     head_kernel_mode: str | None = None,
@@ -336,13 +446,16 @@ def lm_prefill(
     ssd_kernel_mode: str | None = None,
 ) -> tuple[torch.Tensor, Params]:
     """Full forward that also emits the decode cache (K/V zero-padded to
-    ``s_max``; Mamba states and conv tails) and the last position's logits
-    [B, vocab] fp32."""
+    ``s_max``; the vlm image cross K/V, one row an image token; Mamba
+    states and conv tails) and the last position's logits [B, vocab] fp32.
+    A vlm prefill needs ``img``: the reference fails without one."""
     adt = _dtype(cfg.dtype)
     b, s = tokens.shape
     s_max = s_max or s
     if s_max < s:
         raise ValueError(f"cache capacity {s_max} < prompt length {s}")
+    if cfg.family == "vlm" and img is None:
+        raise ValueError("a vlm prefill needs the request's image embeddings (img_embed)")
     x = params["embed"][tokens].to(adt)
     positions = torch.arange(s, device=tokens.device)[None, :]
     cache = lm_init_cache(cfg, b, s_max, tokens.device)
@@ -350,25 +463,28 @@ def lm_prefill(
     if cfg.family in ("ssm", "hybrid"):
         x = _prefill_mamba(params, cfg, x, positions, cache, ssd_kernel_mode)
     else:
-        x = _prefill_dense(params, cfg, x, positions, cache)
+        x = _prefill_groups(params, cfg, x, positions, img, cache)
     hidden = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _last_logits(params, hidden, cfg, head_mask, head_kernel_mode, head_mesh), cache
 
 
-def _prefill_dense(params, cfg, x, positions, cache) -> torch.Tensor:
-    adt, s = x.dtype, x.shape[1]
-    kc, vc = cache["blocks"]["attn_0"]["k"], cache["blocks"]["attn_0"]["v"]
-    for i in range(cfg.n_layers):
-        gp = _layer(params["blocks"], i)
-        h = rmsnorm(x, gp["ln1_0"], cfg.norm_eps)
-        attn = gp["attn_0"]
-        k = torch.einsum("bsd,dhk->bshk", h, attn["w_k"].to(adt))
-        v = torch.einsum("bsd,dhk->bshk", h, attn["w_v"].to(adt))
-        kc[i, :, :s] = apply_rope(k, positions, cfg.rope_theta).to(KV_DTYPE)
-        vc[i, :, :s] = v.to(KV_DTYPE)
-        x = x + attention_full(attn, h, positions, cfg.rope_theta)
-        h2 = rmsnorm(x, gp["ln2_0"], cfg.norm_eps)
-        x = x + mlp_apply(gp["mlp_0"], h2, cfg.mlp)
+def _prefill_groups(params, cfg, x, positions, img, cache) -> torch.Tensor:
+    """The attention families' groups, each writing its K/V into the cache;
+    a vlm group also its image cross K/V (``precompute_cross_kv``)."""
+    r, n_groups = group_period(cfg), cfg.n_layers // group_period(cfg)
+    blocks = cache["blocks"]
+    if img is not None:
+        img = img.to(x.dtype)
+        xkv = (n_groups,) + tuple(img.shape[:2]) + blocks[f"xattn_{r - 1}"]["ck"].shape[-2:]
+        blocks[f"xattn_{r - 1}"] = {n: torch.empty(xkv, dtype=KV_DTYPE, device=x.device)
+                                    for n in ("ck", "cv")}
+    for g in range(n_groups):
+        gp = _layer(params["blocks"], g)
+        x, _ = _group_full(gp, x, positions, img, cfg=cfg, kv=blocks, g=g)
+        if cfg.family == "vlm":
+            xa = blocks[f"xattn_{r - 1}"]
+            ck, cv = precompute_cross_kv(gp[f"xattn_{r - 1}"], img)
+            xa["ck"][g], xa["cv"][g] = ck.to(KV_DTYPE), cv.to(KV_DTYPE)
     return x
 
 
@@ -444,8 +560,8 @@ def lm_decode_step(
     head_mesh=None,
 ) -> tuple[torch.Tensor, Params]:
     """One decoding step: (logits [B, vocab] fp32, cache).  K/V tensors are
-    updated in place; the returned dict carries ``pos + 1`` and the new
-    Mamba states."""
+    updated in place (the cross K/V only read); the returned dict carries
+    ``pos + 1`` and the new Mamba states."""
     adt = _dtype(cfg.dtype)
     pos = cache["pos"]
     x = params["embed"][tokens][:, None].to(adt)  # [B,1,D]
@@ -464,14 +580,20 @@ def lm_decode_step(
                 app += 1
         new_cache["blocks"] = _mamba_cache(cfg, states)
     else:
-        kc, vc = cache["blocks"]["attn_0"]["k"], cache["blocks"]["attn_0"]["v"]
-        for i in range(cfg.n_layers):
-            gp = _layer(params["blocks"], i)
-            h = rmsnorm(x, gp["ln1_0"], cfg.norm_eps)
-            x = x + attention_decode(gp["attn_0"], h, kc[i], vc[i], pos, cfg.rope_theta,
-                                     aligned=cfg.aligned_decode)
-            h2 = rmsnorm(x, gp["ln2_0"], cfg.norm_eps)
-            x = x + mlp_apply(gp["mlp_0"], h2, cfg.mlp)
+        r, blocks = group_period(cfg), cache["blocks"]
+        for g in range(cfg.n_layers // r):
+            gp = _layer(params["blocks"], g)
+            for j in range(r):
+                h = rmsnorm(x, gp[f"ln1_{j}"], cfg.norm_eps)
+                kv = blocks[f"attn_{j}"]
+                x = x + attention_decode(gp[f"attn_{j}"], h, kv["k"][g], kv["v"][g], pos,
+                                         cfg.rope_theta, n_real=_n_real(cfg),
+                                         aligned=cfg.aligned_decode)
+                if cfg.family == "vlm" and j == r - 1:
+                    hx = rmsnorm(x, gp[f"lnx_{j}"], cfg.norm_eps)
+                    xa = blocks[f"xattn_{j}"]
+                    x = x + cross_attention_cached(gp[f"xattn_{j}"], hx, xa["ck"][g], xa["cv"][g])
+                x = x + _ffn(gp, j, rmsnorm(x, gp[f"ln2_{j}"], cfg.norm_eps), cfg)[0]
     hidden = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return (_last_logits(params, hidden, cfg, head_mask, head_kernel_mode, head_mesh),
             new_cache)
@@ -489,7 +611,7 @@ def _shared_attn_decode(sp: Params, cfg: ModelConfig, ck, cv, x, pos) -> torch.T
 def _last_logits(
     params: Params,
     hidden: torch.Tensor,
-    cfg: ModelConfig,
+    cfg: ModelConfig | None = None,
     head_mask: torch.Tensor | None = None,
     head_kernel_mode: str | None = None,
     head_mesh=None,
@@ -498,9 +620,10 @@ def _last_logits(
     matvec runs on the coded blocks: any ``coded_parity`` erased shards
     (``head_mask`` zeros) still yield exact logits.  With ``head_mesh`` it
     runs one code block per device (``coded_block_matmul``); the coded head
-    may then be the blocks ``sharding.shard_coded_head`` placed."""
+    may then be the blocks ``sharding.shard_coded_head`` placed.  Without a
+    config (the encoder-decoder) the head is uncoded."""
     last = hidden[:, -1]
-    if cfg.coded and "lm_head_coded" in params:
+    if cfg is not None and cfg.coded and "lm_head_coded" in params:
         from repro_torch.kernels.ops import coded_head_matvec
 
         nb = _coded_blocks(cfg)

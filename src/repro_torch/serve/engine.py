@@ -32,7 +32,11 @@ each prefill and each scalar decode step makes exactly one device-to-host
 copy (``sync_count``).  The cache is the engine's own and keeps its
 tensors for its life: K/V are written in place by the step, a step's new
 ``pos`` and Mamba states are copied back into it, and a prefill's cache is
-spliced into its slot leaf by leaf, for the dense, ssm and hybrid layouts.
+spliced into its slot leaf by leaf, for the layouts of all six families
+(a vlm or encdec slot also takes its request's cross K/V).  A vlm request
+carries its image embeddings (``Request.img_embed``); an encdec request is
+served from zero source frames of its prompt's length, as the reference's
+engine serves it.
 
 Fused macro-steps: with ``macro_steps=K_max > 1``, ``macro_step()`` decodes
 K steps with ONE host copy of the [K, n_slots] tokens when the batch is
@@ -70,6 +74,7 @@ class Request:
     uid: int
     prompt: np.ndarray               # [S] int
     max_new_tokens: int = 16
+    img_embed: np.ndarray | None = None   # [n_img, D] (vlm: required)
     out_tokens: list[int] = field(default_factory=list)
     deadline: float | None = None    # absolute SLO (scheduler-driven mode)
     sched_idx: int | None = None     # TraceScheduler request index
@@ -82,9 +87,10 @@ class Request:
 
 def _batch_axis(name: str) -> int | None:
     """Batch-dim index of a cache leaf, by its name (the reference's
-    ``_batch_axis``): pos [B]; k/v [..., B, s_max, kv, hd]; ssm
-    [..., B, H, P, N]; conv [..., B, W-1, C]."""
-    return {"pos": 0, "k": -4, "v": -4, "ssm": -4, "conv": -3}.get(name)
+    ``_batch_axis``): pos [B]; k/v [..., B, s_max, kv, hd]; the cross K/V
+    ck/cv [..., B, S_src, kv, hd]; ssm [..., B, H, P, N]; conv
+    [..., B, W-1, C]."""
+    return {"pos": 0, "k": -4, "v": -4, "ck": -4, "cv": -4, "ssm": -4, "conv": -3}.get(name)
 
 
 def _splice(full: Any, one: Any, slot: int, name: str) -> None:
@@ -308,9 +314,9 @@ class ServeEngine:
             head_kernel_mode=self.head_kernel_mode, head_mesh=self._mesh)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
-    def _prefill1(self, tokens):
+    def _prefill1(self, batch: dict):
         logits, cache1 = self.model.prefill(
-            self.params, {"tokens": tokens}, s_max=self.s_max,
+            self.params, batch, s_max=self.s_max,
             head_kernel_mode=self.head_kernel_mode, head_mesh=self._mesh,
             ssd_kernel_mode=self.ssd_kernel_mode)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache1
@@ -326,10 +332,18 @@ class ServeEngine:
 
     def _insert_slot(self, slot: int, req: Request) -> None:
         """Prefill one request (B=1) and stage its cache for the batch; the
-        splice itself is deferred to ``_flush_splices``."""
-        tokens = torch.as_tensor(np.asarray(req.prompt)[None], dtype=torch.long,
-                                 device=self.device)
-        tok1, cache1 = self._prefill1(tokens)
+        splice itself is deferred to ``_flush_splices``.  A vlm request
+        brings its image embeddings; an encdec request gets zero source
+        frames of its prompt's length, as the reference's engine gives."""
+        batch = {"tokens": torch.as_tensor(np.asarray(req.prompt)[None], dtype=torch.long,
+                                           device=self.device)}
+        if req.img_embed is not None:
+            batch["img_embed"] = torch.as_tensor(np.asarray(req.img_embed)[None],
+                                                 device=self.device)
+        if self.model.cfg.family == "encdec":
+            batch["frames"] = torch.zeros((1, len(req.prompt), self.model.cfg.d_model),
+                                          dtype=torch.float32, device=self.device)
+        tok1, cache1 = self._prefill1(batch)
         self._pending_splice.append((slot, cache1))
         self._last_tok[slot] = tok1[0]              # device-side
         req.out_tokens.append(int(tok1.cpu()[0]))   # the ONE host transfer
@@ -342,8 +356,10 @@ class ServeEngine:
         """Copy every staged prefill cache into its slot of the batch cache,
         in place, leaf by leaf on that leaf's batch axis (``_batch_axis``).
         A prefill leaf shorter than the slot (a conv tail of a prompt under
-        W-1 tokens) is zero-padded at the end, as the reference's splice
-        pads; K/V come already zero-padded to ``s_max``, so copying the whole
+        W-1 tokens, an encdec request's cross K/V of its prompt's length
+        against the slot's s_max rows) is zero-padded at the end, as the
+        reference's splice pads (a decode step then attends the zero cross
+        rows too, as the reference's does); K/V come already zero-padded to ``s_max``, so copying the whole
         slot also clears what an earlier occupant left in the tail.  A slot
         admitted twice in one pass keeps the LAST cache, as sequential
         splices would."""

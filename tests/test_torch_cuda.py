@@ -945,14 +945,20 @@ def _graph_run(arch, macro_steps, *, mesh=False, max_new=18, n_req=4, topup=0,
     cfg = get_config(arch, smoke=True).scaled(coded=True, coded_parity=2, dtype="float32")
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    if cfg.family == "vlm":  # tanh(0) = 0 at init would hide the cross-attention layers
+        for name, sub in params["blocks"].items():
+            if name.startswith("xattn_"):
+                sub["gate"].fill_(0.5)
     eng = ServeEngine(model, params, n_slots=4, s_max=64, device=dev, macro_steps=macro_steps,
                       latency_fn=(latency or _straggling_latency(3)) if masked else None,
                       parity_controller=ParityController(16, decay=0.5) if masked else None,
                       parity_topup=topup, topup_patience=3,
                       mesh=HeadMesh((dev,) * 16) if mesh else None)
     rng = np.random.default_rng(1)
-    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, 5 + 3 * i), max_new_tokens=max_new)
-            for i in range(n_req)]
+    img = ({"img_embed": rng.standard_normal((cfg.img_tokens, cfg.d_model)).astype(np.float32)}
+           if cfg.family == "vlm" else {})
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, 5 + 3 * i), max_new_tokens=max_new,
+                    **img) for i in range(n_req)]
     for r in reqs:
         eng.submit(r)
     before = (coded_matvec_decode_cuda.launches, coded_matvec_cuda.launches)
@@ -965,6 +971,7 @@ def _graph_run(arch, macro_steps, *, mesh=False, max_new=18, n_req=4, topup=0,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch,mesh", [("glm4-9b", False), ("mamba2-130m", False),
+                                       ("dbrx-132b", False), ("llama-3.2-vision-11b", False),
                                        ("zamba2-1.2b", False), ("glm4-9b", True)])
 def test_cuda_graph_blocks_equal_scalar_steps(arch, mesh):
     """Fused blocks replayed from captured graphs give the scalar route's
@@ -972,7 +979,9 @@ def test_cuda_graph_blocks_equal_scalar_steps(arch, mesh):
     sixteen logical devices.  The launch counters after the replays are the
     scalar run's (prefills + steps, or 16 a call on the mesh) plus one
     eager warm-up step a capture; a replay counts its graph's kernel nodes,
-    one head call a captured step."""
+    one head call a captured step.  Also the moe (dbrx-132b) and vlm
+    (llama-3.2-vision-11b, seeded images) smokes: routing, capacity and
+    the cached cross K/V inside a graph."""
     ref, ref_toks, ref_launches = _graph_run(arch, 1, mesh=mesh)
     eng, toks, launches = _graph_run(arch, 16, mesh=mesh)
     assert toks == ref_toks
@@ -1228,3 +1237,88 @@ def test_cuda_train_step_matches_the_cpu(arch):
         assert abs(out["gpu"][k] - out["cpu"][k]) <= 1e-5 * abs(out["cpu"][k])
     for a, b in zip(tree_leaves(out["gpu"][0]["opt"]["m"]), tree_leaves(out["cpu"][0]["opt"]["m"])):
         assert float((a.cpu() - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,sk", [(True, 4096), (False, 4096), (False, 1024)])
+def test_cuda_sdpa_chunked_matches_the_dense_sdpa(dtype, causal, sk):
+    """The chunked online-softmax SDPA against the dense ``_sdpa`` on the
+    same q, k, v (fp32 in both: the dense one on the upcast inputs): the
+    reference's 2e-5 for fp32 inputs, one bf16 step of max|dense| for bf16
+    (the chunked output's rounding)."""
+    from repro_torch.models.attention import _causal_mask5, _sdpa, _sdpa_chunked
+
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(sk + causal)
+    q = torch.randn(1, 4096, 4, 64, device=dev, generator=gen).to(dtype)
+    k = torch.randn(1, sk, 2, 64, device=dev, generator=gen).to(dtype)
+    v = torch.randn(1, sk, 2, 64, device=dev, generator=gen).to(dtype)
+    got = _sdpa_chunked(q, k, v, causal=causal)
+    want = _sdpa(q.float(), k.float(), v.float(), _causal_mask5(4096, sk, dev) if causal else None)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    scale = float(want.abs().max())
+    tol = 2e-5 if dtype == torch.float32 else 2.0 ** -7 * scale
+    assert float((got.float() - want).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("top_k,groups,shared", [(4, 1, False), (1, 2, True), (2, 1, True)])
+def test_cuda_moe_apply_matches_its_loop(dtype, top_k, groups, shared):
+    """``moe_apply`` (scatter, batched expert GEMMs, gather) against the
+    token-by-token ``moe_apply_loop`` with the same keep mask, drops
+    included: 1e-5 of max|loop| in fp32, two bf16 steps in bf16; two calls
+    bit-equal (kept slots are unique, so the scatter's bits are fixed)."""
+    from repro_torch.models.moe import init_moe, moe_apply, moe_apply_loop, route
+
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(top_k)
+    p = init_moe(gen, 256, 512, 16, "swiglu", shared, torch.float32, dev)
+    p = {k: (v if k == "router" else
+             {n: w.to(dtype) for n, w in v.items()} if isinstance(v, dict) else v.to(dtype))
+         for k, v in p.items()}
+    x = torch.randn(2, 24, 256, device=dev, generator=gen).to(dtype)
+    kw = dict(top_k=top_k, capacity_factor=0.75, kind="swiglu", dispatch_groups=groups)
+    y, aux = moe_apply(p, x, **kw)
+    again, _ = moe_apply(p, x, **kw)
+    loop = moe_apply_loop(p, x, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    assert not bool(route(p, x.reshape(-1, 256), top_k=top_k, capacity_factor=0.75,
+                          dispatch_groups=groups).keep.all())
+    scale = float(loop.float().abs().max())
+    tol = 1e-5 * scale if dtype == torch.float32 else 2 * 2.0 ** -7 * scale
+    assert float((y.float() - loop.float()).abs().max()) <= tol and bool(torch.isfinite(aux))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 4])
+def test_cuda_coded_matvec_decode_at_the_dbrx_head(b):
+    """dbrx-132b's coded head, W_c [114688, 6144] (14 + 2 blocks): at B = 4
+    x is 96 KB, over ``thin_rows.cuh``'s 64 KB resident cap, so the decode
+    runs x in panels; at B = 1 x is resident.  Against the plain version
+    under 0 and 2 erasures, launched twice and bit-equal to itself."""
+    from repro_torch.kernels import thin_rows
+
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(b)
+    n_data, n_parity, br, m = 14, 2, 7168, 6144
+    w = torch.randn(16 * br, m, device=dev, generator=gen)
+    x = torch.randn(m, b, device=dev, generator=gen)
+    assert (b * m * 4 > thin_rows.X_CAP_BYTES) == (b == 4)
+    cache = get_decoder_cache(n_data, n_parity)
+    for erased in ((), (3, 15)):
+        mask = torch.ones(16, device=dev)
+        mask[list(erased)] = 0.0
+        rec = cache.recovery(mask)
+        got = ops.coded_matvec_decode(w, x, rec, mode="cuda")
+        again = ops.coded_matvec_decode(w, x, rec, mode="cuda")
+        want = ops.coded_matvec_decode(w, x, rec, mode="off")
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-4 * max(1.0, scale)
+    del w
+    torch.cuda.empty_cache()

@@ -45,7 +45,8 @@ def _close(got, want, dtype):
 def test_configs_copied_letter_for_letter():
     from repro_torch.configs import ARCHS as PORTED
 
-    assert set(PORTED) == set(ARCHS) | {"mamba2-130m", "zamba2-1.2b"}
+    assert set(ARCHS) | {"mamba2-130m", "zamba2-1.2b", "dbrx-132b"} <= set(PORTED)
+    assert len(PORTED) == 10
     for arch in PORTED:
         for smoke in (False, True):
             assert get_config(arch, smoke).__dict__ == jax_config(arch, smoke).__dict__
@@ -171,5 +172,5 @@ def test_entry_points_need_a_named_device_without_cuda():
         model.init()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         model.init_cache(2, 8)
-    with pytest.raises(NotImplementedError):
-        build_model(jax_config("dbrx-132b", smoke=True))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(jax_config("dbrx-132b", smoke=True)).init()
