@@ -11,6 +11,10 @@
                                        # 4096- and 1000-token Mamba-2 cells, in turns
                                        # with the SIMT kernels (variants built under
                                        # build/ssd_sweep)
+    python3 chip_smoke.py --c2-order   # only: build, the vlm, moe and encdec serves, then
+                                       # the glm4-9b train phase, with the allocator's
+                                       # state (an out-of-memory error's statistics and
+                                       # snapshot under chiprun_out/); no device line
     python3 chip_smoke.py --sweep-head # only: build, the head kernels' checks, the
                                        # B = 1 heads in 30 pairs of turns with
                                        # torch.matmul, and thin_rows.cuh's settings at
@@ -93,36 +97,7 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    and block 0's SSD of the served bf16 prefill against its plain route;
    then the macro pair of phase 9 on the same engine factory, four requests
    of 100 prompt tokens and 64 new tokens;
-11. train glm4-9b: full width, depth cut to 2 layers (printed as a cut),
-   bf16 activations, fp32 params and moments, batch 8 of 512 tokens in 4
-   microbatches: from one seeded state the FRC (s = 1) step under an
-   all-ones and a one-straggler mask gives the plain step's loss (1e-5
-   relative) and gradient (1e-4 of each leaf's max, read from the first
-   moment), and under an undecodable mask leaves params and optimizer state
-   bit-equal; the loss along AdamW's first update in fp32 activations (the
-   whole update, the head's part and the rest, at steps 1e-5 to 3e-3), with
-   the gradient held to a central difference of the loss along it (1e-2
-   relative); then 10 plain and 10 FRC steps, timed (step ms, tokens/s,
-   peak GB), one profiled (device busy share); the loss must go down;
-12. train zamba2-1.2b: whole (38 layers), batch 8 of 1024 tokens (4 SSD
-   chunks a block) in 4 microbatches: the cyclic (s = 1) step against the
-   plain step as in phase 11 (two stragglers undecodable); through
-   ``repro_torch.launch.train`` a 3-step run with adaptive s, then the timed
-   run at a fixed s = 1 with int8 messages and error feedback under Markov
-   stragglers at 0.2 and 3x; ``ssd_chunk`` and ``ssd_combine`` launch once per Mamba
-   block per forward and per checkpoint recompute; at block 0's real SSD
-   inputs the kernels against their plain versions (timed), ``SSDScan``'s
-   forward bit-equal to the kernels' and its gradients within 1e-5 of
-   autograd through ``ssd_chunked``, its recompute's share of a step; every
-   kernel wrapper refuses an input that requires grad; one step of the timed
-   configuration profiled;
-13. train drill: mamba2-130m through the launcher on 8 logical devices
-   (2 DP slices), FRC s = 0, 10 steps, a checkpoint every 3 steps, the last
-   slice killed at step 7: 2 skipped steps, the grid shrinks 2 -> 1, the run
-   resumes from step 6, and (under deterministic algorithms) its losses
-   after the restore equal a fresh run's from that checkpoint bit for bit;
-   then the SSD kernels and ``SSDScan`` at its block 0 as in phase 12;
-14. vlm serve: llama-3.2-vision-11b whole (40 layers, 8 with tanh-gated image
+11. vlm serve: llama-3.2-vision-11b whole (40 layers, 8 with tanh-gated image
    cross-attention, every gate set to 0.5: at init tanh(0) = 0 hides them),
    coded head (14, 2) = W_c [146592, 4096], seeded init on the card, 4
    slots, six requests of 8192, 1000, 100, 16, 16 and 16 prompt tokens with
@@ -134,20 +109,65 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    erasures within 1e-3 of the uncoded head; prefill ms per prompt length,
    step ms, tokens/s, peak GB; then the macro pair of phase 9 (four
    requests of 16 + 64 tokens, scalar against fused, equal tokens);
-15. moe serve: dbrx-132b at full width (d 6144, 48/8 heads, 16 experts
+12. moe serve: dbrx-132b at full width (d 6144, 48/8 heads, 16 experts
    top-4, d_ff 10752), depth cut to 3 of 40 layers (printed as a cut),
    coded head (14, 2) = W_c [114688, 6144] (x in panels at B = 4), raised
    to (13, 3) = [123520, 6144]; the same mix without the 8192-token prompt;
    the share of (token, k) assignments dropped by capacity at prefill and
    at decode (B = 4: T = 4, cap = 2); block 0's ``moe_apply`` against its
    per-token loop (``moe_apply_loop``, the same keep mask) at the 100-token
-   prefill and a B = 4 decode; times and the macro pair as in phase 14;
-16. encdec serve: seamless-m4t-large-v2 whole (24 + 24 layers) through the
+   prefill and a B = 4 decode; times and the macro pair as in phase 11;
+13. encdec serve: seamless-m4t-large-v2 whole (24 + 24 layers) through the
    engine as the reference serves it, zero frames and the uncoded head: no
    TPU kernel on this path, and none may launch; then a prefill and a
    decode step from seeded frames, the decode within 0.05 of max|logit| of
    ``encdec_forward`` at the next position;
-17. a ``kernels`` line with every kernel on every path it runs (launch
+14. train glm4-9b: full width, depth cut to 2 layers (printed as a cut),
+   bf16 activations, fp32 params and moments, batch 8 of 512 tokens in 4
+   microbatches: from one seeded state the FRC (s = 1) step under an
+   all-ones and a one-straggler mask gives the plain step's loss (1e-5
+   relative) and gradient (1e-4 of each leaf's max, read by the step's
+   ``gradients``), and under an undecodable mask leaves params and optimizer state
+   bit-equal; the loss along AdamW's first update in fp32 activations (the
+   whole update, the head's part and the rest, at steps 1e-5 to 3e-3), with
+   the gradient held to a central difference of the loss along it (1e-2
+   relative); then 10 plain and 10 FRC steps, timed (step ms, tokens/s,
+   peak GB), one profiled (device busy share); the loss must go down;
+15. train zamba2-1.2b: whole (38 layers), batch 8 of 1024 tokens (4 SSD
+   chunks a block) in 4 microbatches: the cyclic (s = 1) step against the
+   plain step as in phase 14 (two stragglers undecodable); through
+   ``repro_torch.launch.train`` a 3-step run with adaptive s, then the timed
+   run at a fixed s = 1 with int8 messages and error feedback under Markov
+   stragglers at 0.2 and 3x; ``ssd_chunk`` and ``ssd_combine`` launch once per Mamba
+   block per forward and per checkpoint recompute; at block 0's real SSD
+   inputs the kernels against their plain versions (timed), ``SSDScan``'s
+   forward bit-equal to the kernels' and its gradients within 1e-5 of
+   autograd through ``ssd_chunked``, its recompute's share of a step; every
+   kernel wrapper refuses an input that requires grad; one step of the timed
+   configuration profiled;
+16. train drill: mamba2-130m through the launcher on 8 logical devices
+   (2 DP slices), FRC s = 0, 10 steps, a checkpoint every 3 steps, the last
+   slice killed at step 7: 2 skipped steps, the grid shrinks 2 -> 1, the run
+   resumes from step 6, and (under deterministic algorithms) its losses
+   after the restore equal a fresh run's from that checkpoint bit for bit;
+   then the SSD kernels and ``SSDScan`` at its block 0 as in phase 15;
+17.-19. train llama-3.2-vision-11b (depth cut to one group of 5 of 40
+   layers: four self-attention layers and the gated cross-attention layer,
+   gates 0.5, seeded images [8, 1024, 4096]), dbrx-132b (1 of 40 layers,
+   16 experts top-4, one microbatch, plain steps only) and
+   seamless-m4t-large-v2 whole (24 + 24 layers, seeded frames [8, 512,
+   1024]): full width, bf16 activations, fp32 params, int8 moments, batch
+   8 of 512 tokens (4 microbatches for the vlm and the encdec), the cut
+   printed; the plain step's gradient at the seeded state, with the
+   family's own leaves (the cross-attention's gate and weights, the
+   router, the encdec's cross-attention and first encoder weights)
+   non-zero and finite, the loss, the aux loss and the share of MoE
+   assignments dropped at capacity; for the vlm and the encdec the FRC
+   (s = 1) step against the plain one as in phase 14; then 4 plain and 4
+   FRC steps on two batches in turn, timed (step ms, tokens/s, peak GB
+   beside the memory reckoned beforehand), one profiled (device busy
+   share); the loss must go down, and none of the six kernels may launch;
+20. a ``kernels`` line with every kernel on every path it runs (launch
    counts read around that path's run; ``lt_encode``'s ``ms`` is the
    call with its compaction, its ``kernel_ms`` the kernel alone, which its
    ``library_ms`` is held to), then the device line.  The seconds of each
@@ -280,6 +300,7 @@ def phase_device(torch):
     ssd_ptxas = _ptxas_summary(_build.ptxas_report("ssd_scan"))
     emit({"phase": "device", "torch_device": torch.cuda.get_device_name(0),
           "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+          "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF"),
           "build_s": build_s, "nvcc_parallel_s": nvcc_s, "ptxas": ptxas,
           "ssd_scan_hmma": hmma, "ssd_scan_ptxas": ssd_ptxas})
     check(hmma > 0, "ssd_scan's library holds no HMMA: the bf16 route is off the tensor cores")
@@ -2093,18 +2114,38 @@ def _state_gb(tree) -> float:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree)) / 1e9
 
 
-def _train_memory(params, m: int, compress: bool) -> dict:
-    """What a coded step keeps on the card, reckoned from the code
-    (``train/loop.py``): params, one microbatch's gradients, the decoded
-    gradients, both moments (fp32), m fp32 messages a leaf, and with
-    compression the old residual beside the new one (written into the
-    message buffers)."""
-    p = _state_gb(params)
-    out = {"params_gb": p, "grads_gb": p, "decoded_grads_gb": p, "moments_gb": 2 * p,
-           "messages_gb": m * p}
-    if compress:
-        out["err_gb"] = m * p
-    out["total_gb"] = sum(out.values())
+def _moment_gb(params, moment_dtype: str) -> float:
+    """One moment tree's bytes: 4 (fp32) or 2 (bf16) a parameter, or int8
+    codes and one fp32 scale a trailing row (``optim/quant.py``)."""
+    from repro_torch.utils.tree import tree_leaves
+
+    n = 0
+    for t in tree_leaves(params):
+        if moment_dtype == "int8":
+            n += t.numel() + 4 * (t.numel() // t.shape[-1] if t.dim() else 1)
+        else:
+            n += t.numel() * (4 if moment_dtype == "float32" else 2)
+    return n / 1e9
+
+
+def _train_memory(params, m: int, compress: bool, coded: bool = True,
+                  moment_dtype: str = "float32") -> dict:
+    """What a step keeps on the card at its two peaks, reckoned from the
+    code (``train/loop.py``, ``optim/adamw.py``); activations not counted.
+    The last microbatch's backward: params, both moments, that microbatch's
+    fp32 gradients, and the m fp32 messages (coded) or the fp32 accumulator
+    (plain, m > 1), with compression the residual.  The update: the given
+    params and moments beside the new ones (the gradients are released as
+    the new leaves are made), with compression the old residual beside the
+    new one (written into the message buffers)."""
+    p = _state_gb(params)   # fp32 params; a gradient tree takes as much
+    mom = 2 * _moment_gb(params, moment_dtype)
+    agg = m * p if coded else (p if m > 1 else 0.0)
+    err = m * p if compress else 0.0
+    out = {"params_gb": p, "moments_gb": mom, "moment_dtype": moment_dtype, "grads_gb": p,
+           ("messages_gb" if coded else "accumulator_gb"): agg, "err_gb": err,
+           "backward_gb": 2 * p + mom + agg + err, "update_gb": 2 * (p + mom + err)}
+    out["total_gb"] = max(out["backward_gb"], out["update_gb"])
     return out
 
 
@@ -2152,14 +2193,12 @@ def _timed_train(torch, step, box: dict, pipe, first: int, n: int, mask_fn) -> t
     return ms, losses
 
 
-def _m_close(torch, got_tree, want_leaves: list, what: str) -> float:
-    """Worst |got - want| of the first moments (``want_leaves`` in leaf
-    order, on the host; each goes to the card in turn), over each leaf's
-    max|want|; fails above TRAIN_GRAD_TOL."""
-    from repro_torch.utils.tree import tree_leaves
-
+def _grads_close(torch, got: list, want: list, what: str) -> float:
+    """Worst |got - want| of two gradients (leaf lists; ``want`` on the
+    host, each leaf to the card in turn) over each leaf's max|want|; fails
+    above TRAIN_GRAD_TOL."""
     worst = 0.0
-    for a, b in zip(tree_leaves(got_tree), want_leaves):
+    for a, b in zip(got, want):
         b = b.to(a.device)
         worst = max(worst, float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30))
     check(worst <= TRAIN_GRAD_TOL, f"{what}: gradient off by {worst} of a leaf's max "
@@ -2169,33 +2208,33 @@ def _m_close(torch, got_tree, want_leaves: list, what: str) -> float:
 
 def _coded_step_checks(torch, what: str, plain, coded, state0, batch0, decodable,
                        undecodable) -> dict:
-    """From one state and batch: the plain step, then the coded step under
-    each decodable mask (ok = 1, the loss within TRAIN_LOSS_RTOL of the
-    plain step's, the gradient -- the first moment after one step, (1 - b1)
-    · clip · g -- within TRAIN_GRAD_TOL of each leaf's max) and under an
-    undecodable one (ok = 0, params and optimizer state bit-equal to the
-    state it was given).  The plain first moment waits on the host while
-    the coded steps run."""
+    """From one state and batch: the plain step's loss and gradient (read
+    by ``step.gradients``, the step without its update, so the check does
+    not depend on the moments' dtype), then the coded step's under each
+    decodable mask (ok = 1, the loss within TRAIN_LOSS_RTOL of the plain
+    step's, each gradient leaf within TRAIN_GRAD_TOL of its max), and the
+    whole coded step under an undecodable mask (ok = 0, params and
+    optimizer state bit-equal to the state it was given).  The plain
+    gradient waits on the host while the coded steps run."""
     from repro_torch.utils.tree import tree_leaves
 
     dev = tree_leaves(state0["params"])[0].device
-    sp, mp = plain(state0, batch0)
-    m_plain, loss_plain = [t.cpu() for t in tree_leaves(sp["opt"]["m"])], float(mp["loss"])
-    del sp
+    loss, _, grads, _, _ = plain.gradients(state0, batch0)
+    g_plain, loss_plain = [g.cpu() for g in grads], float(loss)
+    del grads
     torch.cuda.empty_cache()
     checks = {}
     for mask in decodable:
         label = "all ones" if min(mask) == 1.0 else f"mask {mask}"
-        sc, mc = coded(state0, batch0, torch.tensor(mask, device=dev))
-        rel = abs(float(mc["loss"]) - loss_plain) / abs(loss_plain)
-        check(float(mc["ok"]) == 1.0, f"{what}: under {label} ok = 0")
+        loss, _, grads, _, ok = coded.gradients(state0, batch0, torch.tensor(mask, device=dev))
+        rel = abs(float(loss) - loss_plain) / abs(loss_plain)
+        check(float(ok) == 1.0, f"{what}: under {label} ok = 0")
         check(rel <= TRAIN_LOSS_RTOL, f"{what}: {label} loss off the plain by {rel}")
         checks[label] = {"loss_rel_err": rel,
-                         "grad_rel_err": _m_close(torch, sc["opt"]["m"], m_plain,
-                                                  f"{what} {label}")}
-        del sc, mc
+                         "grad_rel_err": _grads_close(torch, grads, g_plain, f"{what} {label}")}
+        del grads
         torch.cuda.empty_cache()
-    del m_plain
+    del g_plain
     sk, mk = coded(state0, batch0, torch.tensor(undecodable, device=dev))
     kept = all(torch.equal(a, b) for a, b in
                zip(tree_leaves(sk["params"]) + tree_leaves(sk["opt"]),
@@ -2280,9 +2319,9 @@ def phase_train_glm(torch, args, results: dict, smi: str) -> None:
     """glm4-9b at full width, depth cut to TRAIN_GLM_LAYERS: bf16
     activations, fp32 params and moments, batch 8 of 512 tokens in 4
     microbatches.  From one seeded state: the plain step, the FRC (s = 1)
-    step under an all-ones and a one-straggler mask (loss and gradient —
-    the first moment after one step, (1 - b1) · clip · g — against the
-    plain step's), and under an undecodable mask (a whole group dead:
+    step under an all-ones and a one-straggler mask (loss and gradient,
+    read by ``step.gradients``, against the plain step's), and under an
+    undecodable mask (a whole group dead:
     params and optimizer state bit-equal).  Then 10 plain steps and 10 FRC
     steps under a rotating straggler, timed; one FRC step profiled; the
     loss must go down."""
@@ -2664,6 +2703,206 @@ def phase_train_drill(torch, args, results: dict, smi: str) -> None:
     check(launches["ssd_chunk"] == want and launches["ssd_combine"] == want,
           f"train drill: SSD launches {launches}, want {want} of each")
     del rec, rec2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# the moe, vlm and encdec train phases: arch -> (depth, or None for the whole
+# model; batch; seq; microbatches; the coded step's scheme, or None)
+FAMILY_TRAIN = {
+    "llama-3.2-vision-11b": (5, 8, 512, 4, "frc"),
+    "dbrx-132b": (1, 8, 512, 1, None),
+    "seamless-m4t-large-v2": (None, 8, 512, 4, "frc"),
+}
+FAMILY_TRAIN_WHY = {
+    "llama-3.2-vision-11b": "one group of 5 of the 40 layers (four self-attention layers and "
+                            "the gated cross-attention layer): fp32 params and gradients, int8 "
+                            "moments and 4 fp32 coded messages of all 40 (10.1 G params) need "
+                            "about 260 GB; the widths are full",
+    "dbrx-132b": "one of the 40 layers: its 16 experts are 3.17 G params, 12.7 GB in fp32; "
+                 "params, gradients and int8 moments of all 40 (132 G params) need about "
+                 "1.3 TB; one microbatch (no accumulator) and no coded step (4 fp32 messages "
+                 "would be 72 GB); the widths are full",
+    "seamless-m4t-large-v2": "nothing cut: 24 encoder and 24 decoder layers at full width",
+}
+FAMILY_TRAIN_STEPS = 4        # timed steps of each run (plain, then coded); the first not in the median
+# the timed steps cycle over this many batches: on fresh batches of the
+# pipeline's Markov chain over a 100k-256k vocabulary the loss shows no fall
+# at TRAIN_LR within 10 steps (PERF.md, Findings); a batch seen again does
+FAMILY_TRAIN_BATCHES = 2
+FAMILY_TRAIN_MOMENTS = "int8"  # fp32 moments and 4 fp32 messages do not fit beside the vlm's 2.2 G params
+
+
+def _watched(cfg, path: str) -> bool:
+    """The gradient leaves a family's phase holds to be non-zero: the vlm's
+    gated cross-attention (gate and weights), the MoE router, the encdec's
+    cross-attention and the encoder's first weights (reached only through
+    the cross-attention)."""
+    if cfg.family == "vlm":
+        return path.startswith("blocks/xattn_")
+    if cfg.family == "moe":
+        return path.endswith("/router")
+    return path.startswith("dec_blocks/xattn/") or path == "enc_blocks/attn/w_q"
+
+
+def phase_train_family(torch, args, results: dict, smi: str, arch: str) -> None:
+    """A train phase of the moe, vlm or encdec family (``FAMILY_TRAIN``):
+    full width, int8 moments, the depth cut printed on a cut line.  From
+    one seeded state (vlm: every cross-attention gate at ``GATE``, so the
+    cross path carries gradient): the plain step's gradient, whose watched
+    leaves (``_watched``) must be non-zero and finite, with the loss, the
+    aux loss and, for the moe, the share of (token, k) assignments dropped
+    at capacity; where a coded step runs, ``_coded_step_checks`` against
+    the plain step.  Then ``FAMILY_TRAIN_STEPS`` plain and as many coded
+    steps (a rotating straggler), timed (step ms, tokens/s, peak GB) on
+    ``FAMILY_TRAIN_BATCHES`` batches made beforehand, taken in turn, and
+    one step profiled (device busy share).  The loss must go down over the
+    timed steps, and none of the six kernels may launch."""
+    import types
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import transformer
+    from repro_torch.models.moe import route
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import AdamWConfig, warmup_cosine
+    from repro_torch.train.loop import TrainConfig, init_train_state, make_train_step
+    from repro_torch.utils.tree import tree_flatten_with_path, tree_leaves
+
+    dev = torch.device("cuda")
+    layers, batch_n, seq, micro, scheme = FAMILY_TRAIN[arch]
+    full = get_config(arch)
+    cfg = full if layers is None else full.scaled(n_layers=layers)
+    path = f"train {arch}"
+    cut = {"phase": "cut", "path": path, "n_layers": cfg.n_layers, "of": full.n_layers,
+           "why": FAMILY_TRAIN_WHY[arch]}
+    if cfg.family == "encdec":
+        cut.update(enc_layers=cfg.enc_layers, enc_of=full.enc_layers)
+    emit(cut)
+    model = build_model(cfg)
+    runs_spec = [("plain", TrainConfig(microbatches=micro))]
+    if scheme is not None:
+        runs_spec.append((scheme, TrainConfig(microbatches=micro, gradient_coding=scheme,
+                                              gc_stragglers=1)))
+    n_steps = len(runs_spec) * FAMILY_TRAIN_STEPS
+    opt = AdamWConfig(lr=warmup_cosine(TRAIN_LR, 1, n_steps), moment_dtype=FAMILY_TRAIN_MOMENTS)
+    steps = {name: make_train_step(model, opt, tc) for name, tc in runs_spec}
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    state0 = init_train_state(model, torch.Generator(device=dev).manual_seed(args.seed), opt,
+                              device=dev)
+    if cfg.family == "vlm":
+        for name, sub in state0["params"]["blocks"].items():
+            if name.startswith("xattn_"):
+                sub["gate"].fill_(GATE)
+    n_params = sum(p.numel() for p in tree_leaves(state0["params"]))
+    memory = _train_memory(state0["params"], micro, compress=False, coded=scheme is not None,
+                           moment_dtype=FAMILY_TRAIN_MOMENTS)
+    emit({"phase": "init", "path": path, "family": cfg.family, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab, "params": n_params,
+          "batch": batch_n, "seq": seq, "microbatches": micro, "memory_reckoned": memory})
+    pipe = make_pipeline(cfg, seq=seq, global_batch=batch_n, seed=args.seed)
+    t0 = time.perf_counter()
+    batches = [pipe.batch(i) for i in range(FAMILY_TRAIN_BATCHES)]   # before any step is timed
+    batches_s = time.perf_counter() - t0
+    data = types.SimpleNamespace(batch=lambda i: batches[i % FAMILY_TRAIN_BATCHES])
+
+    # the plain step's gradient at the seeded state, each MoE call's routing recorded
+    drops, real_moe = [], transformer.moe_apply
+
+    def moe(p, x, **kw):
+        with torch.no_grad():
+            r = route(p, x.reshape(-1, x.shape[-1]), top_k=kw["top_k"],
+                      capacity_factor=kw["capacity_factor"],
+                      dispatch_groups=kw["dispatch_groups"])
+            drops.append((int((~r.keep).sum()), r.keep.numel(), r.cap))
+        return real_moe(p, x, **kw)
+
+    transformer.moe_apply = moe
+    try:
+        loss, met, grads, _, _ = steps["plain"].gradients(state0, batches[0])
+    finally:
+        transformer.moe_apply = real_moe
+    paths = [p for p, _ in tree_flatten_with_path(state0["params"])]
+    if cfg.family == "moe":
+        # is the MoE backward (the gather of each slot's row, the scatter's
+        # index_add_) deterministic on the card? each leaf's bits summed as
+        # int32, against a second pass from the same state; reported, not
+        # held: no phase claims bit-equal MoE gradients
+        def bits(gs):
+            return [int(torch.sum(g.view(torch.int32), dtype=torch.int64)) for g in gs]
+
+        sig = bits(grads)
+        again = steps["plain"].gradients(state0, batches[0])[2]
+        rerun_equal = sig == bits(again)
+        del again
+    watched = {p: {"max_abs_grad": float(g.abs().max()), "finite": bool(torch.isfinite(g).all())}
+               for p, g in zip(paths, grads) if _watched(cfg, p)}
+    first = {"loss": float(loss), "ce": float(met["ce"]), "aux": float(met["aux"]),
+             "finite_grads": all(bool(torch.isfinite(g).all()) for g in grads),
+             "watched_grads": watched}
+    if drops:
+        first["gradient_bits_equal_on_a_rerun"] = rerun_equal
+        first["moe_calls"] = len(drops)   # forward and remat recompute, each MoE layer
+        first["dropped_share"] = sum(d for d, _, _ in drops) / sum(n for _, n, _ in drops)
+        first["assignments_and_cap"] = sorted({(n, c) for _, n, c in drops})
+    del grads
+    torch.cuda.empty_cache()
+    check(first["finite_grads"] and np.isfinite(first["loss"]),
+          f"{path}: the first gradient or loss is not finite ({first['loss']})")
+    check(watched and all(w["finite"] and w["max_abs_grad"] > 0 for w in watched.values()),
+          f"{path}: a watched gradient is zero or not finite: {watched}")
+    checks = None
+    if scheme is not None:
+        checks = _coded_step_checks(torch, f"{path} {scheme}", steps["plain"], steps[scheme],
+                                    state0, batches[0],
+                                    ([1.0] * micro, [1.0, 0.0] + [1.0] * (micro - 2)),
+                                    [0.0, 0.0] + [1.0] * (micro - 2))
+    check_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+
+    runs = {}
+    box = {"state": state0}
+    del state0
+    for i, (name, _) in enumerate(runs_spec):
+        def mask_fn(j, coded=name != "plain"):
+            if not coded:
+                return None
+            return torch.tensor([0.0 if w == j % micro else 1.0 for w in range(micro)],
+                                device=dev)
+
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses = _timed_train(torch, steps[name], box, data, 1 + i * FAMILY_TRAIN_STEPS,
+                                  FAMILY_TRAIN_STEPS, mask_fn)
+        med = float(np.median(ms[1:]))
+        runs[name] = {"step_ms": ms, "median_step_ms": med,
+                      "tokens_per_s": batch_n * seq / med * 1e3, "losses": losses,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"{path} {name}: {med:.1f} ms a step, {runs[name]['tokens_per_s']:.0f} tokens/s, "
+              f"peak {runs[name]['peak_gb']:.1f} GB", flush=True)
+    last = runs_spec[-1][0]
+    mask = mask_fn(n_steps + 1)
+    prof = _profile_one(torch, lambda: steps[last](box["state"], data.batch(n_steps + 1),
+                                                   *(() if mask is None else (mask,))))
+    prof["device_ms_over_step_ms"] = prof["device_ms"] / runs[last]["median_step_ms"]
+    prof["step"] = last
+    launches = _launches()
+    losses = [x for r in runs.values() for x in r["losses"]]
+    row = {"phase": "train", "path": path, "arch": cfg.name, "family": cfg.family,
+           "n_layers": cfg.n_layers, "batch": batch_n, "seq": seq, "microbatches": micro,
+           "activations": cfg.dtype, "moments": FAMILY_TRAIN_MOMENTS, "params": n_params,
+           "memory_reckoned": memory, "checks_peak_gb": check_peak, "first_step": first,
+           "checks": checks, "runs": runs, "profile": prof, "launches": launches,
+           "batches": FAMILY_TRAIN_BATCHES, "batches_made_s": batches_s, "card": smi}
+    if cfg.family == "vlm":
+        row["gate"] = GATE
+    emit(row)
+    results[path] = row
+    check(not any(launches.values()), f"{path}: a kernel launched on a train path that runs "
+                                      f"none: {launches}")
+    check(np.mean(losses[-2:]) < np.mean(losses[:2]),
+          f"{path}: the loss did not go down over the timed steps: {losses}")
+    del box, batches, data
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3197,6 +3436,69 @@ def sweep_ssd(torch, args, smi: str) -> None:
           "ablations": len(SSD_ABLATIONS), "card": smi})
 
 
+MEMORY_SNAPSHOT = "chip_smoke_memory_snapshot.json"
+
+
+def _allocator(torch, snapshot: bool = False) -> dict:
+    """The caching allocator's state: its statistics (bytes allocated,
+    reserved, and reserved but free inside split blocks; segments; retries
+    and out-of-memory errors) and the device's free bytes; with
+    ``snapshot`` a summary of ``torch.cuda.memory_snapshot()`` (segments by
+    size, free blocks, the largest), written whole under chiprun_out/."""
+    st = torch.cuda.memory_stats()
+    keys = ("allocated_bytes.all.current", "allocated_bytes.all.peak",
+            "reserved_bytes.all.current", "reserved_bytes.all.peak",
+            "inactive_split_bytes.all.current", "inactive_split.all.current",
+            "segment.all.current", "num_alloc_retries", "num_ooms", "num_device_alloc",
+            "num_device_free")
+    out = {k: st.get(k) for k in keys}
+    gib = 2 ** 30
+    out["reserved_unallocated_gib"] = (st.get("reserved_bytes.all.current", 0)
+                                       - st.get("allocated_bytes.all.current", 0)) / gib
+    out["free_and_total_gib"] = [x / gib for x in torch.cuda.mem_get_info()]
+    out["alloc_conf"] = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    if snapshot:
+        segs = torch.cuda.memory_snapshot()
+        free = sorted((b["size"] for sg in segs for b in sg["blocks"] if b["state"] == "inactive"),
+                      reverse=True)
+        sizes = sorted((sg["total_size"] for sg in segs), reverse=True)
+        out["snapshot"] = {
+            "segments": len(segs), "segment_total_gib": sum(sizes) / gib,
+            "largest_segments_gib": [x / gib for x in sizes[:12]],
+            "segments_with_a_free_block": sum(any(b["state"] == "inactive" for b in sg["blocks"])
+                                              for sg in segs),
+            "free_blocks": len(free), "free_gib": sum(free) / gib,
+            "largest_free_blocks_gib": [x / gib for x in free[:12]],
+            "file": f"chiprun_out/{MEMORY_SNAPSHOT}"}
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, MEMORY_SNAPSHOT), "w") as f:
+            json.dump([{k: v for k, v in sg.items() if k != "frames"} for sg in segs], f)
+    return out
+
+
+def c2_order(torch, args, smi: str) -> int:
+    """Only the order in which the glm4-9b FRC train step (phase 14) once
+    ran out of memory: the vlm, moe and encdec serves, then phase 14, with
+    the allocator's state printed between them.  At an out-of-memory error
+    it prints the error, the allocator's statistics and a summary of its
+    snapshot, and returns 1; else 0.  No device line."""
+    results: dict = {}
+    try:
+        for arch in FAMILY_ARCHS:
+            phase_family_serve(torch, args, results, smi, arch)
+        phase_encdec_serve(torch, args, results, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": "c2 allocator before train glm4-9b", **_allocator(torch)})
+        phase_train_glm(torch, args, results, smi)
+    except torch.OutOfMemoryError as err:
+        emit({"phase": "c2 out of memory", "error": str(err)[:600],
+              **_allocator(torch, snapshot=True)})
+        return 1
+    emit({"phase": "c2 passed", **_allocator(torch)})
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=40,
@@ -3216,8 +3518,16 @@ def main() -> int:
                     help="only build, check the head kernels and sweep thin_rows.cuh's "
                          "warps, rows a warp, loads in flight and blocks an SM at the "
                          "glm4-9b and Mamba-2 heads' shapes (no serve, no device line)")
+    ap.add_argument("--c2-order", action="store_true",
+                    help="only the vlm, moe and encdec serves, then the glm4-9b train phase, "
+                         "with the allocator's state (at an out-of-memory error, its "
+                         "statistics and snapshot; no device line)")
     args = ap.parse_args()
 
+    # before CUDA initialises: segments that grow in place, so memory freed
+    # between phases is not left split into blocks too small for a later
+    # phase's tensors (the caller's setting, where there is one, holds)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -3249,11 +3559,18 @@ def main() -> int:
         kernel_coded_matvec(torch, gen, results)
         sweep_head(torch, args, smi)
         return 0
+    if args.c2_order:
+        return c2_order(torch, args, smi)
     seconds: dict = {}
 
     def timed(name: str, fn, *fn_args):
         t0 = time.perf_counter()
-        out = fn(*fn_args)
+        try:
+            out = fn(*fn_args)
+        except torch.OutOfMemoryError as err:  # the allocator's state at the failure
+            emit({"phase": "out of memory", "in": name, "error": str(err)[:600],
+                  **_allocator(torch, snapshot=True)})
+            raise
         seconds[name] = time.perf_counter() - t0
         return out
 
@@ -3272,15 +3589,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     for arch in SSD_WIDTHS:
         timed(f"serve {arch}", phase_mamba_serve, torch, args, results, smi, arch)
-    timed("train glm4-9b", phase_train_glm, torch, args, results, smi)
-    timed("train zamba2-1.2b", phase_train_zamba, torch, args, results, smi)
-    timed("train drill", phase_train_drill, torch, args, results, smi)
-    # the new families' serves come last: the glm4-9b FRC step peaks at 73 GB
-    # of the card's 85, and it runs out of memory to fragmentation when these
-    # phases (66.5 GB peaks) run before it, though they leave nothing reserved
     for arch in FAMILY_ARCHS:
         timed(f"serve {arch}", phase_family_serve, torch, args, results, smi, arch)
     timed("serve seamless-m4t-large-v2", phase_encdec_serve, torch, args, results, smi)
+    timed("train glm4-9b", phase_train_glm, torch, args, results, smi)
+    timed("train zamba2-1.2b", phase_train_zamba, torch, args, results, smi)
+    timed("train drill", phase_train_drill, torch, args, results, smi)
+    for arch in FAMILY_TRAIN:
+        timed(f"train {arch}", phase_train_family, torch, args, results, smi, arch)
     emit({"phase": "seconds", **seconds})
 
     kernels = []

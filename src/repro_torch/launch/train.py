@@ -10,9 +10,20 @@
 Port of ``repro.launch.train``: data pipeline -> train step (microbatching,
 remat, optional coded gradient aggregation) -> AdamW (int8 moments
 optional) -> atomic checkpoints with restart, health-monitor hooks.
-``--arch`` takes the dense glm4-9b and phi3-mini-3.8b, the Mamba-2
-mamba2-130m and the hybrid zamba2-1.2b; ``--layers`` cuts the depth (widths
-are never cut).  Params come from a seeded init on the device.
+``--arch`` takes all ten configs (``repro_torch.configs.ARCHS``): dense,
+moe, ssm, hybrid, vlm and encdec.  ``--layers`` cuts the depth (widths are
+never cut): it must be a whole number of the model's layer groups (5 for
+llama-3.2-vision-11b, whose fifth layer carries the image cross-attention;
+2 for llama4-maverick), and for an encoder-decoder it is the decoder's
+depth (the encoder keeps its own).  vlm batches carry the pipeline's seeded
+image embeddings, encdec batches its seeded source frames.  Params come
+from a seeded init on the device.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama-3.2-vision-11b \
+        --layers 5 --steps 10 --batch 8 --seq 512 --microbatches 4 --lr 1e-4 \
+        --moment-dtype int8
+    PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx-132b --layers 1 \
+        --steps 10 --batch 4 --seq 512 --lr 1e-4 --moment-dtype int8
 
 Coded mode adds the straggler-robust path:
 
@@ -53,6 +64,27 @@ def _allowed_levels(kind: str, m: int, s_max: int) -> list[int]:
     return list(range(0, min(s_max, m - 1) + 1))
 
 
+def _depth(cfg) -> str:
+    """The depth as printed: an encoder-decoder names both stacks."""
+    if cfg.family == "encdec":
+        return f"{cfg.n_layers} (decoder; encoder {cfg.enc_layers})"
+    return str(cfg.n_layers)
+
+
+def cut_depth(cfg, layers: int):
+    """``cfg`` with ``n_layers = layers`` (for an encoder-decoder the decoder's
+    depth).  Raises ValueError unless ``layers`` is a positive multiple of
+    the model's layer group (``group_period``): a cut inside a group would
+    build fewer groups than asked, none below one group."""
+    from repro_torch.models.transformer import group_period
+
+    period = group_period(cfg)
+    if layers < 1 or layers % period:
+        raise ValueError(f"--layers {layers}: {cfg.name} stacks its layers in groups of "
+                         f"{period}; the depth must be a positive multiple of {period}")
+    return cfg.scaled(n_layers=layers)
+
+
 def make_local_mesh(n_devices: int, model: int | None = None):
     """The (data, model) grid of ``n_devices`` logical devices: TP the
     widest power of two up to 16 that divides them, unless named."""
@@ -78,7 +110,8 @@ def main(argv: list[str] | None = None) -> dict | None:
     ap.add_argument("--smoke", action="store_true",
                     help="reduced model config (2-4 layers, narrow widths)")
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut the model's depth to this many layers (widths kept)")
+                    help="cut the model's depth to this many layers (widths kept; a "
+                         "multiple of the layer group; encdec: the decoder's depth)")
     ap.add_argument("--steps", type=int, default=100,
                     help="training steps to run")
     ap.add_argument("--batch", type=int, default=8,
@@ -146,13 +179,13 @@ def main(argv: list[str] | None = None) -> dict | None:
 
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.layers is not None:
-        cfg = cfg.scaled(n_layers=args.layers)
+        cfg = cut_depth(cfg, args.layers)
     m = args.microbatches
     if args.dry_run:
         n_params, n_act = cfg.param_count()
         print("[train] --dry-run resolved config:")
         print(f"  arch={cfg.name} family={cfg.family} smoke={args.smoke} "
-              f"layers={cfg.n_layers} params~{n_params:,.0f} (active~{n_act:,.0f})")
+              f"layers={_depth(cfg)} params~{n_params:,.0f} (active~{n_act:,.0f})")
         print(f"  device={args.device or 'cuda'} logical_devices={args.logical_devices} "
               f"steps={args.steps} batch={args.batch} seq={args.seq} lr={args.lr}")
         print(f"  microbatches={m} moment_dtype={args.moment_dtype} "
@@ -206,7 +239,7 @@ def main(argv: list[str] | None = None) -> dict | None:
     tc0 = train_cfg(args.gc_stragglers)
     state = init_train_state(model, torch.Generator(device=dev).manual_seed(args.seed),
                              opt_cfg, tc0, device=dev)
-    print(f"[train] arch={cfg.name} (smoke={args.smoke}) layers={cfg.n_layers} "
+    print(f"[train] arch={cfg.name} (smoke={args.smoke}) layers={_depth(cfg)} "
           f"grid={mesh.shape} device={dev} "
           f"params~{sum(p.numel() for p in tree_leaves(state['params'])):,}")
 

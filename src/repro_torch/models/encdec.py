@@ -10,8 +10,17 @@ Encoder and decoder layers are stacked on a leading layer axis; the loops
 are Python loops.  The head is uncoded, as the reference's is: its
 ``init_encdec`` makes no coded head and its prefill and decode read the
 plain ``lm_head``, whatever ``cfg.coded`` says.
+
+Training: ``encdec_loss`` is the chunked cross-entropy over
+``encdec_forward`` (no aux loss).  With ``cfg.remat`` and grad mode on,
+every encoder and decoder layer runs under activation checkpointing (the
+reference's ``jax.checkpoint`` of its scan bodies), and the stacked layer
+params are split once a leaf (``_unstack``), so a backward stacks each
+leaf's gradient once.
 """
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
@@ -34,12 +43,21 @@ from repro_torch.models.layers import (
     mlp_apply,
     rmsnorm,
 )
-from repro_torch.models.transformer import KV_DTYPE, _dtype, _last_logits, _layer
+from repro_torch.models.transformer import (
+    KV_DTYPE,
+    _dtype,
+    _last_logits,
+    _layer,
+    _remat,
+    _unstack,
+    chunked_ce,
+)
 
 __all__ = [
     "init_encdec",
     "encdec_encode",
     "encdec_forward",
+    "encdec_loss",
     "encdec_init_cache",
     "encdec_prefill",
     "encdec_decode_step",
@@ -76,42 +94,57 @@ def init_encdec(cfg: ModelConfig, generator: torch.Generator, device) -> Params:
     }
 
 
+def _enc_layer(lp: Params, x: torch.Tensor, positions: torch.Tensor, *,
+               cfg: ModelConfig) -> torch.Tensor:
+    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    x = x + attention_full(lp["attn"], h, positions, cfg.rope_theta, causal=False)
+    return x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg.mlp)
+
+
 def encdec_encode(params: Params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """frames [B, S_src, D] (stub frontend output) -> encoder memory, in the
     activation dtype (non-causal self-attention)."""
     x = frames.to(_dtype(cfg.dtype))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for i in range(cfg.enc_layers):
-        lp = _layer(params["enc_blocks"], i)
-        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        x = x + attention_full(lp["attn"], h, positions, cfg.rope_theta, causal=False)
-        x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg.mlp)
+    body = partial(_enc_layer, cfg=cfg)
+    for lp in _unstack(params["enc_blocks"], cfg.enc_layers):
+        x = _remat(cfg, body, lp, x, positions)
     return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _dec_layer(lp: Params, x: torch.Tensor, memory: torch.Tensor, positions: torch.Tensor, *,
+               cfg: ModelConfig) -> torch.Tensor:
+    h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    x = x + attention_full(lp["attn"], h, positions, cfg.rope_theta)
+    x = x + cross_attention(lp["xattn"], rmsnorm(x, lp["lnx"], cfg.norm_eps), memory)
+    return x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg.mlp)
 
 
 def _decoder(params: Params, cfg: ModelConfig, memory: torch.Tensor, tokens: torch.Tensor,
              cache: Params | None = None) -> torch.Tensor:
     """The decoder over the target tokens [B, S_tgt] against ``memory``;
     final hidden states.  With ``cache`` each layer's roped K, V and its
-    cross K/V are written into it."""
+    cross K/V are written into it (the prefill); without, each layer runs
+    under ``_remat`` (training)."""
     adt = _dtype(cfg.dtype)
     s = tokens.shape[1]
     x = params["embed"][tokens].to(adt)
     positions = torch.arange(s, device=tokens.device)[None, :]
+    if cache is None:
+        body = partial(_dec_layer, cfg=cfg)
+        for lp in _unstack(params["dec_blocks"], cfg.n_layers):
+            x = _remat(cfg, body, lp, x, memory, positions)
+        return rmsnorm(x, params["final_norm"], cfg.norm_eps)
     for i in range(cfg.n_layers):
         lp = _layer(params["dec_blocks"], i)
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        if cache is not None:
-            k = torch.einsum("bsd,dhk->bshk", h, lp["attn"]["w_k"].to(adt))
-            v = torch.einsum("bsd,dhk->bshk", h, lp["attn"]["w_v"].to(adt))
-            cache["k"][i, :, :s] = apply_rope(k, positions, cfg.rope_theta).to(KV_DTYPE)
-            cache["v"][i, :, :s] = v.to(KV_DTYPE)
-        x = x + attention_full(lp["attn"], h, positions, cfg.rope_theta)
-        x = x + cross_attention(lp["xattn"], rmsnorm(x, lp["lnx"], cfg.norm_eps), memory)
-        if cache is not None:
-            ck, cv = precompute_cross_kv(lp["xattn"], memory)
-            cache["ck"][i], cache["cv"][i] = ck.to(KV_DTYPE), cv.to(KV_DTYPE)
-        x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps), cfg.mlp)
+        k = torch.einsum("bsd,dhk->bshk", h, lp["attn"]["w_k"].to(adt))
+        v = torch.einsum("bsd,dhk->bshk", h, lp["attn"]["w_v"].to(adt))
+        cache["k"][i, :, :s] = apply_rope(k, positions, cfg.rope_theta).to(KV_DTYPE)
+        cache["v"][i, :, :s] = v.to(KV_DTYPE)
+        ck, cv = precompute_cross_kv(lp["xattn"], memory)
+        cache["ck"][i], cache["cv"][i] = ck.to(KV_DTYPE), cv.to(KV_DTYPE)
+        x = _dec_layer(lp, x, memory, positions, cfg=cfg)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -120,6 +153,18 @@ def encdec_forward(params: Params, cfg: ModelConfig, frames: torch.Tensor,
     """Teacher-forced decode over [B, S_tgt] given source frames; returns the
     final decoder hidden states [B, S_tgt, D]."""
     return _decoder(params, cfg, encdec_encode(params, cfg, frames), tokens)
+
+
+def encdec_loss(params: Params, cfg: ModelConfig,
+                batch: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """batch: frames [B, S_src, D], tokens [B, S], labels [B, S] -> (the
+    mean token CE, {"ce", "aux": 0, "tokens"}); the head is the plain
+    ``lm_head``."""
+    hidden = encdec_forward(params, cfg, batch["frames"], batch["tokens"])
+    ce, cnt = chunked_ce(hidden, params["lm_head"], batch["labels"], cfg.logit_chunk,
+                         onehot_pick=cfg.onehot_ce)
+    aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    return ce, {"ce": ce, "aux": aux, "tokens": cnt}
 
 
 def encdec_init_cache(cfg: ModelConfig, batch: int, s_max: int, s_src: int, device) -> Params:

@@ -3,7 +3,7 @@
     model = build_model(cfg)
     params = model.init(torch.Generator("cuda").manual_seed(0))
     loss, metrics = model.loss(params, {"tokens": tokens, "labels": labels})
-    hidden = model.forward(params, tokens)
+    hidden = model.forward(params, tokens)      # img=... (vlm), frames=... (encdec)
     cache = model.init_cache(batch, s_max)
     logits, cache1 = model.prefill(params, {"tokens": tokens}, s_max=s_max)
     logits, cache = model.decode_step(params, cache, tokens)
@@ -11,10 +11,10 @@
 Port of ``repro.models.registry`` for all six families (dense, moe, ssm,
 hybrid, vlm, encdec) and padded heads.  A vlm prefill takes the request's
 image embeddings as ``batch["img_embed"]`` [B, n_img, D], an encdec
-prefill its source frames as ``batch["frames"]`` [B, S_src, D].  Training
-(``loss``, ``forward``) covers dense, ssm and hybrid; the moe, vlm and
-encdec losses are queued for the next training slice.  Every entry point
-runs on CUDA unless a device is named (``device="cpu"`` in tests).
+prefill its source frames as ``batch["frames"]`` [B, S_src, D]; a train
+batch carries them beside its tokens and labels.  ``loss`` and ``forward``
+cover all six families.  Every entry point runs on CUDA unless a device is
+named (``device="cpu"`` in tests).
 """
 from __future__ import annotations
 
@@ -29,8 +29,6 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["Model", "build_model"]
-
-TRAINED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 @dataclass(frozen=True)
@@ -48,24 +46,22 @@ class Model:
         return tf.init_lm(self.cfg, generator, device)
 
     # ---- training -------------------------------------------------------
-    def _check_trained(self, what: str) -> None:
-        if self.cfg.family not in TRAINED_FAMILIES:
-            raise NotImplementedError(
-                f"Model.{what} for the {self.cfg.family!r} family waits for the next "
-                f"training slice (lm_loss with aux_weight, encdec_loss, img_embed and "
-                f"frames batches); trained today: {', '.join(TRAINED_FAMILIES)}")
-
     def loss(self, params, batch: dict):
-        """(loss, metrics) of a batch {"tokens", "labels"} [B, S]; the train
-        objective (chunked CE).  Takes the params as they are: a train step
-        never calls :meth:`prepare`, so gradients reach the fp32 leaves."""
-        self._check_trained("loss")
+        """(loss, metrics) of a batch {"tokens", "labels"} [B, S], with
+        "img_embed" (vlm) or "frames" (encdec); the train objective (chunked
+        CE, plus 0.01 x the MoE aux loss).  Takes the params as they are: a
+        train step never calls :meth:`prepare`, so gradients reach the fp32
+        leaves."""
+        if self.cfg.family == "encdec":
+            return ed.encdec_loss(params, self.cfg, batch)
         return tf.lm_loss(params, self.cfg, batch)
 
-    def forward(self, params, tokens):
-        """Final hidden states [B, S, D] in the activation dtype."""
-        self._check_trained("forward")
-        return tf.lm_forward(params, self.cfg, tokens)[0]
+    def forward(self, params, tokens, **kw):
+        """Final hidden states [B, S, D] in the activation dtype; ``frames``
+        (encdec, required) or ``img`` (vlm) as keywords."""
+        if self.cfg.family == "encdec":
+            return ed.encdec_forward(params, self.cfg, kw["frames"], tokens)
+        return tf.lm_forward(params, self.cfg, tokens, kw.get("img"))[0]
 
     # ---- serving ----------------------------------------------------------
     def prepare(self, params: Any) -> Any:

@@ -377,8 +377,11 @@ def lm_loss(
     batch: dict[str, torch.Tensor],
     aux_weight: float = 0.01,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """batch: tokens [B,S], labels [B,S] -> (loss, {"ce", "aux", "tokens"})."""
-    hidden, aux = lm_forward(params, cfg, batch["tokens"])
+    """batch: tokens [B,S], labels [B,S] (+ img_embed [B, n_img, D] for vlm)
+    -> (loss, {"ce", "aux", "tokens"}).  ``aux_weight`` weighs the summed
+    MoE aux loss; the model's loss always uses its default, as the
+    reference's does."""
+    hidden, aux = lm_forward(params, cfg, batch["tokens"], batch.get("img_embed"))
     head = params["lm_head"] if "lm_head" in params else params["embed"].T
     ce, cnt = chunked_ce(hidden, head, batch["labels"], cfg.logit_chunk,
                          onehot_pick=cfg.onehot_ce)

@@ -12,6 +12,12 @@ batch, mask) on the params' device; nothing in it waits on the host.
     and the decode weights recover the gradient sum.  This is the paper's
     coded-computation idea on the training path.
 
+A batch holds tokens and labels [B, S], and for the vlm and encdec families
+``img_embed`` [B, n_img, D] or ``frames`` [B, S_src, D]: every entry goes
+to the params' device and is split into microbatches along B.  The
+gradients reach AdamW as a list of leaves, which the update releases leaf
+by leaf (``optim.adamw.adamw_update``).
+
 Unrecoverable masks (> s stragglers, or a whole FRC group dead) set
 ``metrics["ok"] = 0`` and the step is an identity on params and the whole
 optimizer state, ``step`` included: ``torch.where`` on the 0-dim ``ok``
@@ -97,7 +103,10 @@ def make_train_step(
     ``grad_norm``, ``lr`` and — in coded mode — ``ok``: 1.0 if the mask was
     decodable, 0.0 if the step was skipped (params and optimizer state pass
     through unchanged).  The step makes new tensors; the state it was given
-    stays valid.
+    stays valid.  ``step.gradients(state, batch, straggler_mask=None)`` is
+    the same step without its update (see ``gradients``): a check that
+    compares two steps' gradients reads them there, whatever the moments'
+    dtype.
     """
     m = train_cfg.microbatches
     code: GradCode | None = None
@@ -175,26 +184,31 @@ def make_train_step(
         metrics = {key: torch.dot(w, torch.stack([x[key] for x in mets])) / m for key in mets[0]}
         return loss, metrics, grads, new_err, ok
 
-    def step(state: TrainState, batch: dict, straggler_mask=None):
+    def gradients(state: TrainState, batch: dict, straggler_mask=None):
+        """The step without its update: (loss, metrics, the gradient leaves
+        in leaf order, the new compression residual or None, ``ok`` or
+        None).  Coded: the decoded gradient under ``straggler_mask``."""
         params = state["params"]
         dev = tree_leaves(params)[0].device
         batch = _to_device(batch, dev)
-        if code is not None:
-            mask = (torch.ones(m, dtype=torch.float32, device=dev) if straggler_mask is None
-                    else torch.as_tensor(straggler_mask, dtype=torch.float32).to(dev))
-            err = state.get("err")
-            if compress and err is None:
-                raise KeyError(
-                    "compression is enabled but state has no 'err' tree; "
-                    "build the state with init_train_state(..., train_cfg=cfg)"
-                )
-            loss, metrics, grads, new_err, ok = coded_grads(params, batch, mask, err)
-        else:
-            loss, metrics, grads = plain_grads(params, batch)
-            new_err, ok = None, None
-        grads = tree_unflatten(params, list(grads))
+        if code is None:
+            return (*plain_grads(params, batch), None, None)
+        mask = (torch.ones(m, dtype=torch.float32, device=dev) if straggler_mask is None
+                else torch.as_tensor(straggler_mask, dtype=torch.float32).to(dev))
+        err = state.get("err")
+        if compress and err is None:
+            raise KeyError(
+                "compression is enabled but state has no 'err' tree; "
+                "build the state with init_train_state(..., train_cfg=cfg)"
+            )
+        return coded_grads(params, batch, mask, err)
+
+    def step(state: TrainState, batch: dict, straggler_mask=None):
+        params = state["params"]
+        loss, metrics, grads, new_err, ok = gradients(state, batch, straggler_mask)
+        # a list of leaves: the update releases each gradient as it is used
+        grads = list(grads)
         new_params, new_opt, opt_metrics = adamw_update(params, grads, state["opt"], opt_cfg)
-        del grads
         out = {"loss": loss, **metrics, **opt_metrics}
         if ok is not None:
             # unrecoverable mask: identity step — never apply a garbage
@@ -210,6 +224,7 @@ def make_train_step(
             new_state["err"] = new_err
         return new_state, out
 
+    step.gradients = gradients
     return step
 
 

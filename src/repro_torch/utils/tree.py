@@ -41,23 +41,25 @@ def _rebuild(node, children: list, qtensor: type):
     return type(node)(children)
 
 
+def _walk(node, path: tuple, is_leaf, qtensor: type, out: list) -> None:
+    # a module-level function, not a closure: a recursive closure is a
+    # reference cycle, and ``out`` (every leaf) would live until the cyclic
+    # collector runs, holding gradients and replaced states on the device
+    if node is None:
+        return
+    kids = None if is_leaf is not None and is_leaf(node) else _children(node, qtensor)
+    if kids is None:
+        out.append(("/".join(path), node))
+        return
+    for k, c in kids:
+        _walk(c, path + (k,), is_leaf, qtensor, out)
+
+
 def tree_flatten_with_path(tree, is_leaf: Callable | None = None) -> list[tuple[str, Any]]:
     """(path, leaf) pairs in leaf order; ``is_leaf`` may stop the descent
     at a node (the reference's ``is_leaf=`` of ``jax.tree``)."""
     out: list[tuple[str, Any]] = []
-    qtensor = _qtensor()
-
-    def walk(node, path):
-        if node is None:
-            return
-        kids = None if is_leaf is not None and is_leaf(node) else _children(node, qtensor)
-        if kids is None:
-            out.append(("/".join(path), node))
-            return
-        for k, c in kids:
-            walk(c, path + (k,))
-
-    walk(tree, ())
+    _walk(tree, (), is_leaf, _qtensor(), out)
     return out
 
 
@@ -65,21 +67,21 @@ def tree_leaves(tree, is_leaf: Callable | None = None) -> list:
     return [leaf for _, leaf in tree_flatten_with_path(tree, is_leaf)]
 
 
+def _build(node, it, is_leaf, qtensor: type):
+    # module-level for the same reason as ``_walk``
+    if node is None:
+        return None
+    kids = None if is_leaf is not None and is_leaf(node) else _children(node, qtensor)
+    if kids is None:
+        return next(it)
+    return _rebuild(node, [_build(c, it, is_leaf, qtensor) for _, c in kids], qtensor)
+
+
 def tree_unflatten(template, leaves: list, is_leaf: Callable | None = None):
     """``template``'s structure with ``leaves`` in leaf order (QTensor nodes
     rebuilt with the template's shape and pow)."""
     it = iter(leaves)
-    qtensor = _qtensor()
-
-    def build(node):
-        if node is None:
-            return None
-        kids = None if is_leaf is not None and is_leaf(node) else _children(node, qtensor)
-        if kids is None:
-            return next(it)
-        return _rebuild(node, [build(c) for _, c in kids], qtensor)
-
-    out = build(template)
+    out = _build(template, it, is_leaf, _qtensor())
     if next(it, None) is not None:
         raise ValueError("more leaves than the template holds")
     return out

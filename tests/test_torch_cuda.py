@@ -1240,6 +1240,53 @@ def test_cuda_train_step_matches_the_cpu(arch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["plain", "frc"])
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama-3.2-vision-11b", "seamless-m4t-large-v2"])
+def test_cuda_family_train_step_matches_the_cpu(arch, kind):
+    """The moe, vlm (cross-attention gates 0.5, the pipeline's seeded images)
+    and encdec (seeded frames) train steps of a float32 smoke config, plain
+    over 4 microbatches and FRC (s = 1) under one straggler: on the card the
+    CPU's loss and metrics (1e-5 relative), gradient (the first moment,
+    1e-4 of each leaf's max) and next loss (1e-5); no hand-written kernel
+    launches on these paths."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels import kernel_wrappers
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.loop import TrainConfig, init_train_state, make_train_step
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    dev = _cuda()
+    cfg = get_config(arch, smoke=True).scaled(dtype="float32")
+    model = build_model(cfg)
+    opt = AdamWConfig(lr=1e-3)
+    tc = TrainConfig(microbatches=4, **({"gradient_coding": "frc"} if kind == "frc" else {}))
+    mask = () if kind == "plain" else (torch.tensor([1.0, 0.0, 1.0, 1.0]),)
+    step = make_train_step(model, opt, tc)
+    pipe = make_pipeline(cfg, seq=32, global_batch=8, seed=2)
+    cpu = init_train_state(model, torch.Generator().manual_seed(0), opt, tc, device="cpu")
+    for name, sub in cpu["params"]["blocks"].items() if cfg.family == "vlm" else ():
+        if name.startswith("xattn_"):
+            sub["gate"].fill_(0.5)
+    gpu = tree_map(lambda t: t.to(dev), cpu)
+    out = {}
+    for name, st in (("cpu", cpu), ("gpu", gpu)):
+        before = {k: w.launches for k, w in kernel_wrappers().items()}
+        st1, m1 = step(st, pipe.batch(0), *mask)
+        _, m2 = step(st1, pipe.batch(1), *mask)
+        launched = {k: w.launches - before[k] for k, w in kernel_wrappers().items()}
+        out[name] = (st1, {k: float(v) for k, v in m1.items()}, float(m2["loss"]), launched)
+    assert not any(out["cpu"][3].values()) and not any(out["gpu"][3].values()), out["gpu"][3]
+    assert out["gpu"][1].get("ok", 1.0) == 1.0
+    for k, want in out["cpu"][1].items():
+        assert abs(out["gpu"][1][k] - want) <= 1e-5 * max(abs(want), 1e-30), (k, out)
+    assert abs(out["gpu"][2] - out["cpu"][2]) <= 1e-5 * abs(out["cpu"][2])
+    for a, b in zip(tree_leaves(out["gpu"][0]["opt"]["m"]), tree_leaves(out["cpu"][0]["opt"]["m"])):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,sk", [(True, 4096), (False, 4096), (False, 1024)])
 def test_cuda_sdpa_chunked_matches_the_dense_sdpa(dtype, causal, sk):

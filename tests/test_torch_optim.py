@@ -19,6 +19,9 @@ Adam tracks fp32 Adam, the int8 state is ~4x smaller, quantization error is
 bounded, companding keeps small values, error feedback is unbiased, and
 clipping applies.
 """
+import gc
+import weakref
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -48,7 +51,7 @@ from repro_torch.optim import (
     warmup_cosine,
 )
 from repro_torch.train.loop import TrainConfig, init_train_state, make_train_step
-from repro_torch.utils.tree import tree_leaves, tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.weights import train_state_from_numpy, train_state_to_numpy
 
 
@@ -312,3 +315,86 @@ def test_global_norm():
     tree = {"a": torch.full((3,), 2.0), "b": [torch.full((2, 2), 1.0, dtype=torch.bfloat16)]}
     assert float(global_norm(tree)) == pytest.approx(4.0)
     assert tree_map(lambda x: x.dtype, tree)["b"][0] == torch.bfloat16
+
+
+def _adamw_whole_leaves(params, grads, state, cfg):
+    """``adamw_update`` as it was before it sliced large leaves and released
+    the gradients: every leaf updated whole, every output built first."""
+    from repro_torch.optim.quant import dequantize as deq
+
+    is_q = lambda x: isinstance(x, QTensor)  # noqa: E731
+    step = state["step"] + 1
+    lr = cfg.lr_at(step)
+    gn = global_norm(grads)
+    clip = torch.clamp_max(cfg.grad_clip / torch.clamp_min(gn, 1e-12), 1.0)
+    stepf = step.to(torch.float32)
+    b1c = 1.0 - torch.pow(cfg.b1, stepf)
+    b2c = 1.0 - torch.pow(cfg.b2, stepf)
+
+    def upd(p, g, m, v):
+        g = g.to(torch.float32) * clip
+        mf = deq(m) if is_q(m) else m.to(torch.float32)
+        vf = deq(v) if is_q(v) else v.to(torch.float32)
+        mf = cfg.b1 * mf + (1 - cfg.b1) * g
+        vf = cfg.b2 * vf + (1 - cfg.b2) * g * g
+        delta = (mf / b1c) / (torch.sqrt(vf / b2c) + cfg.eps)
+        if p.dim() >= 2:
+            delta = delta + cfg.weight_decay * p.to(torch.float32)
+        new_p = (p.to(torch.float32) - lr * delta).to(p.dtype)
+        if is_q(m):
+            return new_p, quantize(mf, pow=4), quantize(vf, pow=4)
+        return new_p, mf.to(m.dtype), vf.to(v.dtype)
+
+    out = [upd(p, g, m, v) for p, g, m, v in zip(
+        tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"], is_q),
+        tree_leaves(state["v"], is_q))]
+    return ([o[0] for o in out], [o[1] for o in out], [o[2] for o in out])
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+def test_sliced_adamw_releasing_its_gradients_is_bit_equal(kind, monkeypatch):
+    """With leaves above ``SLICE_ELEMENTS`` updated in slices of whole rows
+    and the gradients handed over as a list (each entry released once its
+    leaf is done), params and moments are bit-equal to the whole-leaf
+    update's, and the state the update was given is unchanged."""
+    from repro_torch.optim import adamw as adamw_mod
+
+    rng = np.random.default_rng(3)
+    shapes = {"experts": (2, 4, 64, 128), "embed": (512, 64), "ragged": (7, 5, 48),
+              "odd": (40, 37), "router": (2, 64, 4), "gate": (2,), "norm": (3, 64)}
+    params = {k: torch.as_tensor(rng.standard_normal(s).astype(np.float32))
+              for k, s in shapes.items()}
+    grads = {k: torch.as_tensor((rng.standard_normal(s) * 0.3).astype(np.float32))
+             for k, s in shapes.items()}
+    cfg = AdamWConfig(lr=warmup_cosine(3e-3, 5, 100), moment_dtype=kind)
+    state = init_opt_state(params, cfg)
+    # a mid-run state: one whole-leaf step from zero moments
+    p1, m1, v1 = _adamw_whole_leaves(params, grads, state, cfg)
+    state = {"m": tree_unflatten(params, m1), "v": tree_unflatten(params, v1),
+             "step": state["step"] + 1}
+    params = tree_unflatten(params, p1)
+    grads = {k: g.flip(0) for k, g in grads.items()}
+    want_p, want_m, want_v = _adamw_whole_leaves(params, grads, state, cfg)
+    kept = [t.clone() for t in tree_leaves(state) + tree_leaves(params)]
+    monkeypatch.setattr(adamw_mod, "SLICE_ELEMENTS", 1000)
+    g_list = [g.clone() for g in tree_leaves(grads)]
+    released = [weakref.ref(g) for g in g_list]
+    gc.disable()   # freed by reference counts alone: nothing holds them in a cycle
+    try:
+        got_p, got_state, met = adamw_update(params, g_list, state, cfg)
+        assert g_list == [None] * len(shapes)
+        assert all(r() is None for r in released)
+    finally:
+        gc.enable()
+    assert float(met["grad_norm"]) == float(global_norm(grads))
+    for got, want in zip(tree_leaves(got_p), want_p):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    is_q = lambda x: isinstance(x, QTensor)  # noqa: E731
+    for key, want in (("m", want_m), ("v", want_v)):
+        for got, w in zip(tree_leaves(got_state[key], is_q), want):
+            if kind == "int8":
+                assert got.shape == w.shape and got.pow == w.pow
+                assert torch.equal(got.q, w.q) and torch.equal(got.scale, w.scale)
+            else:
+                assert torch.equal(got, w)
+    assert all(torch.equal(a, b) for a, b in zip(kept, tree_leaves(state) + tree_leaves(params)))
