@@ -87,7 +87,20 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    decoded step, host syncs per token, fused blocks, capture seconds per
    bucket, the graph pool's bytes, the 16-step graph's device time, and the
    step's byte bound and share;
-10. ssm serve and hybrid serve: mamba2-130m and zamba2-1.2b at full width
+10. auto glm4-9b: ``kernel_mode='auto'`` through the committed dispatch
+   table (``reports/bench/cuda/autotune.json``, checked: measured on an
+   H100, every winner a kernel within the cost model's error bound) on the
+   serve phase's params: the coded head at B = 1 and 4 under 0 and 2
+   erasures, bit-equal to the default and to the explicit mode of its
+   decision (printed: source, impl, predicted and measured µs) and within
+   1e-3 x max|y| of the plain version; the mesh head bit-equal to the
+   default; the serve phase's requests with ``head_kernel_mode`` and
+   ``encode_mode`` 'auto' (tokens equal the serve phase's, launches =
+   prefills + steps, one raise); a macro pair under 'auto' (four requests
+   of 16 + 32 tokens, equal tokens); ``gaussian_encode`` at the glm4-9b
+   raise and ``lt_encode`` at the LT task's reserve on A seeded on the
+   card, each bit-equal to 'cuda'; a budget of 120 s;
+11. ssm serve and hybrid serve: mamba2-130m and zamba2-1.2b at full width
    and depth (seeded init on the card), coded head, 4 slots, six requests of
    4096, 4096, 1000, 1000, 100 and 2 prompt tokens and 8 new tokens, the
    same three stragglers forcing the raise; every Mamba block's prefill runs
@@ -97,7 +110,7 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    and block 0's SSD of the served bf16 prefill against its plain route;
    then the macro pair of phase 9 on the same engine factory, four requests
    of 100 prompt tokens and 64 new tokens;
-11. vlm serve: llama-3.2-vision-11b whole (40 layers, 8 with tanh-gated image
+12. vlm serve: llama-3.2-vision-11b whole (40 layers, 8 with tanh-gated image
    cross-attention, every gate set to 0.5: at init tanh(0) = 0 hides them),
    coded head (14, 2) = W_c [146592, 4096], seeded init on the card, 4
    slots, six requests of 8192, 1000, 100, 16, 16 and 16 prompt tokens with
@@ -109,20 +122,20 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    erasures within 1e-3 of the uncoded head; prefill ms per prompt length,
    step ms, tokens/s, peak GB; then the macro pair of phase 9 (four
    requests of 16 + 64 tokens, scalar against fused, equal tokens);
-12. moe serve: dbrx-132b at full width (d 6144, 48/8 heads, 16 experts
+13. moe serve: dbrx-132b at full width (d 6144, 48/8 heads, 16 experts
    top-4, d_ff 10752), depth cut to 3 of 40 layers (printed as a cut),
    coded head (14, 2) = W_c [114688, 6144] (x in panels at B = 4), raised
    to (13, 3) = [123520, 6144]; the same mix without the 8192-token prompt;
    the share of (token, k) assignments dropped by capacity at prefill and
    at decode (B = 4: T = 4, cap = 2); block 0's ``moe_apply`` against its
    per-token loop (``moe_apply_loop``, the same keep mask) at the 100-token
-   prefill and a B = 4 decode; times and the macro pair as in phase 11;
-13. encdec serve: seamless-m4t-large-v2 whole (24 + 24 layers) through the
+   prefill and a B = 4 decode; times and the macro pair as in phase 12;
+14. encdec serve: seamless-m4t-large-v2 whole (24 + 24 layers) through the
    engine as the reference serves it, zero frames and the uncoded head: no
    TPU kernel on this path, and none may launch; then a prefill and a
    decode step from seeded frames, the decode within 0.05 of max|logit| of
    ``encdec_forward`` at the next position;
-14. train glm4-9b: full width, depth cut to 2 layers (printed as a cut),
+15. train glm4-9b: full width, depth cut to 2 layers (printed as a cut),
    bf16 activations, fp32 params and moments, batch 8 of 512 tokens in 4
    microbatches: from one seeded state the FRC (s = 1) step under an
    all-ones and a one-straggler mask gives the plain step's loss (1e-5
@@ -133,9 +146,9 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    the gradient held to a central difference of the loss along it (1e-2
    relative); then 10 plain and 10 FRC steps, timed (step ms, tokens/s,
    peak GB), one profiled (device busy share); the loss must go down;
-15. train zamba2-1.2b: whole (38 layers), batch 8 of 1024 tokens (4 SSD
+16. train zamba2-1.2b: whole (38 layers), batch 8 of 1024 tokens (4 SSD
    chunks a block) in 4 microbatches: the cyclic (s = 1) step against the
-   plain step as in phase 14 (two stragglers undecodable); through
+   plain step as in phase 15 (two stragglers undecodable); through
    ``repro_torch.launch.train`` a 3-step run with adaptive s, then the timed
    run at a fixed s = 1 with int8 messages and error feedback under Markov
    stragglers at 0.2 and 3x; ``ssd_chunk`` and ``ssd_combine`` launch once per Mamba
@@ -145,13 +158,13 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    autograd through ``ssd_chunked``, its recompute's share of a step; every
    kernel wrapper refuses an input that requires grad; one step of the timed
    configuration profiled;
-16. train drill: mamba2-130m through the launcher on 8 logical devices
+17. train drill: mamba2-130m through the launcher on 8 logical devices
    (2 DP slices), FRC s = 0, 10 steps, a checkpoint every 3 steps, the last
    slice killed at step 7: 2 skipped steps, the grid shrinks 2 -> 1, the run
    resumes from step 6, and (under deterministic algorithms) its losses
    after the restore equal a fresh run's from that checkpoint bit for bit;
-   then the SSD kernels and ``SSDScan`` at its block 0 as in phase 15;
-17.-19. train llama-3.2-vision-11b (depth cut to one group of 5 of 40
+   then the SSD kernels and ``SSDScan`` at its block 0 as in phase 16;
+18.-20. train llama-3.2-vision-11b (depth cut to one group of 5 of 40
    layers: four self-attention layers and the gated cross-attention layer,
    gates 0.5, seeded images [8, 1024, 4096]), dbrx-132b (1 of 40 layers,
    16 experts top-4, one microbatch, plain steps only) and
@@ -163,11 +176,11 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    router, the encdec's cross-attention and first encoder weights)
    non-zero and finite, the loss, the aux loss and the share of MoE
    assignments dropped at capacity; for the vlm and the encdec the FRC
-   (s = 1) step against the plain one as in phase 14; then 4 plain and 4
+   (s = 1) step against the plain one as in phase 15; then 4 plain and 4
    FRC steps on two batches in turn, timed (step ms, tokens/s, peak GB
    beside the memory reckoned beforehand), one profiled (device busy
    share); the loss must go down, and none of the six kernels may launch;
-20. a ``kernels`` line with every kernel on every path it runs (launch
+21. a ``kernels`` line with every kernel on every path it runs (launch
    counts read around that path's run; ``lt_encode``'s ``ms`` is the
    call with its compaction, its ``kernel_ms`` the kernel alone, which its
    ``library_ms`` is held to), then the device line.  The seconds of each
@@ -765,6 +778,193 @@ def kernel_ssd(torch, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+AUTO_BUDGET_S = 120.0   # the auto phase's share of the smoke's 1,200 s
+
+
+def _auto_row(d) -> dict:
+    """A dispatch Decision as printed: its source, impl, the model's
+    prediction and the table's measured time (µs)."""
+    return {"source": d.source, "impl": d.impl, "predicted_us": d.predicted_us,
+            "table_us": d.measured_us}
+
+
+def phase_auto_glm(torch, args, serve: dict, mesh, results: dict, smi: str) -> None:
+    """Phase 10: ``kernel_mode='auto'`` on the glm4-9b path, through the
+    committed dispatch table (``reports/bench/cuda/autotune.json``): the
+    head, the mesh head, a scalar serve with its raise, a fused macro pair
+    and the two task encodes, each bit-equal to its explicit mode.  Only
+    the 'auto' calls' launches are the path's (``path``); the comparisons'
+    are not."""
+    from repro_torch.core.coded_ops import CodedLinear, block_mds_generator
+    from repro_torch.kernels import autotune, cost, dispatch, ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.sharding import shard_coded_head
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    path = dict.fromkeys(_launches(), 0)
+
+    def counted(fn):
+        """fn()'s result, its launches added to the path's (counts set to 0 just before)."""
+        _reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        for name, n in _launches().items():
+            path[name] += n
+        return out
+
+    # 1. the committed table
+    dispatch.set_table_path(None)
+    table = dispatch.get_table()
+    check(table is not None, f"no dispatch table at {dispatch.default_table_path()}")
+    meta = table.doc["meta"]
+    check("H100" in meta["card"], f"the committed table was measured on {meta['card']}")
+    worst = 0.0
+    for e in table.entries.values():
+        kernels = ("fused", "svd") if e["op"] == "coded_linear" else ("cuda",)
+        check(e["backend"] == "cuda" and e["impl"] in kernels and e["mode"] == "cuda",
+              f"table winner {e['op']} {e['shape']} is not a kernel: {e['impl']} {e['mode']}")
+        check(e["model_error"] <= cost.MODEL_ERROR_BOUND,
+              f"table winner {e['op']} {e['shape']}: model error {e['model_error']}")
+        worst = max(worst, e["model_error"])
+    emit({"phase": "auto_table", "path": dispatch.default_table_path(),
+          "entries": len(table.entries), "measured_on": meta["card"], "torch": meta["torch"],
+          "cuda": meta["cuda"], "worst_model_error": worst, "bound": cost.MODEL_ERROR_BOUND})
+
+    # 2. the glm4-9b head at full width
+    cfg, params = serve["cfg"], serve["params"]
+    wc = params["lm_head_coded"]
+    br = wc.shape[0] // 16
+    cl = CodedLinear(14, 2, 14 * br)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 7)
+    heads = []
+    for b in (1, 4):
+        x = torch.randn(cfg.d_model, b, device=dev, generator=gen)
+        for erased in ((), (4, 11)):
+            mask = torch.ones(16, device=dev)
+            mask[list(erased)] = 0.0
+            d = dispatch.choose_coded_linear(cl.out_features, cfg.d_model, b, 14, 2,
+                                             backend="cuda")
+            got = counted(lambda: cl.apply(wc, x, mask, kernel_mode="auto"))
+            explicit = cl.apply(wc, x, mask, kernel_mode=d.kernel_mode)
+            default = cl.apply(wc, x, mask)
+            plain = cl.apply(wc, x, mask, kernel_mode="off")
+            torch.cuda.synchronize()
+            scale = float(plain.abs().max())
+            err = float((got - plain).abs().max())
+            row = {"phase": "auto_head", "arch": cfg.name, "w_coded": list(wc.shape), "b": b,
+                   "erased": list(erased), "decision": _auto_row(d),
+                   "equal_explicit": bool(torch.equal(got, explicit)),
+                   "equal_default": bool(torch.equal(got, default)),
+                   "max_abs_err_vs_plain": err, "tol": 1e-3 * scale,
+                   "ms": time_ms(torch, lambda: cl.apply(wc, x, mask, kernel_mode="auto"), 10)}
+            heads.append(row)
+            emit(row)
+            check(d.mode == "cuda" and d.impl in ("fused", "svd"), f"auto head decision {d}")
+            check(row["equal_explicit"], f"auto head B={b} {erased}: not the explicit mode's bits")
+            check(row["equal_default"] or d.impl == "svd",
+                  f"auto head B={b} {erased}: not the default's bits")
+            check(err <= 1e-3 * scale, f"auto head B={b} {erased}: {err} > 1e-3 x {scale}")
+
+    # 3. the mesh head: one coded_matvec a block, per its own decision
+    placed = shard_coded_head(wc, mesh)
+    x = torch.randn(cfg.d_model, 4, device=dev, generator=gen)
+    for erased in ((), (5, 12)):
+        mask = torch.ones(16, device=dev)
+        mask[list(erased)] = 0.0
+        got = counted(lambda: ops.coded_head_matvec(placed, x, mask, 14, 2, mesh=mesh,
+                                                    kernel_mode="auto"))
+        want = ops.coded_head_matvec(placed, x, mask, 14, 2, mesh=mesh)
+        check(torch.equal(got, want), f"auto mesh head {erased}: not the default's bits")
+    d_block = dispatch.choose_matvec(br, cfg.d_model, 4, backend="cuda")
+    emit({"phase": "auto_mesh_head", "block": list(placed[0].shape), "b": 4,
+          "decision": _auto_row(d_block), "equal_default": True})
+
+    # 4. a scalar serve under 'auto', the (14, 2) -> (13, 3) raise encoded through it
+    eng = serve["make_engine"](params, head_kernel_mode="auto", encode_mode="auto")
+    for i, prompt in enumerate(serve["prompts"]):
+        eng.submit(Request(uid=i, prompt=prompt, max_new_tokens=serve["max_new"]))
+    before = dict(path)
+    done = counted(eng.run)
+    served = {k: path[k] - before[k] for k in path}
+    tokens = {r.uid: r.out_tokens for r in done}
+    n_req = len(serve["prompts"])
+    check(tokens == serve["tokens"], "auto serve tokens differ from the serve phase's ('cuda')")
+    check(len(eng.parity_events) == 1 and eng.parity_events[0]["n_parity"] == 3,
+          f"auto serve parity events {eng.parity_events}")
+    check(served["coded_matvec_decode"] == n_req + eng._steps and served["gaussian_encode"] == 1,
+          f"auto serve launches {served}: want {n_req} prefills + {eng._steps} steps, one raise")
+    emit({"phase": "auto_serve", "arch": cfg.name, "requests": n_req,
+          "decode_steps": eng._steps, "tokens_equal_cuda_serve": True,
+          "parity_events": eng.parity_events, "launches": served})
+    del eng
+
+    # 5. a fused macro pair under 'auto': one wave each, equal tokens
+    model = build_model(cfg)
+    fixed = np.ones(16)
+    fixed[[3, 12]] = 0.0
+    prompts = [serve["rng"].integers(0, cfg.vocab, 16) for _ in range(4)]
+    waves = {}
+    for k in (1, 16):
+        eng = ServeEngine(model, params, n_slots=4, s_max=64, mask_fn=lambda: fixed,
+                          head_kernel_mode="auto", macro_steps=k, device=dev)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=32))
+        before = dict(path)
+        done = counted(eng.run)
+        launches = {n: path[n] - before[n] for n in path}
+        warmups = len(eng.graph_log)
+        check(launches["coded_matvec_decode"] == len(prompts) + eng._steps + warmups,
+              f"auto macro K={k}: launches {launches} != {len(prompts)} prefills + "
+              f"{eng._steps} steps + {warmups} warm-ups")
+        waves[k] = {"tokens": {r.uid: r.out_tokens for r in done}, "steps": eng._steps,
+                    "macro_blocks": eng.macro_blocks, "captures": warmups, "launches": launches}
+        del eng
+    check(waves[16]["tokens"] == waves[1]["tokens"], "auto macro: fused tokens differ from scalar")
+    check(waves[16]["macro_blocks"] > 0, "auto macro: no fused block ran")
+    emit({"phase": "auto_macro", "arch": cfg.name, "requests": len(prompts), "max_new": 32,
+          **{f"k{k}": {n: v for n, v in w.items() if n != "tokens"} for k, w in waves.items()},
+          "tokens_equal": True,
+          "block_decision": _auto_row(dispatch.choose_coded_linear(
+              cl.out_features, cfg.d_model, 4, 14, 2, backend="cuda", macro_k=16))})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 6. the encodes on A seeded on the card
+    rbr = -(-cfg.vocab // 13)
+    a = torch.randn(13, rbr * cfg.d_model, device=dev, generator=gen)
+    g = block_mds_generator(16, 13, device=dev)
+    got = counted(lambda: ops.gaussian_encode(g, a, "auto"))
+    check(torch.equal(got, ops.gaussian_encode(g, a, "cuda")),
+          "auto gaussian_encode at the glm4-9b raise: not the 'cuda' bits")
+    enc = {"gaussian_encode": _auto_row(dispatch.choose_encode(
+        "gaussian", 16, 13, a.shape[1], backend="cuda"))}
+    del a, got
+    r, plan = autotune.lt_task_table(args.seed)
+    a = torch.randn(r, PAPER_M, device=dev, generator=gen)
+    idx = torch.as_tensor(plan.indices, device=dev)
+    cof = torch.as_tensor(plan.coeffs, device=dev)
+    got = counted(lambda: ops.lt_encode(a, idx, cof, "auto"))
+    check(torch.equal(got, ops.lt_encode(a, idx, cof, "cuda")),
+          "auto lt_encode at the LT task's reserve: not the 'cuda' bits")
+    enc["lt_encode"] = _auto_row(dispatch.choose_encode(
+        "lt", plan.q, r, PAPER_M, d_max=idx.shape[1], backend="cuda"))
+    emit({"phase": "auto_encode", "raise": [16, 13, rbr * cfg.d_model],
+          "lt": [plan.q, r, PAPER_M], "decisions": enc, "equal_cuda": True})
+    del a, got, idx, cof
+    torch.cuda.empty_cache()
+
+    for name in ("coded_matvec_decode", "coded_matvec", "gaussian_encode", "lt_encode"):
+        check(path[name] > 0, f"auto phase: {name} never launched on the 'auto' path")
+    seconds = time.perf_counter() - t_phase
+    row = {"phase": "auto_glm", "launches": path, "seconds": seconds, "budget_s": AUTO_BUDGET_S,
+           "within_budget": seconds <= AUTO_BUDGET_S, "card": smi}
+    emit(row)
+    results["auto glm4-9b"] = {"launches": path, "heads": heads, "seconds": seconds}
+
+
 def _reset_launches() -> None:
     from repro_torch.kernels import kernel_wrappers
 
@@ -1084,11 +1284,11 @@ def phase_serve(torch, args, results: dict, smi: str) -> dict:
 
     phase_head(torch, params, cfg, torch.Generator(device=dev).manual_seed(args.seed + 1))
 
-    def make_engine(engine_params, mesh=None):
+    def make_engine(engine_params, mesh=None, **modes):
+        modes = {"head_kernel_mode": "cuda", "encode_mode": "cuda", **modes}
         return ServeEngine(model, engine_params, n_slots=4, s_max=64, latency_fn=_stragglers(),
                            parity_controller=ParityController(16, decay=0.5),
-                           parity_topup=1, topup_patience=2,
-                           head_kernel_mode="cuda", encode_mode="cuda", mesh=mesh, device=dev)
+                           parity_topup=1, topup_patience=2, mesh=mesh, device=dev, **modes)
 
     eng = make_engine(params)
     head14 = params["lm_head_coded"]  # the (14, 2) head, for the mesh serve
@@ -3477,8 +3677,8 @@ def _allocator(torch, snapshot: bool = False) -> dict:
 
 
 def c2_order(torch, args, smi: str) -> int:
-    """Only the order in which the glm4-9b FRC train step (phase 14) once
-    ran out of memory: the vlm, moe and encdec serves, then phase 14, with
+    """Only the order in which the glm4-9b FRC train step (phase 15) once
+    ran out of memory: the vlm, moe and encdec serves, then phase 15, with
     the allocator's state printed between them.  At an out-of-memory error
     it prints the error, the allocator's statistics and a summary of its
     snapshot, and returns 1; else 0.  No device line."""
@@ -3584,6 +3784,7 @@ def main() -> int:
     timed("mesh serve", phase_mesh_serve, torch, serve, mesh, results, smi)
     timed("trace serve", phase_trace_serve, torch, args, serve, results, smi)
     timed("macro glm4-9b", phase_macro_glm, torch, serve, results, smi)
+    timed("auto glm4-9b", phase_auto_glm, torch, args, serve, mesh, results, smi)
     del serve, mesh
     gc.collect()
     torch.cuda.empty_cache()
@@ -3628,6 +3829,16 @@ def main() -> int:
         ("coded_matvec_decode", "src/repro_torch/kernels/csrc/coded_decode.cu",
          "src/repro/kernels/coded_decode.py:65", "macro serve (graphs)",
          {"launches": results["macro glm4-9b"]["launches"][1]}, "glm4-9b decode"),
+        *((name, src, replaces, "auto glm4-9b", results["auto glm4-9b"], shape)
+          for name, src, replaces, shape in (
+              ("coded_matvec_decode", "src/repro_torch/kernels/csrc/coded_decode.cu",
+               "src/repro/kernels/coded_decode.py:65", "glm4-9b decode"),
+              ("coded_matvec", "src/repro_torch/kernels/csrc/coded_matvec.cu",
+               "src/repro/kernels/coded_matvec.py:47", "glm4-9b block decode"),
+              ("gaussian_encode", "src/repro_torch/kernels/csrc/gaussian_encode.cu",
+               "src/repro/kernels/lt_encode.py:107", "glm4-9b raise"),
+              ("lt_encode", "src/repro_torch/kernels/csrc/lt_encode.cu",
+               "src/repro/kernels/lt_encode.py:61", "task"))),
         *((name, src, replaces, f"{arch} macro serve (graphs)",
            {"launches": results[f"macro {arch}"]["launches"][1]}, shape)
           for arch in ("mamba2-130m", "zamba2-1.2b")

@@ -14,8 +14,8 @@ Copied from ``repro.cluster.api``, imports pointed at ``repro_torch``:
 the port never imports ``repro``, whose package import pulls in jax.  The
 one change is ``encode_mode``: it adds 'cuda' and 'device', defaults to
 'device' (the reserve slice encoded on the emulator's device, so on the card
-unless the CPU is named), keeps None as the explicit host encode, and
-refuses 'auto' until per-shape dispatch is ported.
+unless the CPU is named) and keeps None as the explicit host encode; 'auto'
+is the per-shape dispatch of ``repro_torch.kernels.dispatch``.
 """
 from __future__ import annotations
 
@@ -60,7 +60,8 @@ class TaskSpec:
                   numpy, as the static rows) | 'off' (the plain PyTorch
                   versions) | 'cuda' (the kernels; raises off the card) —
                   'interpret' means 'off' and 'compile' means 'cuda';
-                  'auto' (per-shape dispatch) is not ported yet and raises.
+                  'auto' (per-shape dispatch: the kernel on the card,
+                  the plain version on a named CPU).
     backend     — execution backend: 'model' (thread emulator, model-time,
                   the deterministic CI oracle) | 'process' (wall-clock OS
                   processes) | 'thread' (wall-clock light tier) | any
@@ -101,10 +102,6 @@ class TaskSpec:
             raise ValueError(
                 f"encode_mode must be one of {ENCODE_MODES}, "
                 f"got {self.encode_mode!r}"
-            )
-        if self.encode_mode == "auto":
-            raise NotImplementedError(
-                "encode_mode 'auto' (per-shape dispatch) is not ported yet"
             )
         if self.alloc is not None and not isinstance(self.alloc, Allocation):
             raise TypeError(f"alloc must be an Allocation, got {self.alloc!r}")

@@ -210,7 +210,12 @@ class CodedLinear:
           * ``'off'`` (the reference's ``'interpret'``) — the plain version;
           * ``'svd'`` — by device, with the recovery matrix taken from the
             masked generator's pseudo-inverse (:func:`svd_recovery`) instead
-            of the DecoderCache.
+            of the DecoderCache;
+          * ``'auto'`` — per-shape dispatch (``kernels.dispatch.choose_coded_linear``
+            at the enclosing ``sharding.ctx.macro_step_k``): on a CUDA tensor
+            the kernel with the DecoderCache (``'fused'``) or
+            :func:`svd_recovery` (``'svd'``, never inside a fused block), as
+            the table measured; on a CPU tensor the plain version.
 
         Geometries the DecoderCache refuses take :func:`svd_recovery` too,
         and still run the kernel on a CUDA tensor.  The plain version sums
@@ -220,6 +225,16 @@ class CodedLinear:
         from repro_torch.core.decoding import cacheable, get_decoder_cache
         from repro_torch.kernels.ops import coded_matvec_decode
 
+        if kernel_mode == "auto":
+            from repro_torch.kernels.dispatch import backend_of, choose_coded_linear, dtype_of
+            from repro_torch.sharding.ctx import current_macro_step_k
+
+            d = choose_coded_linear(
+                self.out_features, w_coded.shape[1], x.shape[1] if x.dim() == 2 else 1,
+                self.n_data, self.n_parity, dtype_of(w_coded),
+                backend=backend_of(w_coded), macro_k=current_macro_step_k(),
+            )
+            kernel_mode = d.kernel_mode
         if kernel_mode == "svd" or not cacheable(self.n_data, self.n_parity):
             rec = svd_recovery(mask, self.n_data, self.n_parity)
         else:
@@ -252,6 +267,10 @@ def coded_block_matmul(
     ``sharding.shard_coded_head`` placed them.  A tensor is split on every
     call: free where a block's device is the weight's own, a copy
     elsewhere.  Returns y [n_data*br, batch] fp32 on ``mesh.devices[0]``.
+
+    ``kernel_mode='auto'`` resolves per local block shape
+    (``kernels.dispatch.choose_matvec``): on a CUDA block the kernel, never
+    a plain matmul; on a CPU block the plain version, as None gives there.
     """
     from repro_torch.kernels.ops import coded_matvec
     from repro_torch.sharding.policy import shard_coded_head, validate_coded_head_mesh

@@ -5,11 +5,16 @@
   * ``None`` — by the tensor's device: the kernel on a CUDA tensor, the
     plain PyTorch version on a CPU tensor;
   * ``'cuda'`` — the kernel; raises on a CPU tensor;
-  * ``'off'`` — the plain version (``repro_torch.kernels.ref``), on any device.
+  * ``'off'`` — the plain version (``repro_torch.kernels.ref``), on any device;
+  * ``'auto'`` — per-shape dispatch (``repro_torch.kernels.dispatch``): the
+    measured table, else the cost model, decides per (op, shape, dtype,
+    backend); on a CUDA tensor that is always the kernel, at its own launch
+    plan, and never the plain version or a library call; on a CPU tensor
+    the plain version.
 
 The reference's ``'compile'`` maps to ``'cuda'`` and ``'interpret'`` to
-``'off'``.  ``'auto'`` (per-shape dispatch) is not ported yet.  On a CUDA
-tensor a kernel mode launches the kernel or raises: nothing falls back.
+``'off'``.  On a CUDA tensor a kernel mode launches the kernel or raises:
+nothing falls back.
 """
 from __future__ import annotations
 
@@ -35,15 +40,15 @@ _MODES = {"off": "off", "interpret": "off", "cuda": "cuda", "compile": "cuda"}
 
 
 def resolve_mode(mode: str | None, t: torch.Tensor) -> str:
-    """'cuda' or 'off' for a requested mode and the tensor it will run on."""
-    if mode is None:
+    """'cuda' or 'off' for a requested mode and the tensor it will run on
+    (None and 'auto': by the tensor's device)."""
+    if mode is None or mode == "auto":
         return "cuda" if t.is_cuda else "off"
-    if mode == "auto":
-        raise NotImplementedError("kernel mode 'auto' (per-shape dispatch) is not ported yet")
     try:
         resolved = _MODES[mode]
     except KeyError:
-        raise ValueError(f"unknown kernel mode {mode!r}; options: {sorted(_MODES)}") from None
+        options = sorted([*_MODES, "auto"])
+        raise ValueError(f"unknown kernel mode {mode!r}; options: None, {options}") from None
     if resolved == "cuda" and not t.is_cuda:
         raise ValueError(f"kernel mode {mode!r} needs CUDA tensors, got a tensor on {t.device}")
     return resolved
@@ -53,6 +58,13 @@ def coded_matvec(a, x, mode: str | None = None):
     """y = A x for a [R, M] and x [M] or thin [M, B]; fp32 out.  The
     reference's Pallas tile knobs (``block_r``, ``block_m``) have no
     counterpart."""
+    if mode == "auto":
+        from repro_torch.kernels.dispatch import backend_of, choose_matvec, dtype_of
+        from repro_torch.sharding.ctx import current_macro_step_k
+
+        b = x.shape[1] if x.dim() == 2 else 1
+        mode = choose_matvec(a.shape[0], a.shape[1], b, dtype_of(a), backend=backend_of(a),
+                             macro_k=current_macro_step_k()).mode
     if resolve_mode(mode, a) == "off":
         return _ref.ref_coded_matvec(a, x)
     from repro_torch.kernels.coded_matvec import coded_matvec_cuda
@@ -66,6 +78,14 @@ def coded_matvec_decode(a, x, rec, mode: str | None = None):
     ``rec`` is the mask-keyed [n_data, n_blocks] recovery matrix from
     ``repro_torch.core.decoding.DecoderCache.recovery(mask)``.
     """
+    if mode == "auto":
+        from repro_torch.kernels.dispatch import backend_of, choose_matvec_decode, dtype_of
+        from repro_torch.sharding.ctx import current_macro_step_k
+
+        b = x.shape[1] if x.dim() == 2 else 1
+        mode = choose_matvec_decode(a.shape[0], a.shape[1], b, rec.shape[0], rec.shape[1],
+                                    dtype_of(a), backend=backend_of(a),
+                                    macro_k=current_macro_step_k()).mode
     if resolve_mode(mode, a) == "off":
         return _ref.ref_coded_matvec_decode(a, x, rec)
     from repro_torch.kernels.coded_decode import coded_matvec_decode_cuda
@@ -95,6 +115,9 @@ def coded_head_matvec(
         zeroing its block in the mask.  ``w_coded`` may also be the blocks
         ``sharding.shard_coded_head`` placed once.
       * no mesh — ``CodedLinear.apply``: one fused block matmul + decode.
+
+    ``kernel_mode='auto'`` resolves per shape (``repro_torch.kernels.dispatch``):
+    per local block on the mesh, per head shape without.
     """
     from repro_torch.core.coded_ops import CodedLinear, coded_block_matmul
 
@@ -108,6 +131,11 @@ def coded_head_matvec(
 
 def gaussian_encode(g, a, mode: str | None = None):
     """Â = G A for a dense generator slice (fp32)."""
+    if mode == "auto":
+        from repro_torch.kernels.dispatch import backend_of, choose_encode, dtype_of
+
+        mode = choose_encode("gaussian", g.shape[0], g.shape[1], a.shape[1],
+                             dtype=dtype_of(a), backend=backend_of(a)).mode
     if resolve_mode(mode, a) == "off":
         return _ref.ref_gaussian_encode(g, a)
     from repro_torch.kernels.lt_encode import gaussian_encode_cuda
@@ -118,6 +146,12 @@ def gaussian_encode(g, a, mode: str | None = None):
 def lt_encode(a, indices, coeffs, mode: str | None = None):
     """Â[j] = Σ_d coeffs[j,d] · A[indices[j,d]] for a padded-sparse degree
     table (coefficient 0 = padding); fp32 [q, M]."""
+    if mode == "auto":
+        from repro_torch.kernels.dispatch import backend_of, choose_encode, dtype_of
+
+        mode = choose_encode("lt", indices.shape[0], a.shape[0], a.shape[1],
+                             d_max=indices.shape[1], dtype=dtype_of(a),
+                             backend=backend_of(a)).mode
     if resolve_mode(mode, a) == "off":
         return _ref.ref_lt_encode(a, indices, coeffs)
     from repro_torch.kernels.lt_encode import lt_encode_cuda

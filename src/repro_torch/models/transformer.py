@@ -27,10 +27,11 @@ The last-position logits go through ``_last_logits``: with ``cfg.coded``
 the head matvec runs on the coded blocks (``kernels.ops.coded_head_matvec``)
 so any ``coded_parity`` erased shards (``head_mask`` zeros) still give exact
 logits.  On CUDA tensors it runs as the fused hand-written kernel
-(``head_kernel_mode`` None or ``'cuda'``); with a ``head_mesh`` (a
-``repro_torch.sharding.HeadMesh``) it runs one code block per device.  The
-head mesh and kernel modes are explicit arguments where the reference reads
-contextvars.
+(``head_kernel_mode`` None or ``'cuda'``; ``'auto'`` picks its launch per
+shape); with a ``head_mesh`` (a ``repro_torch.sharding.HeadMesh``) it runs
+one code block per device.  The head mesh and kernel mode are explicit
+arguments; where they are None the reference's contexts
+(``repro_torch.sharding.ctx``) supply them.
 
 Training: ``lm_forward`` (with the vlm image and the summed MoE aux loss)
 and ``lm_loss`` (chunked cross-entropy).  With ``cfg.remat`` every group
@@ -624,10 +625,19 @@ def _last_logits(
     (``head_mask`` zeros) still yield exact logits.  With ``head_mesh`` it
     runs one code block per device (``coded_block_matmul``); the coded head
     may then be the blocks ``sharding.shard_coded_head`` placed.  Without a
-    config (the encoder-decoder) the head is uncoded."""
+    config (the encoder-decoder) the head is uncoded.  Where
+    ``head_kernel_mode`` or ``head_mesh`` is None, the ``sharding.ctx``
+    context supplies it (``head_kernel_mode('auto')``: per-shape dispatch)."""
     last = hidden[:, -1]
     if cfg is not None and cfg.coded and "lm_head_coded" in params:
         from repro_torch.kernels.ops import coded_head_matvec
+        from repro_torch.sharding.ctx import current_coded_head_mesh, current_head_kernel_mode
+
+        if head_kernel_mode is None:
+            head_kernel_mode = current_head_kernel_mode()
+        axis = head_mesh.axis if head_mesh is not None else "model"
+        if head_mesh is None and current_coded_head_mesh() is not None:
+            head_mesh, axis = current_coded_head_mesh()
 
         nb = _coded_blocks(cfg)
         mask = head_mask
@@ -645,7 +655,7 @@ def _last_logits(
             nb - cfg.coded_parity,
             cfg.coded_parity,
             mesh=head_mesh,
-            axis=head_mesh.axis if head_mesh is not None else "model",
+            axis=axis,
             kernel_mode=head_kernel_mode,
         )
         return y[: cfg.vocab].T.to(hidden.device)

@@ -61,6 +61,7 @@ import torch
 from repro_torch import default_device
 from repro_torch.kernels import graph_kernel_nodes, kernel_wrappers
 from repro_torch.models.registry import Model, build_model
+from repro_torch.sharding.ctx import macro_step_k
 
 if TYPE_CHECKING:
     from repro_torch.core.adaptive import DeadlineAwareParity, ParityController
@@ -175,7 +176,9 @@ class ServeEngine:
         the kernel mode of the parity re-encode, ``head_kernel_mode`` that
         of the coded head and ``ssd_kernel_mode`` that of the SSD in every
         Mamba block's prefill; None means by device, the hand-written
-        kernel on CUDA and its plain version on the CPU.  ``mesh`` (a
+        kernel on CUDA and its plain version on the CPU, and ``'auto'`` the
+        per-shape dispatch (``repro_torch.kernels.dispatch``; inside a fused
+        block of K steps it resolves at ``macro_step_k(K)``).  ``mesh`` (a
         ``HeadMesh`` with axis ``head_axis`` and one device per code block)
         shards the coded head; it needs a coded config.
 
@@ -669,9 +672,10 @@ class ServeEngine:
         carried cache leaves go back into the engine's tensors.  The body
         of a captured block, and the block itself off the card."""
         cache, lt = self.cache, self._last_tok
-        for t in range(k):
-            lt, cache = self._decode(cache, lt, None if masks is None else masks[t])
-            toks[t].copy_(lt)
+        with macro_step_k(k):
+            for t in range(k):
+                lt, cache = self._decode(cache, lt, None if masks is None else masks[t])
+                toks[t].copy_(lt)
         self._commit_step(cache, lt)
 
     def _capture(self, k: int) -> _BlockGraph:
@@ -684,13 +688,15 @@ class ServeEngine:
         again with the same values by the block's first step before
         anything reads it.  Its kernel launches are real and counted.  The
         launches a replay makes are read from the captured graph's kernel
-        nodes, and must be what the wrappers recorded into it."""
+        nodes, and must be what the wrappers recorded into it.  Both run
+        under ``macro_step_k(k)``, so an ``'auto'`` head's decision for the
+        K-step block is the one the graph holds."""
         dev = self.device
         wrappers = kernel_wrappers()
         stream = self._capture_stream
         masks = self._mask_buf
         stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
+        with torch.cuda.stream(stream), macro_step_k(k):
             self._decode(self.cache, self._last_tok, None if masks is None else masks[0])
         torch.cuda.current_stream(dev).wait_stream(stream)
         toks = torch.empty((k, self.n_slots), dtype=torch.int32, device=dev)

@@ -1369,3 +1369,81 @@ def test_cuda_coded_matvec_decode_at_the_dbrx_head(b):
         assert float((got - want).abs().max()) <= 1e-4 * max(1.0, scale)
     del w
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# per-shape dispatch ('auto'): the kernel, launched exactly once
+# --------------------------------------------------------------------------
+def _auto_calls(dev, gen):
+    """(name, wrapper counted, 'auto' call, 'cuda' call) for every kernel
+    that 'auto' reaches."""
+    from repro_torch.core.coded_ops import CodedLinear
+
+    t = lambda *s: torch.randn(*s, device=dev, generator=gen)  # noqa: E731
+    a, x = t(1001, 260), t(260, 4)
+    cl = CodedLinear(14, 2, 14 * 40)
+    wc, xh = t(16 * 40, 260), t(260, 3)
+    mask = torch.ones(16, device=dev)
+    mask[[2, 9]] = 0.0
+    g, a2 = t(16, 13), t(13, 70_001)
+    lt = LTCode(300, seed=3).plan(420)
+    a3 = t(300, 4097)
+    idx = torch.as_tensor(lt.indices[300:], device=dev)
+    cof = torch.as_tensor(lt.coeffs[300:], device=dev)
+    return [
+        ("coded_matvec", coded_matvec_cuda, lambda m: ops.coded_matvec(a, x, m)),
+        ("coded_matvec_decode", coded_matvec_decode_cuda,
+         lambda m: cl.apply(wc, xh, mask, kernel_mode=m)),
+        ("gaussian_encode", gaussian_encode_cuda, lambda m: ops.gaussian_encode(g, a2, m)),
+        ("lt_encode", lt_encode_cuda, lambda m: ops.lt_encode(a3, idx, cof, m)),
+    ]
+
+
+@pytest.mark.gpu
+def test_cuda_auto_launches_the_kernel_once():
+    """'auto' on CUDA tensors raises each kernel's launch count by exactly
+    one and gives the 'cuda' mode's bits: it never runs the plain version."""
+    from repro_torch.kernels import dispatch
+
+    dev = _cuda()
+    dispatch.invalidate()
+    for name, wrapper, call in _auto_calls(dev, torch.Generator(device=dev).manual_seed(5)):
+        want = call("cuda")
+        before = wrapper.launches
+        got = call("auto")
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1, name
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.gpu
+def test_cuda_auto_raises_where_cuda_raises():
+    """'auto' on a CUDA tensor refuses what the kernel refuses, as 'cuda'
+    does, and launches nothing."""
+    from repro_torch.core.coded_ops import CodedLinear
+
+    dev = _cuda()
+    cases = [
+        (TypeError, lambda m: ops.coded_matvec_decode(
+            torch.zeros(32, 8, device=dev, dtype=torch.float16),
+            torch.zeros(8, 2, device=dev, dtype=torch.float16), torch.eye(16, device=dev)[:14],
+            m)),
+        (ValueError, lambda m: ops.coded_matvec(torch.zeros(8, 8, device=dev),
+                                                torch.zeros(8, 17, device=dev), m)),
+        (ValueError, lambda m: ops.gaussian_encode(torch.zeros(4, 3, device=dev),
+                                                   torch.zeros(5, 40, device=dev), m)),
+        (IndexError, lambda m: ops.lt_encode(torch.zeros(3, 8, device=dev),
+                                             torch.full((2, 2), 5, device=dev),
+                                             torch.ones(2, 2, device=dev), m)),
+        (ValueError, lambda m: CodedLinear(14, 2, 14 * 8).apply(
+            torch.zeros(16 * 8, 8, device=dev), torch.zeros(8, 17, device=dev),
+            torch.ones(16, device=dev), kernel_mode=m)),
+    ]
+    from repro_torch.kernels import kernel_wrappers
+
+    for err, call in cases:
+        counts = {n: w.launches for n, w in kernel_wrappers().items()}
+        for mode in ("cuda", "auto"):
+            with pytest.raises(err):
+                call(mode)
+        assert counts == {n: w.launches for n, w in kernel_wrappers().items()}

@@ -137,8 +137,7 @@ def test_encode_modes():
     assert TaskSpec(encode_mode=None).encode_mode is None
     assert TaskSpec(encode_mode="cuda").encode_mode == "cuda"
     assert TaskSpec(encode_mode="compile").encode_mode == "compile"
-    with pytest.raises(NotImplementedError, match="auto"):
-        TaskSpec(encode_mode="auto")
+    assert TaskSpec(encode_mode="auto").encode_mode == "auto"  # per-shape dispatch
     with pytest.raises(ValueError, match="encode_mode"):
         TaskSpec(encode_mode="triton")
 
