@@ -39,24 +39,32 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    to 1024), 100 and 2 tokens in bf16 and fp32, under the reference tests'
    decay and a slow one that keeps every tile in sight, a cell whose exp
    overflows above the diagonal, and ``ssd_forward`` with h0) and at
-   ragged, fp16 and misaligned shapes; max error against the stated tolerance, kernel /
-   plain / library times and the bound;
+   ragged, fp16 and misaligned shapes; the head kernels at B > 16 (x in
+   column panels of at most 16, one launch a panel: B1 at the glm4-9b code
+   block and B2 at the mamba2-130m head at B = 17, 33 and 128, B2 at the
+   glm4-9b head at B = 8) and the SSD kernels at the dryrun phase's cells
+   (zamba2-1.2b's 32,768-token prefill, mamba2-130m's 8 x 4,096 train step);
+   max error against the stated tolerance, kernel / plain / library times and
+   the bound;
 3. task, LT: the paper's coded task form (§5.1 scenario 1: r = 5,000, five
    EC2 workers, m = 500,000) through ``ClusterEmulator.run_task`` — Algorithm
    1, LT encode with the reserve rows encoded on the card by ``lt_encode``,
    adaptive top-ups under churn (worker 0 dies, worker 1 slows 5x), the
-   streaming peeling decode — held to A·x in float64 and to a host-encode
-   run of the same seed; then ``lt_encode`` against its plain version, bit
-   for bit, at that call's shapes and at ragged ones: at the task's shape
-   the kernel alone on the CSR that ``torch.sparse.mm`` also gets
-   (``kernel_ms``, in turns with it), the call as ``run_task`` makes it
-   (``ms``) and its compaction (``compaction_ms``).  The reserve is encoded with
-   ``TaskSpec``'s default ``encode_mode`` ('device': the card).  m is cut
-   only if host memory is short, and the cut is printed;
+   streaming peeling decode — held to A·x in float64; then a pair of runs at
+   a narrower m (50,000, printed as a cut), one with the device encode and
+   one with the host encode, on the same seed: the same trajectory, and the
+   host encode's y held to A·x; then ``lt_encode`` against its plain
+   version, bit for bit, at the full run's shapes and at ragged ones: at the
+   task's shape the kernel alone on the CSR that ``torch.sparse.mm`` also
+   gets (``kernel_ms``, in turns with it), the call as ``run_task`` makes it
+   (``ms``) and its compaction (``compaction_ms``).  The reserve is encoded
+   with ``TaskSpec``'s default ``encode_mode`` ('device': the card).  m is
+   cut only if host memory is short, and the cut is printed; the seconds of
+   the inputs, the full run and the pair are printed;
 4. task, Gaussian: the same at r = 500 (scenario 2's r/20, ten workers),
    m = 200,000, ``code="gaussian"``, the reserve encoded by
-   ``gaussian_encode`` (printed as a cut: the host's dense static encode,
-   run twice, sets the size);
+   ``gaussian_encode`` (printed as a cut: the host's dense static encode
+   sets the size), its trajectory pair at m = 20,000;
 5. head and serve: glm4-9b's coded head at full width under 0 and 2
    erasures; glm4-9b at full width and depth (seeded init on the card),
    4 slots, 6 requests of 16 prompt tokens and 8 new tokens, 3 persistent
@@ -135,7 +143,19 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    TPU kernel on this path, and none may launch; then a prefill and a
    decode step from seeded frames, the decode within 0.05 of max|logit| of
    ``encdec_forward`` at the next position;
-15. train glm4-9b: full width, depth cut to 2 layers (printed as a cut),
+15. dryrun: ``python -m repro_torch.launch.dryrun --dry-run --multi-pod
+   both``'s listing; the reckoned rows (both meshes, HW_H100) of four cells
+   at their assigned workload, glm4-9b decode_32k coded, mamba2-130m
+   decode_32k coded, zamba2-1.2b prefill_32k and mamba2-130m train_4k; then
+   each cell's function (``build_cell``) on the card, its arguments made
+   there, seeded, at the shapes reckoned with the batch cut where memory
+   needs it (128 -> 8, none, 32 -> 1, 256 -> 8; printed as cuts): argument
+   bytes equal to the 1 x 1 mesh's reckoning, peak allocated, the median of
+   3 timed steps beside the roofline's bound (share printed, no limit), the
+   kernels launched (B2 at 8 and at 128 columns, B5 and B6), a finite output
+   of the expected shape, and a decode cell's coded head within 1e-3 of
+   max|logit| of the plain head;
+16. train glm4-9b: full width, depth cut to 2 layers (printed as a cut),
    bf16 activations, fp32 params and moments, batch 8 of 512 tokens in 4
    microbatches: from one seeded state the FRC (s = 1) step under an
    all-ones and a one-straggler mask gives the plain step's loss (1e-5
@@ -146,9 +166,9 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    the gradient held to a central difference of the loss along it (1e-2
    relative); then 10 plain and 10 FRC steps, timed (step ms, tokens/s,
    peak GB), one profiled (device busy share); the loss must go down;
-16. train zamba2-1.2b: whole (38 layers), batch 8 of 1024 tokens (4 SSD
+17. train zamba2-1.2b: whole (38 layers), batch 8 of 1024 tokens (4 SSD
    chunks a block) in 4 microbatches: the cyclic (s = 1) step against the
-   plain step as in phase 15 (two stragglers undecodable); through
+   plain step as in phase 16 (two stragglers undecodable); through
    ``repro_torch.launch.train`` a 3-step run with adaptive s, then the timed
    run at a fixed s = 1 with int8 messages and error feedback under Markov
    stragglers at 0.2 and 3x; ``ssd_chunk`` and ``ssd_combine`` launch once per Mamba
@@ -158,13 +178,13 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    autograd through ``ssd_chunked``, its recompute's share of a step; every
    kernel wrapper refuses an input that requires grad; one step of the timed
    configuration profiled;
-17. train drill: mamba2-130m through the launcher on 8 logical devices
+18. train drill: mamba2-130m through the launcher on 8 logical devices
    (2 DP slices), FRC s = 0, 10 steps, a checkpoint every 3 steps, the last
    slice killed at step 7: 2 skipped steps, the grid shrinks 2 -> 1, the run
    resumes from step 6, and (under deterministic algorithms) its losses
    after the restore equal a fresh run's from that checkpoint bit for bit;
-   then the SSD kernels and ``SSDScan`` at its block 0 as in phase 16;
-18.-20. train llama-3.2-vision-11b (depth cut to one group of 5 of 40
+   then the SSD kernels and ``SSDScan`` at its block 0 as in phase 17;
+19.-21. train llama-3.2-vision-11b (depth cut to one group of 5 of 40
    layers: four self-attention layers and the gated cross-attention layer,
    gates 0.5, seeded images [8, 1024, 4096]), dbrx-132b (1 of 40 layers,
    16 experts top-4, one microbatch, plain steps only) and
@@ -176,11 +196,11 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    router, the encdec's cross-attention and first encoder weights)
    non-zero and finite, the loss, the aux loss and the share of MoE
    assignments dropped at capacity; for the vlm and the encdec the FRC
-   (s = 1) step against the plain one as in phase 15; then 4 plain and 4
+   (s = 1) step against the plain one as in phase 16; then 4 plain and 4
    FRC steps on two batches in turn, timed (step ms, tokens/s, peak GB
    beside the memory reckoned beforehand), one profiled (device busy
    share); the loss must go down, and none of the six kernels may launch;
-21. a ``kernels`` line with every kernel on every path it runs (launch
+22. a ``kernels`` line with every kernel on every path it runs (launch
    counts read around that path's run; ``lt_encode``'s ``ms`` is the
    call with its compaction, its ``kernel_ms`` the kernel alone, which its
    ``library_ms`` is held to), then the device line.  The seconds of each
@@ -212,6 +232,14 @@ TC_BF16_FLOPS = 989e12       # H100 SXM dense bf16 on the tensor cores (data she
 PAPER_M = 500_000            # the paper's width of A (benchmarks/paper_ec2.py)
 GAUSSIAN_TASK_M = 200_000    # the Gaussian task's cut width (phase_task_gaussian)
 TASK_TIME_SCALE = 10.0       # wall seconds per model second of the paced task runs
+# the task forms' trajectory pair (device encode against host encode) runs at
+# a tenth of the full width: the host's encode scales with m, and the task
+# runs in model time, so the pair's width does not change what it checks
+LT_PAIR_M = 50_000
+GAUSSIAN_PAIR_M = 20_000
+PAIR_REASON = ("the host encode's run exists only for the trajectory check (device vs host "
+               "encode, one seed), whose outcome does not depend on m; at the full width it "
+               "took about 150-250 s of the smoke's 1,200 s limit")
 
 
 def emit(obj: dict) -> None:
@@ -339,6 +367,7 @@ def phase_kernels(torch, gen, results: dict) -> None:
     kernel_gaussian(torch, gen, results)
     kernel_coded_matvec(torch, gen, results)
     kernel_ssd(torch, results)
+    kernel_ssd_dryrun(torch, results)
     # launches made for these comparisons are not the main path's
     _reset_launches()
 
@@ -376,6 +405,14 @@ def kernel_coded_decode(torch, gen, results: dict) -> None:
                    ("dbrx-132b prefill", 14, 2, 7168, 6144, 1),
                    ("dbrx-132b decode", 14, 2, 7168, 6144, 4),
                    ("dbrx-132b decode after raise", 13, 3, 7720, 6144, 4),
+                   # the dryrun phase's glm4-9b decode cell (batch cut to 8)
+                   ("glm4-9b decode B=8", 14, 2, 10826, 4096, 8),
+                   # x wider than one launch (16 columns): column panels, one
+                   # launch and one read of W_c each; B = 128 is the dryrun
+                   # phase's mamba2-130m decode cell
+                   ("mamba2-130m decode B=17", 14, 2, 3592, 768, 17),
+                   ("mamba2-130m decode B=33", 14, 2, 3592, 768, 33),
+                   ("mamba2-130m decode B=128", 14, 2, 3592, 768, 128),
                    ("ragged", 13, 3, 1001, 4097, 3),
                    ("ragged", 6, 2, 77, 516, 16),
                    ("ragged x in panels", 6, 2, 300, 4100, 16),
@@ -386,7 +423,9 @@ def kernel_coded_decode(torch, gen, results: dict) -> None:
                    ("ragged 32 blocks", 30, 2, 70, 1028, 1)]
     timed = ("glm4-9b prefill", "glm4-9b decode", "mamba2-130m prefill", "mamba2-130m decode",
              "zamba2-1.2b prefill", "zamba2-1.2b decode", "llama-3.2-vision-11b prefill",
-             "llama-3.2-vision-11b decode", "dbrx-132b prefill", "dbrx-132b decode")
+             "llama-3.2-vision-11b decode", "dbrx-132b prefill", "dbrx-132b decode",
+             "glm4-9b decode B=8", "mamba2-130m decode B=17", "mamba2-130m decode B=33",
+             "mamba2-130m decode B=128")
     for label, n_data, n_parity, br, m, b in head_shapes:
         nb = n_data + n_parity
         w = torch.randn(nb * br, m, device=dev, generator=gen)
@@ -408,7 +447,9 @@ def kernel_coded_decode(torch, gen, results: dict) -> None:
             tol = rtol * max(1.0, scale)
             row = {"phase": "kernel", "kernel": "coded_matvec_decode", "shape": label,
                    "w": [nb * br, m], "b": b, "erased": list(erased),
-                   "x_in_panels": b * -(-m // 4) * 4 * 4 > thin_rows.X_CAP_BYTES,
+                   "launches_a_call": len(thin_rows.column_panels(b)),
+                   "x_in_panels": min(b, thin_rows.MAX_B) * -(-m // 4) * 4 * 4
+                   > thin_rows.X_CAP_BYTES,
                    "max_abs_err": err, "tol": tol, "bit_equal_relaunch": torch.equal(got, again)}
             del got, want, again
             if not erased and label in timed:
@@ -417,8 +458,10 @@ def kernel_coded_decode(torch, gen, results: dict) -> None:
                     lambda: torch.matmul(w, x), 20)
                 row["library_call"] = "torch.matmul(W_c, x), the block product alone (partial yardstick)"
                 row["plain_ms"] = time_ms(torch, lambda: ref.ref_coded_matvec_decode(w, x, rec), 20)
-                head_host_cost(torch, row, lambda: ops.coded_matvec_decode(w, x, rec, mode="cuda"),
-                               "coded_decode", w, x, rec, 20)
+                if b <= thin_rows.MAX_B:  # the bare C entry takes one launch's columns
+                    head_host_cost(torch, row,
+                                   lambda: ops.coded_matvec_decode(w, x, rec, mode="cuda"),
+                                   "coded_decode", w, x, rec, 20)
                 n_bytes = 4 * (w.numel() + x.numel() + rec.numel() + n_data * br * b)
                 n_ops = 2 * nb * br * m * b + 2 * n_data * nb * br * b
                 row["bound_ms"], row["bound_by"] = bound(n_bytes, n_ops)
@@ -499,7 +542,7 @@ def kernel_coded_matvec(torch, gen, results: dict) -> None:
     (head_host_cost); ragged shapes, rows below and just above the SM count,
     B = 16 with x in panels, fp16, and a misaligned block view.  Each is
     launched twice and the two results must be bit-equal."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, thin_rows
 
     dev = torch.device("cuda")
     shapes = [  # label, rows, M, B, dtype, timed
@@ -508,6 +551,10 @@ def kernel_coded_matvec(torch, gen, results: dict) -> None:
         ("glm4-9b block after raise", 11658, 4096, 4, torch.float32, True),
         ("glm4-9b whole W_c", 173216, 4096, 4, torch.float32, True),
         ("glm4-9b block decode fp16", 10826, 4096, 4, torch.float16, True),
+        # x wider than one launch: column panels, one launch and one read of A each
+        ("glm4-9b block B=17", 10826, 4096, 17, torch.float32, True),
+        ("glm4-9b block B=33", 10826, 4096, 33, torch.float32, True),
+        ("glm4-9b block B=128", 10826, 4096, 128, torch.float32, True),
         ("ragged", 513, 129, 3, torch.float32, False),
         ("ragged", 100, 70, 1, torch.float32, False),
         ("ragged", 1, 4096, 1, torch.float32, False),
@@ -540,6 +587,7 @@ def kernel_coded_matvec(torch, gen, results: dict) -> None:
         tol = (1e-4 if dtype == torch.float32 else 2e-3) * max(1.0, scale)
         row = {"phase": "kernel", "kernel": "coded_matvec", "shape": label,
                "a": [rows, m], "b": b, "dtype": str(dtype).removeprefix("torch."),
+               "launches_a_call": len(thin_rows.column_panels(b)),
                "max_abs_err": err, "tol": tol, "bit_equal_relaunch": torch.equal(got, again)}
         del got, want, again
         if timed:
@@ -549,8 +597,9 @@ def kernel_coded_matvec(torch, gen, results: dict) -> None:
                 iters)
             row["library_call"] = f"torch.matmul(A, x) in {row['dtype']}"
             row["plain_ms"] = time_ms(torch, lambda: ref.ref_coded_matvec(a, x), iters)
-            head_host_cost(torch, row, lambda: ops.coded_matvec(a, x, mode="cuda"),
-                           "coded_matvec", a, x, None, iters)
+            if b <= thin_rows.MAX_B:  # the bare C entry takes one launch's columns
+                head_host_cost(torch, row, lambda: ops.coded_matvec(a, x, mode="cuda"),
+                               "coded_matvec", a, x, None, iters)
             n_bytes = a.element_size() * (a.numel() + x.numel()) + 4 * rows * b
             row["bound_ms"], row["bound_by"] = bound(n_bytes, 2 * rows * m * b)
             against_library(row)
@@ -776,6 +825,57 @@ def kernel_ssd(torch, results: dict) -> None:
                                  f"final {f_err}, y {y_err}")
             del x, da, b, c, h0, y, final, y_p, final_p
     torch.cuda.empty_cache()
+
+
+# the dryrun phase's SSD cells (bf16): zamba2-1.2b's 32,768-token prefill at
+# batch 1 (G 64 heads x 128 chunks), and mamba2-130m's train step at 8 x 4,096
+# tokens (G 32 heads x 8 sequences x 16 chunks: cells of the same shape as
+# one 32,768-token sequence's)
+SSD_DRYRUN = (("zamba2-1.2b 32768 bfloat16", "zamba2-1.2b", 32768),
+              ("mamba2-130m train 8x4096 bfloat16", "mamba2-130m", 8 * 4096))
+
+
+def kernel_ssd_dryrun(torch, results: dict) -> None:
+    """ssd_chunk and ssd_combine against their plain versions at the dryrun
+    phase's cells (the reference tests' decay), timed as the 4096-token
+    cells are (``_ssd_timed``)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_chunk_cuda, ssd_combine_cuda
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    for label, arch, s in SSD_DRYRUN:
+        heads, p, n = SSD_WIDTHS[arch]
+        x, da, b, c = _ssd_cells(torch, gen, heads, p, n, s, torch.bfloat16)
+        g, q = da.shape
+        got = ssd_chunk_cuda(x, da, b, c)
+        want = ref.ref_ssd_chunk(x, da, b, c)
+        s_in = 0.1 * torch.randn(g, p, n, device=dev, generator=gen)
+        y_off = ssd_combine_cuda(c, want[3], s_in)
+        y_off_want = ref.ref_ssd_combine(c, want[3], s_in)
+        torch.cuda.synchronize()
+        checks = dict(zip(("y_diag", "states", "decay", "cum"),
+                          (_ssd_check(torch, gv, wv) for gv, wv in zip(got, want))))
+        comb = _ssd_check(torch, y_off, y_off_want)
+        del got, y_off, y_off_want
+        row_c = {"phase": "kernel", "kernel": "ssd_chunk", "shape": label, "g": g, "q": q,
+                 "p": p, "n": n, "dtype": "bfloat16", "da_draw": "reference",
+                 "errors": {k: v[0] for k, v in checks.items()},
+                 "tols": {k: v[1] for k, v in checks.items()},
+                 "max_abs_err": checks["y_diag"][0], "tol": checks["y_diag"][1]}
+        row_m = {"phase": "kernel", "kernel": "ssd_combine", "shape": label, "g": g, "q": q,
+                 "p": p, "n": n, "dtype": "bfloat16", "da_draw": "reference",
+                 "max_abs_err": comb[0], "tol": comb[1]}
+        for k, (err, tol, ok) in checks.items():
+            check(ok, f"ssd_chunk {label} {k}: max err {err}, allowed {tol}")
+        check(comb[2], f"ssd_combine {label}: max err {comb[0]}, allowed {comb[1]}")
+        _ssd_timed(torch, row_c, row_m, x, da, b, c, want[3], s_in)
+        results.setdefault("ssd_chunk", {})[label] = row_c
+        results.setdefault("ssd_combine", {})[label] = row_m
+        emit(row_c)
+        emit(row_m)
+        del x, da, b, c, want, s_in
+        torch.cuda.empty_cache()
 
 
 AUTO_BUDGET_S = 120.0   # the auto phase's share of the smoke's 1,200 s
@@ -1054,10 +1154,35 @@ def _same_trajectory(dev_res, host_res) -> bool:
             and dev_res.rows_assigned == host_res.rows_assigned)
 
 
+def _trajectory_pair(torch, r: int, m: int, workers, code: str, seed: int,
+                     x_seed: int) -> dict:
+    """The task run twice at a narrower width m, with the device encode and
+    with the host encode, on one seed: the trajectory (arrivals,
+    reallocations, rows assigned) must not depend on where the reserve rows
+    are encoded, and the host encode's y is held to A·x as the device's."""
+    t0 = time.perf_counter()
+    a, x, y_ref = _task_inputs(torch, r, m, x_seed)
+    inputs_s = time.perf_counter() - t0
+    dev_row, dev_res, _ = _run_task(torch, a, x, y_ref, workers, code, "device", seed)
+    host_row, host_res, _ = _run_task(torch, a, x, y_ref, workers, code, None, seed)
+    pair = {"m": m, "inputs_s": inputs_s, "device_encode": dev_row, "host_encode": host_row,
+            "same_trajectory": _same_trajectory(dev_res, host_res),
+            "y_max_abs_diff_device_vs_host": float(np.abs(dev_res.y - host_res.y).max())}
+    check(dev_res.ok and host_res.ok, f"{code} task pair at m = {m} did not decode")
+    check(host_row["max_rel_err"] <= 2e-3,
+          f"{code} task (host encode) rel err {host_row['max_rel_err']}")
+    check(pair["same_trajectory"], f"{code}: device and host encode runs differ in arrivals, "
+                                   f"reallocations or rows assigned")
+    del a, x, y_ref, dev_res, host_res
+    gc.collect()
+    return pair
+
+
 def phase_task_lt(torch, args, results: dict, smi: str) -> None:
     """The paper's task form at scenario 1 through the port's run_task, the
     reserve rows LT-encoded on the card by TaskSpec's default encode_mode;
-    then lt_encode at that call's shapes."""
+    the host encode's run beside a device run at a narrower m (the
+    trajectory check); then lt_encode at the full run's shapes."""
     from repro_torch.cluster import ec2_scenario
 
     r, workers = ec2_scenario(1)
@@ -1074,6 +1199,8 @@ def phase_task_lt(torch, args, results: dict, smi: str) -> None:
                          f"{need_per_col * m:.1f} GB reckoned at m = {m}"}
         emit({"phase": "cut", "task": "lt", **cut})
         m = cut["m"]
+    pair_cut = {"same_trajectory_m": LT_PAIR_M, "of_m": m, "reason": PAIR_REASON}
+    emit({"phase": "cut", "task": "lt", **pair_cut})
     t0 = time.perf_counter()
     a, x, y_ref = _task_inputs(torch, r, m, args.seed)
     inputs_s = time.perf_counter() - t0
@@ -1084,28 +1211,24 @@ def phase_task_lt(torch, args, results: dict, smi: str) -> None:
     plan = enc["plan"]
     static_total = dev_row["rows_assigned"] - enc["rows"]
     del em
-    host_row, host_res, em = _run_task(torch, a, x, y_ref, workers, "lt", None,
-                                       args.seed)
-    del em
-    row = {"phase": "task", "code": "lt", "scenario": 1, "r": r, "m": m,
-           "cut": cut, "workers": [w.name for w in workers],
-           "time_scale": TASK_TIME_SCALE, "inputs_s": inputs_s, "static_rows": static_total,
-           "device_encode": dev_row, "host_encode": host_row,
-           "same_trajectory": _same_trajectory(dev_res, host_res),
-           "y_max_abs_diff_device_vs_host": float(np.abs(dev_res.y - host_res.y).max()),
-           "card": smi}
-    emit(row)
-    results["task_lt"] = row
     check(dev_res.ok, "LT task (device encode) did not decode")
     check(dev_row["max_rel_err"] <= 2e-3, f"LT task rel err {dev_row['max_rel_err']} > 2e-3")
     check(dev_row["rows_assigned"] > static_total, "top-ups drew no reserve rows")
     check(dev_row["launches"]["lt_encode"] == 1, f"lt_encode launches {dev_row['launches']}")
-    check(host_res.ok and host_row["max_rel_err"] <= 2e-3,
-          f"LT task (host encode) rel err {host_row['max_rel_err']}")
-    check(row["same_trajectory"], "device and host encode runs differ in arrivals, "
-                                  "reallocations or rows assigned")
-    del dev_res, host_res
+    del dev_res
     gc.collect()
+    t1 = time.perf_counter()
+    pair = _trajectory_pair(torch, r, LT_PAIR_M, workers, "lt", args.seed, args.seed)
+    row = {"phase": "task", "code": "lt", "scenario": 1, "r": r, "m": m,
+           "cut": cut, "pair_cut": pair_cut, "workers": [w.name for w in workers],
+           "time_scale": TASK_TIME_SCALE, "inputs_s": inputs_s, "static_rows": static_total,
+           "device_encode": dev_row, "pair": pair,
+           "same_trajectory": pair["same_trajectory"],
+           "seconds": {"inputs": inputs_s, "device_run": dev_row["run_task_wall_s"],
+                       "pair": time.perf_counter() - t1},
+           "card": smi}
+    emit(row)
+    results["task_lt"] = row
 
     kernel_lt_encode(torch, a, plan, results)
     del a, x, y_ref, plan
@@ -1193,8 +1316,9 @@ def kernel_lt_encode(torch, a_host, plan, results: dict) -> None:
 
 def phase_task_gaussian(torch, args, results: dict, smi: str) -> None:
     """The task form with the Gaussian code at a stated cut, the reserve rows
-    encoded by gaussian_encode on the card; then gaussian_encode at that
-    call's shape."""
+    encoded by gaussian_encode on the card; the host encode's run beside a
+    device run at a narrower m; then gaussian_encode at the full run's
+    shape."""
     from repro_torch.cluster import ec2_scenario
     from repro_torch.kernels.lt_encode import gaussian_encode_cuda
 
@@ -1202,33 +1326,37 @@ def phase_task_gaussian(torch, args, results: dict, smi: str) -> None:
     r, m = r_full // 20, GAUSSIAN_TASK_M
     cut = {"r": r, "of_r": r_full, "m": m, "of_m": PAPER_M,
            "reason": "the host's static dense encode (numpy gather and einsum, "
-                     "static rows x r x m multiply-adds, once in each of the two "
-                     "runs): r/20 as benchmarks/paper_ec2.py, and m as wide as "
-                     "keeps the phase within its share of the time limit"}
+                     "static rows x r x m multiply-adds): r/20 as "
+                     "benchmarks/paper_ec2.py, and m as wide as keeps the phase "
+                     "within its share of the time limit"}
     emit({"phase": "cut", "task": "gaussian", **cut})
+    pair_cut = {"same_trajectory_m": GAUSSIAN_PAIR_M, "of_m": m, "reason": PAIR_REASON}
+    emit({"phase": "cut", "task": "gaussian", **pair_cut})
+    t0 = time.perf_counter()
     a, x, y_ref = _task_inputs(torch, r, m, args.seed + 1)
+    inputs_s = time.perf_counter() - t0
     dev_row, dev_res, em = _run_task(torch, a, x, y_ref, workers, "gaussian", "device",
                                      args.seed)
     enc = em.last_encode
     check(enc is not None, "no device encode ran: the top-ups drew no reserve rows")
-    host_row, host_res, _ = _run_task(torch, a, x, y_ref, workers, "gaussian", None,
-                                      args.seed)
-    row = {"phase": "task", "code": "gaussian", "scenario": 2, "r": r, "m": m,
-           "cut": cut, "workers": [w.name for w in workers],
-           "time_scale": TASK_TIME_SCALE,
-           "device_encode": dev_row, "host_encode": host_row,
-           "same_trajectory": _same_trajectory(dev_res, host_res),
-           "y_max_abs_diff_device_vs_host": float(np.abs(dev_res.y - host_res.y).max()),
-           "card": smi}
-    emit(row)
-    results["task_gaussian"] = row
     check(dev_res.ok and dev_row["max_rel_err"] <= 2e-3,
           f"Gaussian task rel err {dev_row['max_rel_err']}")
     check(dev_row["launches"]["gaussian_encode"] == 1,
           f"gaussian_encode launches {dev_row['launches']}")
-    check(host_res.ok and host_row["max_rel_err"] <= 2e-3,
-          f"Gaussian task (host encode) rel err {host_row['max_rel_err']}")
-    check(row["same_trajectory"], "device and host encode runs differ in trajectory")
+    del dev_res
+    t1 = time.perf_counter()
+    pair = _trajectory_pair(torch, r, GAUSSIAN_PAIR_M, workers, "gaussian", args.seed,
+                            args.seed + 1)
+    row = {"phase": "task", "code": "gaussian", "scenario": 2, "r": r, "m": m,
+           "cut": cut, "pair_cut": pair_cut, "workers": [w.name for w in workers],
+           "time_scale": TASK_TIME_SCALE,
+           "device_encode": dev_row, "pair": pair,
+           "same_trajectory": pair["same_trajectory"],
+           "seconds": {"inputs": inputs_s, "device_run": dev_row["run_task_wall_s"],
+                       "pair": time.perf_counter() - t1},
+           "card": smi}
+    emit(row)
+    results["task_gaussian"] = row
 
     # gaussian_encode at the task's shape: G [q, r] (the plan's reserve slice) x A
     dev = torch.device("cuda")
@@ -2289,6 +2417,165 @@ def phase_encdec_serve(torch, args, results: dict, smi: str) -> None:
     del eng, cache, hidden
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# the dry run on the card
+# (cell, arch, shape, coded, batch cut to (None: no cut), why)
+DRYRUN_CELLS = (
+    ("dryrun-glm4-9b-decode_32k-coded", "glm4-9b", "decode_32k", True, 8,
+     "device memory: the KV cache is 171.8 GB at batch 128 and 10.7 GB at 8, beside 37.6 GB "
+     "of fp32 params"),
+    ("dryrun-mamba2-130m-decode_32k-coded", "mamba2-130m", "decode_32k", True, None, None),
+    ("dryrun-zamba2-1.2b-prefill_32k", "zamba2-1.2b", "prefill_32k", False, 1,
+     "device memory: the activations of 32 prompts of 32,768 tokens"),
+    ("dryrun-mamba2-130m-train_4k", "mamba2-130m", "train_4k", False, 8,
+     "device memory: the activations of 256 sequences of 4,096 tokens in one microbatch"),
+)
+DRYRUN_STEPS = 3          # timed calls of each cell's function, after one warm-up
+DRYRUN_HEAD_TOL = 1e-3    # a decode cell's logits against the plain head's, of max|logit|
+
+
+def _dryrun_brief(row: dict) -> dict:
+    """A dry-run row as printed beside its card run."""
+    rl = row["roofline"]
+    return {"multi_pod": row["multi_pod"], "chips": row["chips"], "memory": row["memory"],
+            "flops": row["cost"]["flops"], "hbm_bytes": row["cost"]["hbm_bytes"],
+            "bound_s": max(rl["compute_s"], rl["memory_s"]), "dominant": rl["dominant"],
+            "mfu_bound": rl["mfu_bound"], "count_s": row["count_s"]}
+
+
+def _expected_launches(cfg, kind: str, calls: int, batch: int) -> dict:
+    """The six kernels' launches in ``calls`` calls of a dryrun cell's
+    function: the coded head's decode kernel once a column panel of x
+    (decode), each Mamba block's SSD pair once a prefill, and twice a train
+    step (its forward and the checkpoint's recompute; one microbatch)."""
+    from repro_torch.kernels.thin_rows import column_panels
+
+    want = {"coded_matvec": 0, "coded_matvec_decode": 0, "gaussian_encode": 0,
+            "lt_encode": 0, "ssd_chunk": 0, "ssd_combine": 0}
+    if kind == "decode" and cfg.coded:
+        want["coded_matvec_decode"] = calls * len(column_panels(batch))
+    if cfg.family in ("ssm", "hybrid") and kind != "decode":
+        per = cfg.n_layers * (2 if kind == "train" else 1)
+        want["ssd_chunk"] = want["ssd_combine"] = calls * per
+    return want
+
+
+def phase_dryrun(torch, args, results: dict, smi: str) -> None:
+    """The dry run (``repro_torch.launch.dryrun``): its ``--dry-run``
+    listing, the reckoned rows (both meshes, HW_H100) of four cells at their
+    assigned workload, and each cell's function run on the card at the cut
+    workload with arguments of the same shapes made there: their bytes
+    equal to the 1 x 1 reckoning, the peak, the median step against the
+    roofline's bound, the kernels launched."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.utils.hlo import HW_H100
+    from repro_torch.utils.tree import tree_flatten_with_path
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dryrun.main(["--dry-run", "--multi-pod", "both"])
+    listing = buf.getvalue()
+    print(listing, end="", flush=True)
+    check("--dry-run: 64 compilable cells resolved" in listing,
+          "the dry run's listing does not resolve 64 cells")
+    one = make_mesh((1, 1), ("data", "model"))
+    for label, arch, shape, coded, cut_batch, why in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        cfg, wl = get_config(arch), SHAPES[shape]
+        rows = dryrun.run_cells(arch, shape, (False, True), coded=coded)
+        for r in rows:
+            check(r["status"] == "ok", f"{label}: dry-run row {r.get('error')}")
+        cut = None
+        if cut_batch is not None:
+            cut = {"batch": cut_batch, "of_batch": wl.batch, "reason": why}
+            emit({"phase": "cut", "cell": label, **cut})
+            wl = dataclasses.replace(wl, batch=cut_batch)
+        reckoned, rl = dryrun.reckon(cfg, wl, one, coded=coded)
+        count_s = time.perf_counter() - t0
+
+        t1 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(args.seed + 23)
+        fn, cell_args, meta = dryrun.build_cell(cfg, wl, one, coded=coded, device="cuda",
+                                                generator=gen)
+        arg_bytes = sum(x.numel() * x.element_size()
+                        for a in cell_args for _, x in tree_flatten_with_path(a))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t1
+        check(arg_bytes == reckoned["memory"]["argument_size_in_bytes"],
+              f"{label}: {arg_bytes} argument bytes on the card, "
+              f"{reckoned['memory']['argument_size_in_bytes']} reckoned")
+
+        t2 = time.perf_counter()
+        _reset_launches()
+        out = fn(*cell_args)  # warm-up
+        steps_ms = []
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        for _ in range(DRYRUN_STEPS):
+            del out
+            start.record()
+            out = fn(*cell_args)
+            stop.record()
+            torch.cuda.synchronize()
+            steps_ms.append(start.elapsed_time(stop))
+        launches = _launches()
+        run_s = time.perf_counter() - t2
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        step_ms = float(np.median(steps_ms))
+        want = _expected_launches(meta["cfg"], wl.kind, DRYRUN_STEPS + 1, wl.batch)
+
+        # what came out: finite, of the expected shape; a decode cell's
+        # coded head against the plain head on the same step
+        outcome: dict = {}
+        if wl.kind == "train":
+            metrics = out[1]
+            outcome = {k: float(metrics[k]) for k in ("loss", "grad_norm")}
+            ok = all(np.isfinite(v) for v in outcome.values())
+        else:
+            logits = out[0]
+            ok = (tuple(logits.shape) == (wl.batch, cfg.vocab)
+                  and bool(torch.isfinite(logits).all()))
+            outcome = {"logits_shape": list(logits.shape), "finite": ok}
+            if wl.kind == "decode":
+                model = build_model(meta["cfg"])
+                with torch.no_grad():
+                    plain = model.decode_step(*cell_args, head_kernel_mode="off")[0]
+                err, scale = max_err(torch, logits, plain)
+                outcome.update(head_vs_plain_max_abs_err=err, max_abs_logit=scale,
+                               tol=DRYRUN_HEAD_TOL * scale)
+                ok = ok and err <= DRYRUN_HEAD_TOL * scale
+                del plain
+        row = {"phase": "dryrun", "cell": label, "arch": arch, "shape": shape, "coded": coded,
+               "workload": {"kind": wl.kind, "seq": wl.seq, "batch": wl.batch}, "batch_cut": cut,
+               "dryrun_rows": [_dryrun_brief(r) for r in rows],
+               "reckoned_1x1": {"memory": reckoned["memory"], "flops": reckoned["cost"]["flops"],
+                                "flops_by_dtype": reckoned["cost"]["flops_by_dtype"],
+                                "hbm_bytes": reckoned["cost"]["hbm_bytes"],
+                                "model_flops": reckoned["roofline"]["model_flops"]},
+               "arg_bytes_card": arg_bytes,
+               "arg_bytes_reckoned": reckoned["memory"]["argument_size_in_bytes"],
+               "peak_allocated_gb": peak_gb, "step_ms": step_ms, "steps_ms": steps_ms,
+               "bound_ms": rl.bound_s * 1e3, "bound_by": rl.dominant,
+               "share_of_bound": rl.bound_s * 1e3 / step_ms,
+               "mfu": reckoned["roofline"]["model_flops"] / (HW_H100.peak_flops
+                                                            * step_ms / 1e3),
+               "launches": launches, "launches_expected": want, "outcome": outcome,
+               "seconds": {"count": count_s, "build": build_s, "run": run_s}, "card": smi}
+        emit(row)
+        results[label] = row
+        check(ok, f"{label}: the step's output is wrong: {outcome}")
+        check(launches == want, f"{label}: launches {launches}, expected {want}")
+        del fn, cell_args, meta, out
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -3677,8 +3964,8 @@ def _allocator(torch, snapshot: bool = False) -> dict:
 
 
 def c2_order(torch, args, smi: str) -> int:
-    """Only the order in which the glm4-9b FRC train step (phase 15) once
-    ran out of memory: the vlm, moe and encdec serves, then phase 15, with
+    """Only the order in which the glm4-9b FRC train step (phase 16) once
+    ran out of memory: the vlm, moe and encdec serves, then phase 16, with
     the allocator's state printed between them.  At an out-of-memory error
     it prints the error, the allocator's statistics and a summary of its
     snapshot, and returns 1; else 0.  No device line."""
@@ -3793,6 +4080,7 @@ def main() -> int:
     for arch in FAMILY_ARCHS:
         timed(f"serve {arch}", phase_family_serve, torch, args, results, smi, arch)
     timed("serve seamless-m4t-large-v2", phase_encdec_serve, torch, args, results, smi)
+    timed("dryrun", phase_dryrun, torch, args, results, smi)
     timed("train glm4-9b", phase_train_glm, torch, args, results, smi)
     timed("train zamba2-1.2b", phase_train_zamba, torch, args, results, smi)
     timed("train drill", phase_train_drill, torch, args, results, smi)
@@ -3883,6 +4171,21 @@ def main() -> int:
                "src/repro/kernels/ssd_scan.py:52"),
               ("ssd_combine", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                "src/repro/kernels/ssd_scan.py:99"))),
+        *((name, src, replaces, cell, results[cell], shape)
+          for cell, name, src, replaces, shape in (
+              ("dryrun-glm4-9b-decode_32k-coded", "coded_matvec_decode",
+               "src/repro_torch/kernels/csrc/coded_decode.cu",
+               "src/repro/kernels/coded_decode.py:65", "glm4-9b decode B=8"),
+              ("dryrun-mamba2-130m-decode_32k-coded", "coded_matvec_decode",
+               "src/repro_torch/kernels/csrc/coded_decode.cu",
+               "src/repro/kernels/coded_decode.py:65", "mamba2-130m decode B=128"),
+              *((cell, name, "src/repro_torch/kernels/csrc/ssd_scan.cu", replaces, shape)
+                for cell, shape in (("dryrun-zamba2-1.2b-prefill_32k",
+                                     "zamba2-1.2b 32768 bfloat16"),
+                                    ("dryrun-mamba2-130m-train_4k",
+                                     "mamba2-130m train 8x4096 bfloat16"))
+                for name, replaces in (("ssd_chunk", "src/repro/kernels/ssd_scan.py:52"),
+                                       ("ssd_combine", "src/repro/kernels/ssd_scan.py:99"))))),
     ):
         r = results[name][shape]
         launches = phase.get("device_encode", phase)["launches"]

@@ -5,7 +5,10 @@ the Pallas ``repro.kernels.coded_decode.coded_matvec_decode_pallas``):
 y = R · blocked(W_c x), decoded inside the kernel so the coded partials
 never reach device memory.  The row products stream through
 ``csrc/thin_rows.cuh`` on the geometry of
-``repro_torch.kernels.thin_rows.head_plan``.  Its plain version is
+``repro_torch.kernels.thin_rows.head_plan``.  The kernel takes up to
+``MAX_B`` columns of x; a wider x runs in column panels
+(``thin_rows.column_panels``), one launch (and one read of W_c) a panel.
+Its plain version is
 ``repro_torch.kernels.ref.ref_coded_matvec_decode``; the mode-switching
 wrapper is ``repro_torch.kernels.ops.coded_matvec_decode``.
 """
@@ -21,15 +24,16 @@ from repro_torch.kernels._build import c_function
 
 __all__ = ["MAX_B", "MAX_BLOCKS", "coded_matvec_decode_cuda"]
 
-MAX_B = 16        # widest x the kernel takes (decode batch = n_slots)
+MAX_B = thin_rows.MAX_B   # widest x one launch takes; wider runs in panels
 MAX_BLOCKS = 32   # most code blocks (the mask-keyed cache stops at 20)
 
 
 def coded_matvec_decode_cuda(
     w_coded: torch.Tensor, x: torch.Tensor, rec: torch.Tensor
 ) -> torch.Tensor:
-    """w_coded [nb*br, M], x [M] or [M, B] (B <= 16), rec [n_data, nb] —
-    all fp32, contiguous, on one CUDA device -> y [n_data*br(, B)] fp32."""
+    """w_coded [nb*br, M], x [M] or [M, B] (any B >= 1), rec [n_data, nb] —
+    all fp32, contiguous, on one CUDA device -> y [n_data*br(, B)] fp32.
+    B > 16 runs in ceil(B / 16) column panels, each one launch, counted."""
     refuse_grad(coded_matvec_decode_cuda, w_coded, x, rec)
     for name, t in (("w_coded", w_coded), ("x", x), ("rec", rec)):
         if not t.is_cuda:
@@ -51,8 +55,22 @@ def coded_matvec_decode_cuda(
         raise ValueError(f"rec [{n_data}, {nb}] outside 1 <= n_data <= nb <= {MAX_BLOCKS}")
     if rows % nb or rows == 0 or m == 0:
         raise ValueError(f"{rows} coded rows not a positive multiple of {nb} blocks")
-    if not 1 <= b <= MAX_B:
-        raise ValueError(f"x has {b} columns; the kernel takes 1..{MAX_B}")
+    if b < 1:
+        raise ValueError("x has no columns")
+    if b > MAX_B:
+        return torch.cat([_launch(w_coded, x[:, lo:hi].contiguous(), rec, hi - lo)
+                          for lo, hi in thin_rows.column_panels(b)], dim=1)
+    return _launch(w_coded, x, rec, b)
+
+
+coded_matvec_decode_cuda.launches = 0
+coded_matvec_decode_cuda.captured = 0
+
+
+def _launch(w_coded: torch.Tensor, x: torch.Tensor, rec: torch.Tensor, b: int) -> torch.Tensor:
+    """One launch on checked inputs, x of at most MAX_B columns."""
+    rows, m = w_coded.shape
+    n_data, nb = rec.shape
     br = rows // nb
     out = torch.empty((n_data * br, b) if x.dim() == 2 else (n_data * br,),
                       dtype=torch.float32, device=w_coded.device)
@@ -65,10 +83,6 @@ def coded_matvec_decode_cuda(
     if err != 0:
         raise RuntimeError(f"coded_matvec_decode launch failed: cudaError {err}")
     return out
-
-
-coded_matvec_decode_cuda.launches = 0
-coded_matvec_decode_cuda.captured = 0
 
 
 @functools.lru_cache(maxsize=None)

@@ -4,9 +4,11 @@
 Pallas ``repro.kernels.coded_matvec.coded_matvec_pallas``): one worker's,
 or one code block's, product with fp32 sums, reading A once through the
 thin-row engine ``csrc/thin_rows.cuh``, on the geometry of
-``repro_torch.kernels.thin_rows.head_plan``.  Its plain
-version is ``repro_torch.kernels.ref.ref_coded_matvec``; the mode-switching
-wrapper is ``repro_torch.kernels.ops.coded_matvec``.
+``repro_torch.kernels.thin_rows.head_plan``.  The kernel takes up to
+``MAX_B`` columns of x; a wider x runs in column panels
+(``thin_rows.column_panels``), one launch (and one read of A) a panel.
+Its plain version is ``repro_torch.kernels.ref.ref_coded_matvec``; the
+mode-switching wrapper is ``repro_torch.kernels.ops.coded_matvec``.
 """
 from __future__ import annotations
 
@@ -20,14 +22,15 @@ from repro_torch.kernels._build import c_function
 
 __all__ = ["MAX_B", "coded_matvec_cuda"]
 
-MAX_B = 16  # widest x the kernel takes (decode batch = n_slots)
+MAX_B = thin_rows.MAX_B  # widest x one launch takes; wider runs in panels
 _DTYPES = (torch.float32, torch.float16)
 
 
 def coded_matvec_cuda(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """a [R, M], x [M] or [M, B] (B <= 16) — both fp32 or both fp16,
+    """a [R, M], x [M] or [M, B] (any B >= 1) — both fp32 or both fp16,
     contiguous, on one CUDA device -> y [R(, B)] fp32.  ``a`` may be a row
-    view (a code block of a coded weight) at any element offset."""
+    view (a code block of a coded weight) at any element offset.  B > 16
+    runs in ceil(B / 16) column panels, each one launch, counted."""
     refuse_grad(coded_matvec_cuda, a, x)
     for name, t in (("a", a), ("x", x)):
         if not t.is_cuda:
@@ -48,8 +51,21 @@ def coded_matvec_cuda(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"x has {x.shape[0]} rows, a has {m} columns")
     if r == 0 or m == 0:
         raise ValueError(f"empty product: a {tuple(a.shape)}")
-    if not 1 <= b <= MAX_B:
-        raise ValueError(f"x has {b} columns; the kernel takes 1..{MAX_B}")
+    if b < 1:
+        raise ValueError("x has no columns")
+    if b > MAX_B:
+        return torch.cat([_launch(a, x[:, lo:hi].contiguous(), hi - lo)
+                          for lo, hi in thin_rows.column_panels(b)], dim=1)
+    return _launch(a, x, b)
+
+
+coded_matvec_cuda.launches = 0
+coded_matvec_cuda.captured = 0
+
+
+def _launch(a: torch.Tensor, x: torch.Tensor, b: int) -> torch.Tensor:
+    """One launch on checked inputs, x of at most MAX_B columns."""
+    r, m = a.shape
     out = torch.empty((r, b) if x.dim() == 2 else (r,), dtype=torch.float32, device=a.device)
     half = a.dtype == torch.float16
     vec = m % (8 if half else 4) == 0 and a.data_ptr() % 16 == 0
@@ -61,10 +77,6 @@ def coded_matvec_cuda(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"coded_matvec launch failed: cudaError {err}")
     return out
-
-
-coded_matvec_cuda.launches = 0
-coded_matvec_cuda.captured = 0
 
 
 @functools.lru_cache(maxsize=None)

@@ -21,20 +21,26 @@ oracles, as the reference never dispatches to the Pallas interpreter):
 
 A candidate's cost is priced against a :class:`HostHardware`:
 
-    t_us = dispatch + node_us·nodes + svd_us·svd_n3 + step_us·grid_steps
-           + combine(flops/gemm_flops, bytes/mem_bw)
+    t_us = dispatch·launches + node_us·nodes + svd_us·svd_n3
+           + step_us·grid_steps + combine(flops/gemm_flops, bytes/mem_bw)
 
 ``combine`` is ``max`` where DMA overlaps compute (the H100) and ``+`` on
 the CPU host.  The reference's Pallas tile choosers have no counterpart:
 each kernel launches at its own plan (``thin_rows.head_plan``,
 ``lt_encode.gaussian_plan``), so a decision on the card carries no launch
-parameters.  Nor do the reference's ``fit_hardware`` and DecoderCache
-economics (``recommended_max_patterns``, ``decoder_cache_worthwhile``):
+parameters.  The head kernels take at most ``thin_rows.MAX_B`` columns of x
+a launch; a wider x is ceil(B / 16) launches, each reading the whole
+weight, with a copy of each x panel and one concatenation of the outputs
+(``thin_rows.column_panels``), and the card's costs count all of that.
+Nor do the reference's ``fit_hardware`` and DecoderCache economics
+(``recommended_max_patterns``, ``decoder_cache_worthwhile``) have one:
 nothing in the port calls them.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+
+from repro_torch.kernels.thin_rows import MAX_B as _PANEL_B
 
 __all__ = [
     "HostHardware",
@@ -130,6 +136,7 @@ class KernelCost:
     nodes: int            # materializing ops besides the call (graph size proxy)
     svd_n3: float = 0.0   # small-SVD work scale (nb * n_data^2), svd impl only
     grid_steps: int = 0   # the reference's Pallas grid size; 0 on the card
+    launches: int = 1     # calls paying the dispatch floor (a head kernel's x panels)
 
     def compute_us(self, hw: HostHardware) -> float:
         return self.flops / hw.gemm_flops * 1e6
@@ -140,7 +147,7 @@ class KernelCost:
     def predicted_us(self, hw: HostHardware) -> float:
         c, m = self.compute_us(hw), self.memory_us(hw)
         roof = max(c, m) if hw.overlap else c + m
-        return (hw.dispatch_us + hw.node_us * self.nodes
+        return (hw.dispatch_us * self.launches + hw.node_us * self.nodes
                 + hw.svd_us * self.svd_n3 + hw.step_us * self.grid_steps + roof)
 
     def predicted_block_us(self, hw: HostHardware, k: int) -> float:
@@ -166,6 +173,17 @@ def model_error(predicted_us: float, measured_us: float) -> float:
 _CUDA_NODES = {"fused": 6, "svd": 6, "lt": 10}
 
 
+def _panels(b: int, x_bytes: float, out_bytes: float) -> tuple[int, int, float]:
+    """(launches, extra eager ops, extra bytes) of a head kernel at x of
+    ``b`` columns: one launch a panel of at most 16 columns; above one
+    panel, each panel's copy of x and the outputs' concatenation (each read
+    and written once).  The weight's extra reads are the caller's."""
+    p = max(1, -(-int(b) // _PANEL_B))
+    if p == 1:
+        return 1, 0, 0.0
+    return p, p + 1, 2.0 * (x_bytes + out_bytes)
+
+
 def coded_linear_costs(
     out: int, inner: int, batch: int, n_data: int, n_parity: int,
     backend: str = "cpu", macro_k: int = 1,
@@ -186,11 +204,13 @@ def coded_linear_costs(
     yc_b = _F32 * rows * batch
     out_b = _F32 * n_data * br * batch
     if backend == "cuda":
-        fused = KernelCost(flops=gemm + dec, bytes=w_b + x_b + out_b + _F32 * n_data * nb,
-                           nodes=_CUDA_NODES["fused"])
+        p, extra, extra_b = _panels(batch, x_b, out_b)
+        fused = KernelCost(flops=gemm + dec,
+                           bytes=p * w_b + x_b + out_b + _F32 * n_data * nb + extra_b,
+                           nodes=_CUDA_NODES["fused"] + extra, launches=p)
         costs = {"fused": fused}
         if max(1, int(macro_k)) == 1:
-            costs["svd"] = replace(fused, nodes=_CUDA_NODES["svd"],
+            costs["svd"] = replace(fused, nodes=_CUDA_NODES["svd"] + extra,
                                    svd_n3=float(nb * n_data * n_data))
         return costs
     costs = {
@@ -219,7 +239,9 @@ def matvec_costs(r: int, m: int, b: int, backend: str = "cpu") -> dict[str, Kern
     gemm = 2.0 * r * m * b
     io = _F32 * (r * m + m * b + r * b)
     if backend == "cuda":
-        return {"cuda": KernelCost(flops=gemm, bytes=io, nodes=0)}
+        p, extra, extra_b = _panels(b, _F32 * m * b, _F32 * r * b)
+        return {"cuda": KernelCost(flops=gemm, bytes=io + _F32 * (p - 1) * r * m + extra_b,
+                                   nodes=extra, launches=p)}
     return {"ref": KernelCost(flops=gemm, bytes=io, nodes=3)}
 
 
@@ -234,8 +256,10 @@ def matvec_decode_costs(
     w_b, x_b = _F32 * rows * m, _F32 * m * b
     yc_b, out_b = _F32 * rows * b, _F32 * n_data * br * b
     if backend == "cuda":
+        p, extra, extra_b = _panels(b, x_b, out_b)
         return {"cuda": KernelCost(
-            flops=gemm + dec, bytes=w_b + x_b + out_b + _F32 * n_data * n_blocks, nodes=0)}
+            flops=gemm + dec, bytes=p * w_b + x_b + out_b + _F32 * n_data * n_blocks + extra_b,
+            nodes=extra, launches=p)}
     return {"ref": KernelCost(flops=gemm + dec, bytes=w_b + x_b + 2 * yc_b + out_b, nodes=5)}
 
 

@@ -2,8 +2,10 @@
 
 ``csrc/thin_rows.cuh`` is the engine of ``coded_matvec.cu`` and
 ``coded_decode.cu``: fp32 dot products of the rows of a tall weight with a
-thin x [M, B] (B <= 16), reading the weight once.  :func:`head_plan` gives
-one launch's geometry: the persistent grid, the unit (a row, or a row tile
+thin x [M, B] (B <= 16), reading the weight once.  A wider x runs in column
+panels of at most 16 (:func:`column_panels`), one launch a panel, so the
+weight is read once a panel.  :func:`head_plan` gives one launch's
+geometry: the persistent grid, the unit (a row, or a row tile
 across the nb code blocks of the decode), the rows streamed together,
 whether x stays resident in shared memory, and the shared bytes.  The C
 entries compute it again (``thin_rows::geometry``) and refuse a mismatch.
@@ -17,7 +19,7 @@ from typing import Callable
 
 import torch
 
-__all__ = ["HeadPlan", "call_on", "head_plan", "sm_count"]
+__all__ = ["HeadPlan", "call_on", "column_panels", "head_plan", "sm_count"]
 
 # thin_rows.cuh's setting (kWarps, kRowsPerWarp) and fixed geometry
 WARPS = 16                   # warps a block
@@ -46,6 +48,22 @@ class HeadPlan:
 
 def _cdiv(x: int, y: int) -> int:
     return -(-x // y)
+
+
+def column_panels(b: int) -> list[tuple[int, int]]:
+    """The [lo, hi) column ranges of an x with ``b`` columns that the head
+    kernels launch on: ceil(b / MAX_B) panels whose widths differ by at most
+    one (17 columns are 9 + 8, 33 are 11 + 11 + 11).  Each panel is one
+    launch and reads the whole weight; a column's sums do not depend on the
+    panel it is in."""
+    if b < 1:
+        raise ValueError(f"x has {b} columns")
+    n = _cdiv(b, MAX_B)
+    q, extra = divmod(b, n)
+    bounds = [0]
+    for i in range(n):
+        bounds.append(bounds[-1] + q + (i < extra))
+    return list(zip(bounds[:-1], bounds[1:]))
 
 
 def head_plan(rows: int, m: int, b: int, *, sm_count: int, occupancy: Callable[[int], int],

@@ -27,7 +27,11 @@ def truncated_normal(shape, std: float, dtype, generator: torch.Generator,
                      device) -> torch.Tensor:
     """Normal(0, std) truncated to [-2 std, 2 std], drawn in fp32 by inverse
     CDF from ``generator`` (torch cannot reproduce jax.random's bits; tests
-    carry the reference's params over instead)."""
+    carry the reference's params over instead).  On the ``meta`` device it
+    draws nothing and takes no generator: a tensor of the shape and dtype
+    alone (``Model.param_shapes``)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     t = torch.empty(shape, dtype=torch.float32, device=device)
     t.uniform_(2.0 * _LO - 1.0, 2.0 * _HI - 1.0, generator=generator)
     t.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2.0 * std, 2.0 * std)

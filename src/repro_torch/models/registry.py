@@ -7,6 +7,7 @@
     cache = model.init_cache(batch, s_max)
     logits, cache1 = model.prefill(params, {"tokens": tokens}, s_max=s_max)
     logits, cache = model.decode_step(params, cache, tokens)
+    shapes = model.param_shapes()               # meta tensors (the dry run)
 
 Port of ``repro.models.registry`` for all six families (dense, moe, ssm,
 hybrid, vlm, encdec) and padded heads.  A vlm prefill takes the request's
@@ -39,11 +40,15 @@ class Model:
         """Seeded random params on ``device`` (default: CUDA).  Without a
         generator, one seeded with 0 on that device."""
         device = default_device(device)
-        if generator is None:
+        if generator is None and device.type != "meta":  # meta draws nothing
             generator = torch.Generator(device=device).manual_seed(0)
         if self.cfg.family == "encdec":
             return ed.init_encdec(self.cfg, generator, device)
         return tf.init_lm(self.cfg, generator, device)
+
+    def param_shapes(self) -> Any:
+        """The params' tree as ``meta`` tensors (no memory, no draws)."""
+        return self.init(device="meta")
 
     # ---- training -------------------------------------------------------
     def loss(self, params, batch: dict):
@@ -75,6 +80,9 @@ class Model:
             return ed.encdec_init_cache(self.cfg, batch, s_max, s_max, device)
         return tf.lm_init_cache(self.cfg, batch, s_max, device)
 
+    def cache_shapes(self, batch: int, s_max: int) -> Any:
+        return self.init_cache(batch, s_max, device="meta")
+
     def prefill(self, params, batch: dict, s_max: int | None = None,
                 head_mask=None, head_kernel_mode: str | None = None, head_mesh=None,
                 ssd_kernel_mode: str | None = None):
@@ -95,6 +103,34 @@ class Model:
             return ed.encdec_decode_step(params, self.cfg, cache, tokens)
         return tf.lm_decode_step(params, self.cfg, cache, tokens, head_mask=head_mask,
                                  head_kernel_mode=head_kernel_mode, head_mesh=head_mesh)
+
+    # ---- dry-run input stand-ins -----------------------------------------
+    def input_specs(self, kind: str, batch: int, seq: int) -> dict[str, Any]:
+        """``meta`` tensors for every input of a step kind: 'train' (tokens
+        and labels, int64), 'prefill' (tokens, int32) or 'decode' (one int32
+        token a sequence; pair with ``cache_shapes(batch, seq)``), with
+        "img_embed" [B, n_img, D] (vlm) or "frames" [B, S, D] (encdec) in
+        bf16, as the reference's."""
+        cfg = self.cfg
+        d = cfg.d_model
+
+        def t(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        if kind == "decode":
+            return {"tokens": t((batch,), torch.int32)}
+        if kind == "train":
+            spec = {"tokens": t((batch, seq), torch.int64),
+                    "labels": t((batch, seq), torch.int64)}
+        elif kind == "prefill":
+            spec = {"tokens": t((batch, seq), torch.int32)}
+        else:
+            raise ValueError(f"unknown step kind {kind!r}")
+        if cfg.family == "vlm":
+            spec["img_embed"] = t((batch, cfg.img_tokens, d), torch.bfloat16)
+        if cfg.family == "encdec":
+            spec["frames"] = t((batch, seq, d), torch.bfloat16)
+        return spec
 
 
 def build_model(cfg: ModelConfig) -> Model:

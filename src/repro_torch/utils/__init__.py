@@ -1,1 +1,2 @@
-"""Deterministic PRNG helpers (port of ``repro.utils``)."""
+"""Helpers (port of ``repro.utils``): deterministic PRNG, trees of tensors, and
+op-level FLOP and byte counts with the roofline (``hlo``)."""

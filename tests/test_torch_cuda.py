@@ -290,7 +290,7 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     wc = torch.zeros(16, 8, device=dev)
     rec = torch.zeros(2, 4, device=dev)
     with pytest.raises(ValueError, match="columns"):
-        coded_matvec_decode_cuda(wc, torch.zeros(8, 17, device=dev), rec)
+        coded_matvec_decode_cuda(wc, torch.zeros(8, 0, device=dev), rec)
     with pytest.raises(TypeError):
         coded_matvec_decode_cuda(wc.double(), torch.zeros(8, 2, device=dev), rec)
     with pytest.raises(ValueError, match="contiguous"):
@@ -425,7 +425,7 @@ def test_cuda_coded_matvec_rejects_what_the_kernel_does_not_take():
     dev = _cuda()
     a = torch.zeros(8, 4, device=dev)
     with pytest.raises(ValueError, match="columns"):
-        coded_matvec_cuda(a, torch.zeros(4, 17, device=dev))
+        coded_matvec_cuda(a, torch.zeros(4, 0, device=dev))
     with pytest.raises(TypeError, match="one type"):
         coded_matvec_cuda(a, torch.zeros(4, 2, device=dev, dtype=torch.float16))
     with pytest.raises(TypeError):
@@ -546,6 +546,109 @@ def test_cuda_coded_matvec_decode_block_count_and_cap_edges_bit_equal_relaunch(n
     assert torch.equal(got, again)
     tol = 1e-4 * max(1.0, want.abs().max().item())
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=tol)
+
+
+# B over one launch's 16 columns: 17 (panels of 9 + 8), 33 (11 x 3) and 128
+# (16 x 8, the dry run's decode batch); M 4096 runs x in panels of its own
+# (over the 64 KB resident cap) and M 768 keeps it resident
+WIDE_B = [17, 33, 128]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", WIDE_B)
+@pytest.mark.parametrize("m,dtype", [(4096, torch.float32), (768, torch.float32),
+                                     (4104, torch.float16)])
+def test_cuda_coded_matvec_takes_any_batch_width(b, m, dtype):
+    """B > 16 runs in column panels, one launch (counted) a panel, each
+    column within the plain version's tolerance and bit-equal to the same
+    column launched alone."""
+    from repro_torch.kernels.thin_rows import column_panels
+
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(b + m)
+    a = torch.randn(1001, m, device=dev, generator=gen).to(dtype)
+    x = torch.randn(m, b, device=dev, generator=gen).to(dtype)
+    before = coded_matvec_cuda.launches
+    got = ops.coded_matvec(a, x)
+    assert coded_matvec_cuda.launches - before == len(column_panels(b)) == -(-b // 16)
+    want = ops.coded_matvec(a, x, mode="off")
+    lone = coded_matvec_cuda(a, x[:, b - 1:].contiguous())
+    torch.cuda.synchronize()
+    assert got.shape == (1001, b) and torch.equal(got[:, b - 1:], lone)
+    tol = _matvec_tol(dtype, want)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", WIDE_B)
+@pytest.mark.parametrize("n_data,n_parity,br,m", [(14, 2, 3592, 768), (14, 2, 300, 4096),
+                                                  (13, 3, 77, 516)])
+def test_cuda_coded_matvec_decode_takes_any_batch_width(b, n_data, n_parity, br, m):
+    """The decode kernel at B > 16 (the mamba2-130m head at B = 128 among
+    them): panels, launches and tolerance as for coded_matvec, under an
+    erasure, through ``CodedLinear.apply`` with None and 'auto' too."""
+    from repro_torch.core.coded_ops import CodedLinear
+
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(b * 7 + br)
+    nb = n_data + n_parity
+    w = torch.randn(nb * br, m, device=dev, generator=gen)
+    x = torch.randn(m, b, device=dev, generator=gen)
+    mask = torch.ones(nb, device=dev)
+    mask[1] = 0.0
+    rec = get_decoder_cache(n_data, n_parity).recovery(mask)
+    before = coded_matvec_decode_cuda.launches
+    got = ops.coded_matvec_decode(w, x, rec)
+    assert coded_matvec_decode_cuda.launches - before == -(-b // 16)
+    want = ops.coded_matvec_decode(w, x, rec, mode="off")
+    torch.cuda.synchronize()
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=tol)
+    head = CodedLinear(n_data, n_parity, n_data * br)
+    for mode in (None, "auto"):
+        before = coded_matvec_decode_cuda.launches
+        y = head.apply(w, x, mask, kernel_mode=mode)
+        assert coded_matvec_decode_cuda.launches - before == -(-b // 16), mode
+        assert torch.equal(y, got), mode
+
+
+@pytest.mark.gpu
+def test_cuda_dryrun_cell_argument_bytes_equal_its_reckoning():
+    """A small dry-run cell of each kind (``repro_torch.launch.dryrun``) run
+    on the card: its arguments, made there with the reckoned shapes, hold
+    exactly the bytes the 1 x 1 mesh reckons; the step runs through the
+    kernels (the decode at 20 sequences: two column panels) and its output
+    is finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import Workload
+    from repro_torch.kernels import kernel_wrappers
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.utils.tree import tree_flatten_with_path
+
+    dev = _cuda()
+    cfg = get_config("mamba2-130m", smoke=True)
+    one = make_mesh((1, 1), ("data", "model"))
+    for wl in (Workload("d", "decode", 512, 20), Workload("p", "prefill", 512, 1),
+               Workload("t", "train", 256, 2)):
+        reckoned, _ = dryrun.reckon(cfg, wl, one, coded=True)
+        fn, args, _ = dryrun.build_cell(cfg, wl, one, coded=True, device=dev,
+                                        generator=torch.Generator(device=dev).manual_seed(1))
+        got = sum(x.numel() * x.element_size() for a in args for _, x in tree_flatten_with_path(a))
+        assert got == reckoned["memory"]["argument_size_in_bytes"], wl.kind
+        before = {n: w.launches for n, w in kernel_wrappers().items()}
+        out = fn(*args)
+        torch.cuda.synchronize()
+        after = {n: w.launches - before[n] for n, w in kernel_wrappers().items()}
+        if wl.kind == "train":
+            assert np.isfinite(float(out[1]["loss"]))
+            assert after["ssd_chunk"] == after["ssd_combine"] == 2 * cfg.n_layers
+        else:
+            assert bool(torch.isfinite(out[0]).all())
+            if wl.kind == "decode":
+                assert after["coded_matvec_decode"] == 2
+            else:
+                assert after["ssd_chunk"] == cfg.n_layers
 
 
 @pytest.mark.gpu
@@ -1429,14 +1532,14 @@ def test_cuda_auto_raises_where_cuda_raises():
             torch.zeros(8, 2, device=dev, dtype=torch.float16), torch.eye(16, device=dev)[:14],
             m)),
         (ValueError, lambda m: ops.coded_matvec(torch.zeros(8, 8, device=dev),
-                                                torch.zeros(8, 17, device=dev), m)),
+                                                torch.zeros(8, 0, device=dev), m)),
         (ValueError, lambda m: ops.gaussian_encode(torch.zeros(4, 3, device=dev),
                                                    torch.zeros(5, 40, device=dev), m)),
         (IndexError, lambda m: ops.lt_encode(torch.zeros(3, 8, device=dev),
                                              torch.full((2, 2), 5, device=dev),
                                              torch.ones(2, 2, device=dev), m)),
         (ValueError, lambda m: CodedLinear(14, 2, 14 * 8).apply(
-            torch.zeros(16 * 8, 8, device=dev), torch.zeros(8, 17, device=dev),
+            torch.zeros(16 * 8, 8, device=dev), torch.zeros(8, 0, device=dev),
             torch.ones(16, device=dev), kernel_mode=m)),
     ]
     from repro_torch.kernels import kernel_wrappers

@@ -107,6 +107,9 @@ KERNEL_CASES = [(op, g) for op, g in autotune.cells() if op != "lt_encode"] + [
     ("coded_linear", dict(out=515, inner=130, batch=4, n_data=14, n_parity=2)),
     ("coded_linear", dict(out=120, inner=6144, batch=16, n_data=13, n_parity=3)),
     ("gaussian_encode", dict(q=70, r=2000, m=260)), ("gaussian_encode", dict(q=1, r=1, m=4)),
+    # x wider than one launch: column panels (the mamba2-130m head at B = 128)
+    ("coded_matvec", dict(r=1001, m=4096, b=33)),
+    ("coded_linear", dict(out=50280, inner=768, batch=128, n_data=14, n_parity=2)),
 ]
 
 
@@ -159,6 +162,37 @@ def test_cuda_candidates_are_kernels(macro_k):
         impl, _, params = cost.predict_best(op, "cuda", **g)
         assert impl == "cuda" and list(cost.candidate_costs(op, "cuda", **g)) == ["cuda"]
         assert params == {}
+
+
+@pytest.mark.parametrize("b,panels", [(1, 1), (16, 1), (17, 2), (33, 3), (128, 8)])
+def test_cuda_costs_count_the_head_kernels_panels(b, panels):
+    """Above 16 columns of x the head kernels run in panels: the card's
+    costs count one launch and one read of the weight a panel, the panels'
+    copies of x and the concatenation; 16 columns and fewer cost as before."""
+    from repro_torch.kernels.thin_rows import column_panels
+
+    assert len(column_panels(b)) == panels
+    one = {"coded_matvec": cost.matvec_costs(1001, 4096, 1, "cuda")["cuda"],
+           "coded_matvec_decode": cost.matvec_decode_costs(16 * 3592, 768, 1, 14, 16,
+                                                           "cuda")["cuda"],
+           "coded_linear": cost.coded_linear_costs(14 * 3592, 768, 1, 14, 2, "cuda")["fused"]}
+    wide = {"coded_matvec": cost.matvec_costs(1001, 4096, b, "cuda")["cuda"],
+            "coded_matvec_decode": cost.matvec_decode_costs(16 * 3592, 768, b, 14, 16,
+                                                            "cuda")["cuda"],
+            "coded_linear": cost.coded_linear_costs(14 * 3592, 768, b, 14, 2, "cuda")["fused"]}
+    w_bytes = {"coded_matvec": 4 * 1001 * 4096, "coded_matvec_decode": 4 * 16 * 3592 * 768,
+               "coded_linear": 4 * 16 * 3592 * 768}
+    hw = cost.H100_HOST
+    for op, c in wide.items():
+        assert c.launches == panels, op
+        assert c.nodes - one[op].nodes == (panels + 1 if panels > 1 else 0), op
+        assert c.bytes >= panels * w_bytes[op], op
+        assert c.bytes < (panels + 1) * w_bytes[op], op
+        assert c.predicted_us(hw) >= panels * (hw.dispatch_us + w_bytes[op] / hw.mem_bw * 1e6)
+    # 'auto' resolves at any width on both backends
+    d = choose_coded_linear(14 * 3592, 768, b, 14, 2, backend="cuda")
+    assert (d.impl, d.mode) == ("fused", "cuda")
+    assert choose_matvec(1001, 4096, b, backend="cuda").mode == "cuda"
 
 
 # --------------------------------------------------------------------------
@@ -356,7 +390,7 @@ def test_context_vars():
 # 'auto' == the explicit mode it resolves to, on every entry point
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("macro_k", [1, 4])
-@pytest.mark.parametrize("shape", [(256, 128, 4), (1024, 256, 8), (100, 40, 1)])
+@pytest.mark.parametrize("shape", [(256, 128, 4), (1024, 256, 8), (100, 40, 1), (256, 128, 33)])
 def test_auto_bit_identical_to_resolved_explicit(shape, macro_k):
     out, inner, b = shape
     cl, w, wc, x, m = _apply_setup(out=out, inner=inner, b=b)

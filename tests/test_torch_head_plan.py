@@ -17,6 +17,7 @@ from repro_torch.kernels.thin_rows import (
     WARPS,
     X_CAP_BYTES,
     X_PANEL_QUANTUM,
+    column_panels,
     head_plan,
 )
 
@@ -125,6 +126,22 @@ def test_plan_refuses_what_the_kernels_do_not_take():
     for b in (0, MAX_B + 1):
         with pytest.raises(ValueError):
             head_plan(100, 64, b, sm_count=SMS, occupancy=_fits)
+
+
+@pytest.mark.parametrize("b", [1, 2, 15, 16, 17, 31, 32, 33, 100, 128, 129])
+def test_column_panels_cover_x_in_launches_of_at_most_16(b):
+    """x wider than one launch runs in ceil(b / 16) panels that tile its
+    columns in order, at most MAX_B wide, their widths within one."""
+    panels = column_panels(b)
+    assert len(panels) == -(-b // MAX_B)
+    assert panels[0][0] == 0 and panels[-1][1] == b
+    assert all(hi == lo2 for (_, hi), (lo2, _) in zip(panels, panels[1:]))
+    widths = [hi - lo for lo, hi in panels]
+    assert max(widths) <= MAX_B and max(widths) - min(widths) <= 1
+    for w in widths:
+        head_plan(10826, 4096, w, sm_count=SMS, occupancy=_fits)  # each panel is one launch
+    with pytest.raises(ValueError):
+        column_panels(0)
 
 
 def test_header_constants_match_the_plan():
