@@ -15,6 +15,11 @@
                                        # the glm4-9b train phase, with the allocator's
                                        # state (an out-of-memory error's statistics and
                                        # snapshot under chiprun_out/); no device line
+    python3 chip_smoke.py --sweep-wide # only: build, the head kernels' checks, and the
+                                       # thin-row (a copy built under build/head_sweep
+                                       # with kMaxB 16) against the wide engine at B = 4
+                                       # to 17 on the glm4-9b block and W_c and the
+                                       # mamba2-130m W_c (the threshold WIDE_MIN_B)
     python3 chip_smoke.py --sweep-head # only: build, the head kernels' checks, the
                                        # B = 1 heads in 30 pairs of turns with
                                        # torch.matmul, and thin_rows.cuh's settings at
@@ -166,7 +171,7 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    the gradient held to a central difference of the loss along it (1e-2
    relative); then 10 plain and 10 FRC steps, timed (step ms, tokens/s,
    peak GB), one profiled (device busy share); the loss must go down;
-17. train zamba2-1.2b: whole (38 layers), batch 8 of 1024 tokens (4 SSD
+17. train zamba2-1.2b: 18 of 38 layers, batch 8 of 1024 tokens (4 SSD
    chunks a block) in 4 microbatches: the cyclic (s = 1) step against the
    plain step as in phase 16 (two stragglers undecodable); through
    ``repro_torch.launch.train`` a 3-step run with adaptive s, then the timed
@@ -188,8 +193,8 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    layers: four self-attention layers and the gated cross-attention layer,
    gates 0.5, seeded images [8, 1024, 4096]), dbrx-132b (1 of 40 layers,
    16 experts top-4, one microbatch, plain steps only) and
-   seamless-m4t-large-v2 whole (24 + 24 layers, seeded frames [8, 512,
-   1024]): full width, bf16 activations, fp32 params, int8 moments, batch
+   seamless-m4t-large-v2 (12 + 12 of its 24 + 24 layers, seeded frames
+   [8, 512, 1024]): full width, bf16 activations, fp32 params, int8 moments, batch
    8 of 512 tokens (4 microbatches for the vlm and the encdec), the cut
    printed; the plain step's gradient at the seeded state, with the
    family's own leaves (the cross-attention's gate and weights, the
@@ -229,6 +234,8 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12           # H100 SXM fp32 outside the tensor cores (data sheet)
 TC_BF16_FLOPS = 989e12       # H100 SXM dense bf16 on the tensor cores (data sheet)
+SPLIT_PRODUCTS = 6           # the wide head engine's bf16 products an fp32 one (wide_rows.cuh)
+WIDE_ERR_VS_MATMUL = 2.0     # its error against float64, at most this times fp32 torch.matmul's
 PAPER_M = 500_000            # the paper's width of A (benchmarks/paper_ec2.py)
 GAUSSIAN_TASK_M = 200_000    # the Gaussian task's cut width (phase_task_gaussian)
 TASK_TIME_SCALE = 10.0       # wall seconds per model second of the paced task runs
@@ -372,19 +379,81 @@ def phase_kernels(torch, gen, results: dict) -> None:
     _reset_launches()
 
 
+def _wide_direct(torch, w, x, rec=None):
+    """The wide engine's bare C entry on the wrapper's plan, with its output
+    and x's pieces allocated once: a zero-argument launch (what the wrapper
+    adds is its host time).  coded_matvec without rec, the decode with it."""
+    from repro_torch.kernels import coded_decode, coded_matvec
+
+    rows, m = w.shape
+    b = x.shape[1]
+    if rec is None:
+        half = w.dtype == torch.float16
+        plan = coded_matvec._wide_plan(w.device, rows, m, b, half)
+        out = torch.empty(rows, b, device=w.device)
+        fn = coded_matvec._wide_entry()
+    else:
+        n_data, nb = rec.shape
+        half = False
+        plan = coded_decode._wide_plan(w.device, rows, m, b, nb, n_data)
+        out = torch.empty(n_data * (rows // nb), b, device=w.device)
+        fn = coded_decode._wide_entry()
+    xp = torch.empty(plan.xp_elements, dtype=torch.float16 if half else torch.bfloat16,
+                     device=w.device)
+    if rec is None:
+        args = (w.data_ptr(), x.data_ptr(), xp.data_ptr(), out.data_ptr(), rows, m, b, int(half))
+    else:
+        args = (w.data_ptr(), x.data_ptr(), xp.data_ptr(), rec.data_ptr(), out.data_ptr(),
+                rows // nb, m, b, nb, n_data)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        err = fn(*args, plan.grid, plan.cols, plan.stages, plan.smem_bytes, stream)
+        check(err == 0 and out.numel() and xp.numel(), f"wide entry: cudaError {err}")
+
+    return launch
+
+
+def _wide_bounds(row: dict, n_bytes: float, rows: int, m: int, b: int, half: bool) -> None:
+    """A wide row's three bounds: its bytes at 3.35 TB/s, its products on the
+    tensor cores at 989 TFLOP/s (six bf16 products an fp32 one; one for
+    fp16) and in fp32 outside them at 67 TFLOP/s; the first two bound it."""
+    flops = 2.0 * rows * m * b
+    row["byte_bound_ms"] = n_bytes / HBM_BYTES_PER_S * 1e3
+    row["split_bound_ms"] = (1 if half else SPLIT_PRODUCTS) * flops / TC_BF16_FLOPS * 1e3
+    row["fp32_simt_bound_ms"] = flops / FP32_FLOPS * 1e3
+    row["bound_ms"], row["bound_by"] = max(
+        (row["byte_bound_ms"], "bytes"), (row["split_bound_ms"], "operations"))
+
+
+def _wide_counted(torch, wrapper, call) -> tuple:
+    """call()'s output, and its launches and wide-engine launches."""
+    before = (wrapper.launches, wrapper.wide_launches)
+    out = call()
+    return out, wrapper.launches - before[0], wrapper.wide_launches - before[1]
+
+
 def kernel_coded_decode(torch, gen, results: dict) -> None:
     """coded_matvec_decode against ref_coded_matvec_decode: the glm4-9b head
     (14 + 2 blocks of 10826 rows x 4096), the mamba2-130m (tied, [50280,
     768]), zamba2-1.2b ([32000, 2048]), llama-3.2-vision-11b ([128256,
-    4096]) and dbrx-132b ([100352, 6144]; x in panels at B = 4) heads
-    (br = ceil(vocab / n_data))
-    at B = 1 (prefill) and 4 (decode), timed in turns with torch.matmul(W_c,
-    x), and through the wrapper against the bare C entry (head_host_cost);
-    and ragged shapes: odd br, M % 4 != 0 (scalar loads), B up to 16 with
-    x in panels, tiles below the SM count, 1, 17 and 32 blocks.  Each is
-    launched twice and the two results must be bit-equal."""
+    4096]) and dbrx-132b ([100352, 6144]; x staged in panels at B = 4)
+    heads (br = ceil(vocab / n_data)) at B = 1 (prefill) and 4 (decode) on
+    the thin-row engine, timed in turns with torch.matmul(W_c, x), and
+    through the wrapper against the bare C entry (head_host_cost); the wide
+    engine (B >= WIDE_MIN_B, one launch a call, counted) at the mamba2-130m
+    head at B = 17, 33 and 128 (the dry run's decode cell), the glm4-9b head
+    at B = 8 (the dry run's cut cell), 64 and 128, and the dbrx-132b head at
+    64, timed likewise (its error against a float64 product beside the fp32
+    plain version's and torch.matmul's, its three bounds); and ragged shapes
+    on both engines: odd br, M % 4 != 0 (scalar loads; the wide engine's own
+    loads), tiles below the SM count, 1, 17 and 32 blocks, B = 300 (two
+    column tiles).  Each is launched twice and the two results must be
+    bit-equal."""
     from repro_torch.core.decoding import get_decoder_cache
     from repro_torch.kernels import ops, ref, thin_rows
+    from repro_torch.kernels.coded_decode import coded_matvec_decode_cuda
+    from repro_torch.kernels.wide_rows import WIDE_MIN_B
 
     dev = torch.device("cuda")
     rtol = 1e-4  # |kernel - plain| <= rtol * max(1, max|plain|): fp32, other sum order
@@ -401,33 +470,43 @@ def kernel_coded_decode(torch, gen, results: dict) -> None:
                    ("llama-3.2-vision-11b decode", 14, 2, 9162, 4096, 4),
                    ("llama-3.2-vision-11b decode after raise", 13, 3, 9866, 4096, 4),
                    # x [6144, 4] fp32 is 96 KB, over thin_rows.cuh's 64 KB
-                   # resident cap: the decode at B = 4 runs x in panels
+                   # resident cap: the decode at B = 4 stages x in panels
                    ("dbrx-132b prefill", 14, 2, 7168, 6144, 1),
                    ("dbrx-132b decode", 14, 2, 7168, 6144, 4),
                    ("dbrx-132b decode after raise", 13, 3, 7720, 6144, 4),
-                   # the dryrun phase's glm4-9b decode cell (batch cut to 8)
+                   # the wide engine: the dryrun phase's glm4-9b decode cell
+                   # (batch cut to 8) and mamba2-130m decode cell (B = 128),
+                   # the 64-slot glm4-9b serve (B = 64)
                    ("glm4-9b decode B=8", 14, 2, 10826, 4096, 8),
-                   # x wider than one launch (16 columns): column panels, one
-                   # launch and one read of W_c each; B = 128 is the dryrun
-                   # phase's mamba2-130m decode cell
                    ("mamba2-130m decode B=17", 14, 2, 3592, 768, 17),
                    ("mamba2-130m decode B=33", 14, 2, 3592, 768, 33),
                    ("mamba2-130m decode B=128", 14, 2, 3592, 768, 128),
+                   ("glm4-9b decode B=64", 14, 2, 10826, 4096, 64),
+                   ("glm4-9b decode B=128", 14, 2, 10826, 4096, 128),
+                   ("dbrx-132b decode B=64", 14, 2, 7168, 6144, 64),
                    ("ragged", 13, 3, 1001, 4097, 3),
                    ("ragged", 6, 2, 77, 516, 16),
-                   ("ragged x in panels", 6, 2, 300, 4100, 16),
+                   ("ragged M 4100", 6, 2, 300, 4100, 16),
                    # a dense R (no cache beyond 20 blocks): one block, tiles
                    # below the SMs; 17 blocks, one row each a tile; 32 blocks
                    ("ragged tiles below the SMs", 1, 0, 200, 260, 2),
                    ("ragged one row a tile", 17, 0, 133, 132, 5),
-                   ("ragged 32 blocks", 30, 2, 70, 1028, 1)]
+                   ("ragged 32 blocks", 30, 2, 70, 1028, 1),
+                   # the wide engine's edges: M % 4 != 0 (its producer's own
+                   # loads), 17 and 32 blocks, two column tiles
+                   ("ragged wide M % 4", 13, 3, 1001, 4097, 20),
+                   ("ragged wide one row a tile", 17, 0, 133, 132, 40),
+                   ("ragged wide 32 blocks", 30, 2, 70, 1028, 33),
+                   ("ragged wide B=300", 14, 2, 300, 4096, 300)]
     timed = ("glm4-9b prefill", "glm4-9b decode", "mamba2-130m prefill", "mamba2-130m decode",
              "zamba2-1.2b prefill", "zamba2-1.2b decode", "llama-3.2-vision-11b prefill",
              "llama-3.2-vision-11b decode", "dbrx-132b prefill", "dbrx-132b decode",
              "glm4-9b decode B=8", "mamba2-130m decode B=17", "mamba2-130m decode B=33",
-             "mamba2-130m decode B=128")
+             "mamba2-130m decode B=128", "glm4-9b decode B=64", "glm4-9b decode B=128",
+             "dbrx-132b decode B=64")
     for label, n_data, n_parity, br, m, b in head_shapes:
         nb = n_data + n_parity
+        wide = b >= WIDE_MIN_B
         w = torch.randn(nb * br, m, device=dev, generator=gen)
         x = torch.randn(m, b, device=dev, generator=gen)
         if nb <= 20 and n_parity:
@@ -439,7 +518,9 @@ def kernel_coded_decode(torch, gen, results: dict) -> None:
         else:  # a dense R: every block adds into every decoded row
             recs = [((), torch.randn(n_data, nb, device=dev, generator=gen))]
         for erased, rec in recs:
-            got = ops.coded_matvec_decode(w, x, rec, mode="cuda")
+            got, launches, wide_launches = _wide_counted(
+                torch, coded_matvec_decode_cuda,
+                lambda: ops.coded_matvec_decode(w, x, rec, mode="cuda"))
             want = ref.ref_coded_matvec_decode(w, x, rec)
             again = ops.coded_matvec_decode(w, x, rec, mode="cuda")
             torch.cuda.synchronize()
@@ -447,29 +528,56 @@ def kernel_coded_decode(torch, gen, results: dict) -> None:
             tol = rtol * max(1.0, scale)
             row = {"phase": "kernel", "kernel": "coded_matvec_decode", "shape": label,
                    "w": [nb * br, m], "b": b, "erased": list(erased),
-                   "launches_a_call": len(thin_rows.column_panels(b)),
-                   "x_in_panels": min(b, thin_rows.MAX_B) * -(-m // 4) * 4 * 4
-                   > thin_rows.X_CAP_BYTES,
+                   "engine": "wide" if wide else "thin rows",
+                   "launches_a_call": launches, "wide_launches_a_call": wide_launches,
                    "max_abs_err": err, "tol": tol, "bit_equal_relaunch": torch.equal(got, again)}
-            del got, want, again
+            if not wide:
+                row["x_in_panels"] = b * -(-m // 4) * 4 * 4 > thin_rows.X_CAP_BYTES
+            del got, again
+            if wide and not erased and label in timed:
+                # error against a float64 product, beside the fp32 plain
+                # version's (torch.matmul, then R) and the block product's
+                yc64 = w.double() @ x.double()
+                want64 = torch.einsum("db,brc->drc", rec.double(),
+                                      yc64.view(nb, br, b)).reshape(n_data * br, b)
+                scale64 = float(want64.abs().max())
+                got = ops.coded_matvec_decode(w, x, rec, mode="cuda")
+                row["rel_err_f64"] = float((got.double() - want64).abs().max()) / scale64
+                row["rel_err_f64_plain"] = float((want.double() - want64).abs().max()) / scale64
+                row["rel_err_f64_matmul"] = (float((torch.matmul(w, x).double() - yc64).abs().max())
+                                             / float(yc64.abs().max()))
+                del yc64, want64, got
+            del want
             if not erased and label in timed:
                 row["ms"], row["library_ms"], row["turns_ms"] = time_turns(
                     torch, lambda: ops.coded_matvec_decode(w, x, rec, mode="cuda"),
-                    lambda: torch.matmul(w, x), 20)
+                    lambda: torch.matmul(w, x), 10 if b > 16 and br > 5000 else 20)
                 row["library_call"] = "torch.matmul(W_c, x), the block product alone (partial yardstick)"
                 row["plain_ms"] = time_ms(torch, lambda: ref.ref_coded_matvec_decode(w, x, rec), 20)
-                if b <= thin_rows.MAX_B:  # the bare C entry takes one launch's columns
+                n_bytes = 4 * (w.numel() + x.numel() + rec.numel() + n_data * br * b)
+                if wide:
+                    row["direct_ms"] = time_ms(torch, _wide_direct(torch, w, x, rec), 20)
+                    row["host_ms_wrapper"] = host_ms(
+                        torch, lambda: ops.coded_matvec_decode(w, x, rec, mode="cuda"))
+                    _wide_bounds(row, n_bytes, nb * br, m, b, False)
+                else:
                     head_host_cost(torch, row,
                                    lambda: ops.coded_matvec_decode(w, x, rec, mode="cuda"),
                                    "coded_decode", w, x, rec, 20)
-                n_bytes = 4 * (w.numel() + x.numel() + rec.numel() + n_data * br * b)
-                n_ops = 2 * nb * br * m * b + 2 * n_data * nb * br * b
-                row["bound_ms"], row["bound_by"] = bound(n_bytes, n_ops)
+                    n_ops = 2 * nb * br * m * b + 2 * n_data * nb * br * b
+                    row["bound_ms"], row["bound_by"] = bound(n_bytes, n_ops)
                 against_library(row)
                 results.setdefault("coded_matvec_decode", {})[label] = row
             emit(row)
             check(err <= tol, f"coded_matvec_decode {label} erased={erased}: {err} > {tol}")
             check(row["bit_equal_relaunch"], f"coded_matvec_decode {label}: two launches differ")
+            check(launches == 1 and wide_launches == int(wide),
+                  f"coded_matvec_decode {label}: {launches} launches ({wide_launches} wide) a call")
+            if "rel_err_f64" in row:
+                check(row["rel_err_f64"] <= WIDE_ERR_VS_MATMUL * row["rel_err_f64_plain"],
+                      f"coded_matvec_decode {label}: error {row['rel_err_f64']} against float64 "
+                      f"over {WIDE_ERR_VS_MATMUL} x the fp32 plain version's "
+                      f"{row['rel_err_f64_plain']}")
         del w, x
     torch.cuda.empty_cache()
 
@@ -537,12 +645,18 @@ def kernel_coded_matvec(torch, gen, results: dict) -> None:
     """coded_matvec against ref_coded_matvec: the mesh head's code block of
     glm4-9b ([10826, 4096], B = 1 and 4; [11658, 4096] after the (13, 3)
     raise), the whole W_c [173216, 4096] (``kernels.ops.coded_matvec``'s
-    single-device form) and the block in fp16, timed in turns with
-    torch.matmul, and through the wrapper against the bare C entry
-    (head_host_cost); ragged shapes, rows below and just above the SM count,
-    B = 16 with x in panels, fp16, and a misaligned block view.  Each is
-    launched twice and the two results must be bit-equal."""
-    from repro_torch.kernels import ops, ref, thin_rows
+    single-device form) and the block in fp16 on the thin-row engine, timed
+    in turns with torch.matmul, and through the wrapper against the bare C
+    entry (head_host_cost); the block on the wide engine (B >= WIDE_MIN_B,
+    one launch a call, counted) at B = 17, 33, 64 and 128 and in fp16 at 64,
+    timed likewise (its error against a float64 product beside fp32
+    torch.matmul's, its three bounds); ragged shapes on both engines, rows
+    below and just above the SM count, fp16, M % 4 != 0 and a misaligned
+    block view (the wide engine's own loads), B = 300 (two column tiles).
+    Each is launched twice and the two results must be bit-equal."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.coded_matvec import coded_matvec_cuda
+    from repro_torch.kernels.wide_rows import WIDE_MIN_B
 
     dev = torch.device("cuda")
     shapes = [  # label, rows, M, B, dtype, timed
@@ -551,24 +665,32 @@ def kernel_coded_matvec(torch, gen, results: dict) -> None:
         ("glm4-9b block after raise", 11658, 4096, 4, torch.float32, True),
         ("glm4-9b whole W_c", 173216, 4096, 4, torch.float32, True),
         ("glm4-9b block decode fp16", 10826, 4096, 4, torch.float16, True),
-        # x wider than one launch: column panels, one launch and one read of A each
+        # the wide engine: one launch and one read of A a call
         ("glm4-9b block B=17", 10826, 4096, 17, torch.float32, True),
         ("glm4-9b block B=33", 10826, 4096, 33, torch.float32, True),
+        ("glm4-9b block B=64", 10826, 4096, 64, torch.float32, True),
         ("glm4-9b block B=128", 10826, 4096, 128, torch.float32, True),
+        ("glm4-9b block B=64 fp16", 10826, 4096, 64, torch.float16, True),
         ("ragged", 513, 129, 3, torch.float32, False),
         ("ragged", 100, 70, 1, torch.float32, False),
         ("ragged", 1, 4096, 1, torch.float32, False),
         ("ragged fp16", 513, 129, 3, torch.float16, False),
         ("ragged rows below the SMs", 131, 4096, 4, torch.float32, False),
         ("ragged rows just above the SMs", 133, 4100, 2, torch.float32, False),
-        ("ragged x in panels", 1000, 4100, 16, torch.float32, False),
-        ("ragged x in panels fp16", 1000, 4104, 16, torch.float16, False),
+        ("ragged M 4100", 1000, 4100, 16, torch.float32, False),
+        ("ragged M 4104 fp16", 1000, 4104, 16, torch.float16, False),
         ("misaligned block view", 1001, 4097, 4, torch.float32, False),
+        ("ragged wide M % 4", 513, 4097, 20, torch.float32, False),
+        ("ragged wide M % 8 fp16", 513, 1030, 24, torch.float16, False),
+        ("misaligned block view wide", 1001, 4097, 40, torch.float32, False),
+        ("ragged wide B=300", 1001, 4096, 300, torch.float32, False),
     ]
     for label, rows, m, b, dtype, timed in shapes:
+        wide = b >= WIDE_MIN_B
         if label.startswith("misaligned"):
             # block 3 of a 16-block coded weight with M odd: starts 4 bytes
             # past a 16-byte boundary, so the kernel takes its scalar loads
+            # (the wide engine: its producer's own loads, not the TMA)
             whole = torch.randn(16 * rows, m, device=dev, generator=gen)
             a = whole.chunk(16)[3]
             check(a.data_ptr() % 16 != 0, "the misaligned view is aligned")
@@ -577,7 +699,8 @@ def kernel_coded_matvec(torch, gen, results: dict) -> None:
         x = torch.randn(m, b, device=dev, generator=gen).to(dtype)
         if b == 1:
             x = x[:, 0]
-        got = ops.coded_matvec(a, x, mode="cuda")
+        got, launches, wide_launches = _wide_counted(
+            torch, coded_matvec_cuda, lambda: ops.coded_matvec(a, x, mode="cuda"))
         want = ref.ref_coded_matvec(a, x)
         again = ops.coded_matvec(a, x, mode="cuda")
         torch.cuda.synchronize()
@@ -587,8 +710,17 @@ def kernel_coded_matvec(torch, gen, results: dict) -> None:
         tol = (1e-4 if dtype == torch.float32 else 2e-3) * max(1.0, scale)
         row = {"phase": "kernel", "kernel": "coded_matvec", "shape": label,
                "a": [rows, m], "b": b, "dtype": str(dtype).removeprefix("torch."),
-               "launches_a_call": len(thin_rows.column_panels(b)),
+               "engine": "wide" if wide else "thin rows",
+               "launches_a_call": launches, "wide_launches_a_call": wide_launches,
                "max_abs_err": err, "tol": tol, "bit_equal_relaunch": torch.equal(got, again)}
+        if wide and timed:
+            # error against a float64 product, beside fp32 torch.matmul's
+            want64 = a.double() @ x.double()
+            scale64 = float(want64.abs().max())
+            row["rel_err_f64"] = float((got.double() - want64).abs().max()) / scale64
+            row["rel_err_f64_matmul"] = (float((torch.matmul(a.float(), x.float()).double()
+                                                - want64).abs().max()) / scale64)
+            del want64
         del got, want, again
         if timed:
             iters = 10 if rows > 100_000 else 50
@@ -597,16 +729,26 @@ def kernel_coded_matvec(torch, gen, results: dict) -> None:
                 iters)
             row["library_call"] = f"torch.matmul(A, x) in {row['dtype']}"
             row["plain_ms"] = time_ms(torch, lambda: ref.ref_coded_matvec(a, x), iters)
-            if b <= thin_rows.MAX_B:  # the bare C entry takes one launch's columns
+            n_bytes = a.element_size() * (a.numel() + x.numel()) + 4 * rows * b
+            if wide:
+                row["direct_ms"] = time_ms(torch, _wide_direct(torch, a, x), iters)
+                row["host_ms_wrapper"] = host_ms(torch, lambda: ops.coded_matvec(a, x, mode="cuda"))
+                _wide_bounds(row, n_bytes, rows, m, b, dtype == torch.float16)
+            else:
                 head_host_cost(torch, row, lambda: ops.coded_matvec(a, x, mode="cuda"),
                                "coded_matvec", a, x, None, iters)
-            n_bytes = a.element_size() * (a.numel() + x.numel()) + 4 * rows * b
-            row["bound_ms"], row["bound_by"] = bound(n_bytes, 2 * rows * m * b)
+                row["bound_ms"], row["bound_by"] = bound(n_bytes, 2 * rows * m * b)
             against_library(row)
             results.setdefault("coded_matvec", {})[label] = row
         emit(row)
         check(err <= tol, f"coded_matvec {label}: {err} > {tol}")
         check(row["bit_equal_relaunch"], f"coded_matvec {label}: two launches differ")
+        check(launches == 1 and wide_launches == int(wide),
+              f"coded_matvec {label}: {launches} launches ({wide_launches} wide) a call")
+        if "rel_err_f64" in row:
+            check(row["rel_err_f64"] <= WIDE_ERR_VS_MATMUL * row["rel_err_f64_matmul"],
+                  f"coded_matvec {label}: error {row['rel_err_f64']} against float64 over "
+                  f"{WIDE_ERR_VS_MATMUL} x fp32 torch.matmul's {row['rel_err_f64_matmul']}")
         del a, x
     torch.cuda.empty_cache()
 
@@ -1065,17 +1207,26 @@ def phase_auto_glm(torch, args, serve: dict, mesh, results: dict, smi: str) -> N
     results["auto glm4-9b"] = {"launches": path, "heads": heads, "seconds": seconds}
 
 
+WIDE_HEADS = ("coded_matvec", "coded_matvec_decode")  # the kernels with a wide engine
+
+
 def _reset_launches() -> None:
     from repro_torch.kernels import kernel_wrappers
 
-    for fn in kernel_wrappers().values():
+    for name, fn in kernel_wrappers().items():
         fn.launches = 0
+        if name in WIDE_HEADS:
+            fn.wide_launches = 0
 
 
 def _launches() -> dict:
+    """Each kernel's launches, and the head kernels' launches on the wide
+    engine (``<name>_wide``, a part of ``<name>``'s)."""
     from repro_torch.kernels import kernel_wrappers
 
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    wrappers = kernel_wrappers()
+    return {**{name: fn.launches for name, fn in wrappers.items()},
+            **{f"{name}_wide": wrappers[name].wide_launches for name in WIDE_HEADS}}
 
 
 def _host_peak_gb() -> float:
@@ -1556,7 +1707,8 @@ def phase_mesh_head(torch, serve: dict, mesh, gen, results: dict, smi: str) -> N
         lambda: ops.coded_head_matvec(wc, x, mask, 14, 2, kernel_mode="cuda"), 20)
     row = {"phase": "mesh_head_time", "b": 4, "erased": [5, 12], "mesh_ms": mesh_ms,
            "fused_ms": fused_ms, "turns_ms": turns,
-           "launches": {"coded_matvec": launches["coded_matvec"]}, "card": smi}
+           "launches": {name: launches[name] for name in ("coded_matvec", "coded_matvec_wide")},
+           "card": smi}
     emit(row)
     results["mesh_head"] = {"rows": rows, **row}
 
@@ -2038,6 +2190,127 @@ def phase_macro_glm(torch, serve: dict, results: dict, smi: str) -> None:
     results["macro glm4-9b"] = phase_macro_pair(torch, make_engine, prompts, 64, cfg.name, smi)
 
 
+WIDE_SLOTS = 64        # the wide glm4-9b phase's slots: x of 64 columns at every decode step
+WIDE_MAX_NEW = 8
+
+
+def phase_wide_glm(torch, args, serve: dict, mesh, results: dict, smi: str) -> None:
+    """glm4-9b at 64 slots on the serve phase's params: a ServeEngine runs 64
+    prompts of 16 tokens and 8 new tokens each through the (14, 2) -> (13,
+    3) raise (the serve phase's stragglers and controller), every decode
+    step one launch of coded_matvec_decode on the wide engine (x [4096,
+    64]); launches = prefills + steps, the wide ones = steps.  Then the
+    same engine on the 16-device head mesh, coded_matvec at 64 columns, 16
+    launches a call, its tokens equal to the single device's.  Then the
+    macro pair at 64 slots (scalar steps against CUDA-graph blocks, equal
+    tokens, launches = prefills + steps + captures), and the head's ms a
+    call at 64 slots against torch.matmul(W_c, x)."""
+    from repro_torch.core.adaptive import ParityController
+    from repro_torch.core.decoding import get_decoder_cache
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import Request, ServeEngine
+
+    dev = torch.device("cuda")
+    cfg = serve["cfg"]
+    model = build_model(cfg)
+    rng = np.random.default_rng(args.seed + 64)
+    prompt_len = 16
+    prompts = [rng.integers(0, cfg.vocab, prompt_len) for _ in range(WIDE_SLOTS)]
+
+    def make_engine(engine_mesh=None):
+        return ServeEngine(model, serve["params"], n_slots=WIDE_SLOTS, s_max=64,
+                           latency_fn=_stragglers(),
+                           parity_controller=ParityController(16, decay=0.5), parity_topup=1,
+                           topup_patience=2, mesh=engine_mesh, device=dev,
+                           head_kernel_mode="cuda", encode_mode="cuda")
+
+    runs = {}
+    for where, engine_mesh in (("single device", None), ("mesh", mesh)):
+        eng = make_engine(engine_mesh)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=WIDE_MAX_NEW))
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        steps = eng._steps
+        tokens = {r.uid: r.out_tokens for r in done}
+        n_tok = sum(len(t) for t in tokens.values())
+        check(len(done) == WIDE_SLOTS and all(len(t) == WIDE_MAX_NEW for t in tokens.values()),
+              f"wide glm4-9b {where}: requests or token counts short")
+        check(len(eng.parity_events) == 1 and eng.parity_events[0]["n_parity"] == 3,
+              f"wide glm4-9b {where}: parity events {eng.parity_events}")
+        if engine_mesh is None:
+            check(launches["coded_matvec_decode"] == WIDE_SLOTS + steps
+                  and launches["coded_matvec_decode_wide"] == steps
+                  and launches["coded_matvec"] == 0,
+                  f"wide glm4-9b: launches {launches} != {WIDE_SLOTS} prefills + {steps} "
+                  f"steps, {steps} of them wide")
+        else:
+            check(launches["coded_matvec"] == 16 * (WIDE_SLOTS + steps)
+                  and launches["coded_matvec_wide"] == 16 * steps
+                  and launches["coded_matvec_decode"] == 0,
+                  f"wide glm4-9b mesh: launches {launches} != 16 x ({WIDE_SLOTS} prefills + "
+                  f"{steps} steps), 16 x {steps} wide")
+        step_ms = _timed_steps(torch, eng, rng, cfg.vocab, prompt_len)
+        runs[where] = {"tokens": tokens, "launches": launches, "decode_steps": steps,
+                       "wall_s": wall, "tokens_per_s": n_tok / wall, "step_ms": step_ms,
+                       "parity_events": eng.parity_events,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    equal = runs["mesh"]["tokens"] == runs["single device"]["tokens"]
+
+    # the head alone at 64 slots, through the wrapper as a step calls it
+    wc = serve["params"]["lm_head_coded"]
+    x = torch.randn(cfg.d_model, WIDE_SLOTS, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(args.seed + 65))
+    mask = torch.ones(16, device=dev)
+    mask[[3, 12]] = 0.0
+    rec = get_decoder_cache(14, 2).recovery(mask)
+    head_ms, matmul_ms, turns = time_turns(
+        torch, lambda: ops.coded_matvec_decode(wc, x, rec, mode="cuda"),
+        lambda: torch.matmul(wc, x), 10)
+    del x
+
+    mask_np = np.ones(16)
+    mask_np[[3, 12]] = 0.0
+
+    def make_macro(macro_steps):
+        return ServeEngine(model, serve["params"], n_slots=WIDE_SLOTS, s_max=64,
+                           mask_fn=lambda: mask_np, head_kernel_mode="cuda",
+                           macro_steps=macro_steps, device=dev)
+
+    macro = phase_macro_pair(torch, make_macro, prompts, WIDE_MAX_NEW, f"{cfg.name} x{WIDE_SLOTS}",
+                             smi)
+    single = runs["single device"]
+    row = {"phase": "wide_glm", "arch": cfg.name, "n_layers": cfg.n_layers, "n_slots": WIDE_SLOTS,
+           "requests": WIDE_SLOTS, "prompt_len": prompt_len, "max_new": WIDE_MAX_NEW,
+           "decode_steps": single["decode_steps"], "wall_s": single["wall_s"],
+           "tokens_per_s": single["tokens_per_s"], "step_ms": single["step_ms"],
+           "scalar_ms_per_step": macro["scalar_ms_per_step"],
+           "fused_ms_per_step": macro["fused_ms_per_step"],
+           "launches": single["launches"], "parity_events": single["parity_events"],
+           "mesh": {k: runs["mesh"][k] for k in ("launches", "decode_steps", "step_ms",
+                                                 "tokens_per_s", "wall_s")},
+           "tokens_equal_mesh": equal,
+           "head_ms": head_ms, "head_library_ms": matmul_ms, "head_turns_ms": turns,
+           "head_library_call": "torch.matmul(W_c, x), the block product alone",
+           "macro_launches": macro["launches"], "captures": macro["captures"],
+           "peak_mem_gb": max(single["peak_mem_gb"], runs["mesh"]["peak_mem_gb"]), "card": smi}
+    emit(row)
+    results["wide glm4-9b"] = row
+    results["wide glm4-9b mesh"] = runs["mesh"]
+    results["macro glm4-9b x64"] = macro
+    check(equal, "wide glm4-9b: the mesh engine's tokens differ from the single device's")
+
+
 def phase_profile(torch, eng) -> None:
     """Device time by kernel over 3 whole engine steps, every slot decoding
     (torch.profiler), and the device's busy share of the window's wall
@@ -2447,15 +2720,18 @@ def _dryrun_brief(row: dict) -> dict:
 
 def _expected_launches(cfg, kind: str, calls: int, batch: int) -> dict:
     """The six kernels' launches in ``calls`` calls of a dryrun cell's
-    function: the coded head's decode kernel once a column panel of x
-    (decode), each Mamba block's SSD pair once a prefill, and twice a train
-    step (its forward and the checkpoint's recompute; one microbatch)."""
-    from repro_torch.kernels.thin_rows import column_panels
+    function: the coded head's decode kernel once a call (decode; on the
+    wide engine from WIDE_MIN_B columns of x), each Mamba block's SSD pair
+    once a prefill, and twice a train step (its forward and the
+    checkpoint's recompute; one microbatch)."""
+    from repro_torch.kernels.wide_rows import WIDE_MIN_B
 
     want = {"coded_matvec": 0, "coded_matvec_decode": 0, "gaussian_encode": 0,
-            "lt_encode": 0, "ssd_chunk": 0, "ssd_combine": 0}
+            "lt_encode": 0, "ssd_chunk": 0, "ssd_combine": 0,
+            "coded_matvec_wide": 0, "coded_matvec_decode_wide": 0}
     if kind == "decode" and cfg.coded:
-        want["coded_matvec_decode"] = calls * len(column_panels(batch))
+        want["coded_matvec_decode"] = calls
+        want["coded_matvec_decode_wide"] = calls if batch >= WIDE_MIN_B else 0
     if cfg.family in ("ssm", "hybrid") and kind != "decode":
         per = cfg.n_layers * (2 if kind == "train" else 1)
         want["ssd_chunk"] = want["ssd_combine"] = calls * per
@@ -2585,6 +2861,7 @@ TRAIN_BATCH, TRAIN_MICRO = 8, 4
 TRAIN_GLM_SEQ, TRAIN_ZAMBA_SEQ, TRAIN_DRILL_SEQ = 512, 1024, 512
 TRAIN_STEPS = 10          # glm4-9b: 10 plain and 10 FRC steps
 TRAIN_ZAMBA_STEPS = 6     # zamba2-1.2b's timed launcher run (the first step is not timed)
+TRAIN_ZAMBA_LAYERS = 18   # zamba2-1.2b train depth (of 38): three periods of its shared attention
 TRAIN_ADAPTIVE_STEPS = 3  # zamba2-1.2b's short run under --adaptive-s
 TRAIN_LR = 1e-4           # peak lr of the full-width phases (warmup-cosine)
 # a coded step against the plain step from the same state, both on the card:
@@ -3013,8 +3290,9 @@ def _refusals(torch) -> dict:
 
 
 def phase_train_zamba(torch, args, results: dict, smi: str) -> None:
-    """zamba2-1.2b whole (38 layers, full width): batch 8 of 1024 tokens
-    (4 SSD chunks a block) in 4 microbatches.  First, from one seeded
+    """zamba2-1.2b at full width, TRAIN_ZAMBA_LAYERS of its 38 layers (the
+    cut printed): batch 8 of 1024 tokens (4 SSD chunks a block) in 4
+    microbatches.  First, from one seeded
     state: the cyclic (s = 1) step against the plain step under an
     all-ones and a one-straggler mask, and under two stragglers
     (undecodable: the state bit-equal).  Then the train launcher
@@ -3036,7 +3314,11 @@ def phase_train_zamba(torch, args, results: dict, smi: str) -> None:
     from repro_torch.train.loop import TrainConfig, init_train_state, make_train_step
 
     dev = torch.device("cuda")
-    cfg = get_config("zamba2-1.2b")
+    full = get_config("zamba2-1.2b")
+    cfg = full.scaled(n_layers=TRAIN_ZAMBA_LAYERS)
+    emit({"phase": "cut", "path": "train zamba2-1.2b", "n_layers": cfg.n_layers,
+          "of": full.n_layers, "why": "the script's 1,200 s limit; the hybrid serve runs all "
+                                      "38 layers; the widths are full"})
     model = build_model(cfg)
     opt = AdamWConfig(lr=warmup_cosine(TRAIN_LR, 1, TRAIN_ZAMBA_STEPS))
     pipe = make_pipeline(cfg, seq=TRAIN_ZAMBA_SEQ, global_batch=TRAIN_BATCH, seed=args.seed)
@@ -3053,7 +3335,8 @@ def phase_train_zamba(torch, args, results: dict, smi: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    base = ["--arch", "zamba2-1.2b", "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_ZAMBA_SEQ),
+    base = ["--arch", "zamba2-1.2b", "--layers", str(TRAIN_ZAMBA_LAYERS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_ZAMBA_SEQ),
             "--microbatches", str(TRAIN_MICRO), "--lr", str(TRAIN_LR),
             "--gradient-coding", "cyclic", "--gc-stragglers", "1", "--compress", "int8",
             "--straggler-prob", "0.2", "--straggler-slowdown", "3", "--log-every", "1",
@@ -3199,7 +3482,7 @@ def phase_train_drill(torch, args, results: dict, smi: str) -> None:
 FAMILY_TRAIN = {
     "llama-3.2-vision-11b": (5, 8, 512, 4, "frc"),
     "dbrx-132b": (1, 8, 512, 1, None),
-    "seamless-m4t-large-v2": (None, 8, 512, 4, "frc"),
+    "seamless-m4t-large-v2": (12, 8, 512, 4, "frc"),
 }
 FAMILY_TRAIN_WHY = {
     "llama-3.2-vision-11b": "one group of 5 of the 40 layers (four self-attention layers and "
@@ -3210,7 +3493,9 @@ FAMILY_TRAIN_WHY = {
                  "params, gradients and int8 moments of all 40 (132 G params) need about "
                  "1.3 TB; one microbatch (no accumulator) and no coded step (4 fp32 messages "
                  "would be 72 GB); the widths are full",
-    "seamless-m4t-large-v2": "nothing cut: 24 encoder and 24 decoder layers at full width",
+    "seamless-m4t-large-v2": "12 of the 24 encoder and 12 of the 24 decoder layers, for the "
+                             "script's 1,200 s limit (the encdec serve runs all 48); the "
+                             "widths are full",
 }
 FAMILY_TRAIN_STEPS = 4        # timed steps of each run (plain, then coded); the first not in the median
 # the timed steps cycle over this many batches: on fresh batches of the
@@ -3259,7 +3544,8 @@ def phase_train_family(torch, args, results: dict, smi: str, arch: str) -> None:
     dev = torch.device("cuda")
     layers, batch_n, seq, micro, scheme = FAMILY_TRAIN[arch]
     full = get_config(arch)
-    cfg = full if layers is None else full.scaled(n_layers=layers)
+    cfg = full.scaled(n_layers=layers, **({"enc_layers": layers} if full.family == "encdec"
+                                          else {}))
     path = f"train {arch}"
     cut = {"phase": "cut", "path": path, "n_layers": cfg.n_layers, "of": full.n_layers,
            "why": FAMILY_TRAIN_WHY[arch]}
@@ -3528,12 +3814,13 @@ def _ptxas_summary(log: str) -> dict:
             "spill_bytes": sum(int(a) + int(b) for a, b in spills)}
 
 
-def _head_variants(settings) -> dict:
+def _head_variants(settings, max_b: int | None = None) -> dict:
     """thin_rows.cuh rebuilt with other kWarps, kRowsPerWarp and
-    kLoadsInFlight, and coded_matvec.cu and coded_decode.cu against each
-    copy, one nvcc each, started together, under build/head_sweep; {(warps,
-    rows, words, source): (the library, its ptxas summary)}, or (None,
-    nvcc's output) for a variant that does not build."""
+    kLoadsInFlight (and kMaxB, when ``max_b`` is given), and coded_matvec.cu
+    and coded_decode.cu against each copy, one nvcc each, started together,
+    under build/head_sweep; {(warps, rows, words, source): (the library, its
+    ptxas summary)}, or (None, nvcc's output) for a variant that does not
+    build."""
     import ctypes
     import re
     import shutil
@@ -3545,14 +3832,20 @@ def _head_variants(settings) -> dict:
     for (warps, rows, words), source in itertools.product(settings,
                                                           ("coded_matvec", "coded_decode")):
         text = header
-        for name, value in (("kWarps", warps), ("kRowsPerWarp", rows),
-                            ("kLoadsInFlight", words * rows)):
+        edits = [("kWarps", warps), ("kRowsPerWarp", rows), ("kLoadsInFlight", words * rows)]
+        if max_b is not None:
+            edits.append(("kMaxB", max_b))
+        for name, value in edits:
             text, n = re.subn(rf"constexpr int {name} = \w+;", f"constexpr int {name} = {value};",
                               text)
             check(n == 1, f"thin_rows.cuh defines {name} {n} times, not once")
-        out_dir = _build.BUILD_DIR.parent / "head_sweep" / f"{source}_c{warps}_r{rows}_w{words}"
+        tag = f"{source}_c{warps}_r{rows}_w{words}" + ("" if max_b is None else f"_b{max_b}")
+        out_dir = _build.BUILD_DIR.parent / "head_sweep" / tag
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / "thin_rows.cuh").write_text(text)
+        for other in _build.CSRC.glob("*.cuh"):  # the sources' other headers, as they are
+            if other.name != "thin_rows.cuh":
+                shutil.copy(other, out_dir / other.name)
         cu = out_dir / f"{source}.cu"
         shutil.copy(_build.CSRC / f"{source}.cu", cu)
         lib = cu.with_suffix(".so")
@@ -3567,12 +3860,13 @@ def _head_variants(settings) -> dict:
     return libs
 
 
-def _head_launch(torch, lib, setting, w, x, rec=None):
+def _head_launch(torch, lib, setting, w, x, rec=None, max_b=None):
     """A launch of a head library's C entry on (w, x[, rec]) with the plan of
     ``setting`` (warps, rows a warp, blocks an SM at most): (the
     zero-argument launch, its output, the plan).  coded_matvec without rec,
     coded_matvec_decode with it.  The plan is head_plan's, with the group of
-    rows and the grid's cap of the setting."""
+    rows and the grid's cap of the setting, for a library whose kMaxB is
+    ``max_b`` (None: the shipped one's)."""
     import ctypes
 
     from repro_torch.kernels import thin_rows
@@ -3595,7 +3889,7 @@ def _head_launch(torch, lib, setting, w, x, rec=None):
         occ = lib.coded_matvec_occupancy
         occ.argtypes, occ.restype = [i, i, i, i, p], i
         plan = thin_rows.head_plan(
-            rows, m, b, sm_count=thin_rows.sm_count(0),
+            rows, m, b, sm_count=thin_rows.sm_count(0), max_b=max_b or thin_rows.MAX_B,
             occupancy=lambda smem: occupancy(b, int(half), int(vec), smem))
         plan = dataclasses.replace(plan, group_rows=warps * rows_per_warp)
         out = torch.empty(rows, b, device=w.device)
@@ -3609,6 +3903,7 @@ def _head_launch(torch, lib, setting, w, x, rec=None):
         occ.argtypes, occ.restype = [i, i, i, p], i
         plan = thin_rows.head_plan(
             rows, m, b, sm_count=thin_rows.sm_count(0), nb=nb, n_data=n_data,
+            max_b=max_b or thin_rows.MAX_B,
             occupancy=lambda smem: occupancy(b, int(vec), smem))
         out = torch.empty(n_data * (rows // nb), b, device=w.device)
         fn = lib.coded_matvec_decode
@@ -3744,6 +4039,89 @@ def sweep_head(torch, args, smi: str) -> None:
 
 # ssd_scan.cu's tensor-core settings: kChunkWarps, kChunkMinBlocks (blocks an
 # SM its launch bounds ask for), kFastExp, kCombineWarps, kCombineMinBlocks
+WIDE_SWEEP_B = (4, 8, 12, 16, 17)   # widths at which the two head engines are timed
+WIDE_SWEEP_TURNS = 3                # pairs of turns (thin, wide, wide, thin) a width
+WIDE_SWEEP_THIN_MAX_B = 16          # kMaxB of the sweep's thin-row copy
+
+
+def sweep_wide(torch, args, smi: str) -> None:
+    """The threshold between the head kernels' two engines: the thin-row
+    and the wide engine timed in turns (thin, wide, wide, thin, three pairs)
+    at B in WIDE_SWEEP_B on the glm4-9b code block (coded_matvec), the
+    glm4-9b W_c and the mamba2-130m W_c (coded_matvec_decode).  The wide
+    engine runs through its launcher as the wrapper calls it; the thin-row
+    engine, which ships for at most WIDE_MIN_B - 1 columns, through a copy
+    built here with kMaxB 16 and the shipped setting, on the shipped plan,
+    held to the plain version.  At 17 columns it takes two launches (9 + 8
+    columns).  Prints each width's times and the smallest width at which
+    the wide engine wins at all three shapes, beside ``WIDE_MIN_B``; no
+    device line."""
+    import re
+    import statistics
+
+    from repro_torch.kernels import _build, coded_decode, coded_matvec, ref, thin_rows
+    from repro_torch.kernels.wide_rows import WIDE_MIN_B
+
+    words = int(re.search(r"constexpr int kLoadsInFlight = (\d+);",
+                          (_build.CSRC / "thin_rows.cuh").read_text()).group(1))
+    shipped = (thin_rows.WARPS, thin_rows.ROWS_PER_WARP, words // thin_rows.ROWS_PER_WARP)
+    libs = _head_variants([shipped], max_b=WIDE_SWEEP_THIN_MAX_B)
+    for source in ("coded_matvec", "coded_decode"):
+        lib, log = libs[(*shipped, source)]
+        check(lib is not None, f"thin-row copy of {source} with kMaxB "
+                               f"{WIDE_SWEEP_THIN_MAX_B} did not build: {log}")
+    setting = (*shipped[:2], thin_rows.BLOCKS_PER_SM)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 17)
+    shapes = [("glm4-9b block", 10826, 4096, None), ("glm4-9b W_c", 10826, 4096, (14, 2)),
+              ("mamba2-130m W_c", 3592, 768, (14, 2))]
+    wins: dict = {b: [] for b in WIDE_SWEEP_B}
+    for label, br, m, code in shapes:
+        nb = 1 if code is None else sum(code)
+        w = torch.randn(nb * br, m, device=dev, generator=gen)
+        rec = None if code is None else torch.randn(code[0], nb, device=dev, generator=gen)
+        lib = libs[(*shipped, "coded_matvec" if rec is None else "coded_decode")][0]
+        for b in WIDE_SWEEP_B:
+            x = torch.randn(m, b, device=dev, generator=gen)
+            panels = [x[:, lo:hi].contiguous() for lo, hi in ((0, 9), (9, 17))] if b > 16 else [x]
+            runs = [_head_launch(torch, lib, setting, w, p, rec, max_b=WIDE_SWEEP_THIN_MAX_B)
+                    for p in panels]
+
+            def thin(runs=runs):
+                for launch, _, _ in runs:
+                    launch()
+
+            if rec is None:
+                def wide(x=x, b=b):
+                    coded_matvec._launch_wide(w, x, b)
+                want = ref.ref_coded_matvec(w, x)
+            else:
+                def wide(x=x, b=b):
+                    coded_decode._launch_wide(w, x, rec, b)
+                want = ref.ref_coded_matvec_decode(w, x, rec)
+            thin()
+            got = torch.cat([out for _, out, _ in runs], dim=1)
+            err, scale = max_err(torch, got, want)
+            tol = 1e-4 * max(1.0, scale)
+            check(err <= tol, f"sweep_wide thin {label} B={b}: {err} > {tol}")
+            del got, want
+            iters = 10 if nb * br > 100_000 else 30
+            pairs = [time_turns(torch, thin, wide, iters) for _ in range(WIDE_SWEEP_TURNS)]
+            thin_ms = statistics.median(p[0] for p in pairs)
+            wide_ms = statistics.median(p[1] for p in pairs)
+            wins[b].append(wide_ms < thin_ms)
+            emit({"phase": "sweep_wide", "shape": label, "w": [nb * br, m], "b": b,
+                  "thin_ms": thin_ms, "wide_ms": wide_ms, "thin_launches": len(panels),
+                  "wide_over_thin": wide_ms / thin_ms, "thin_max_abs_err": err,
+                  "turns_ms": [p[2] for p in pairs], "card": smi})
+        del w
+        torch.cuda.empty_cache()
+    measured = next((b for b in WIDE_SWEEP_B if all(wins[b])), None)
+    emit({"phase": "sweep_wide_threshold", "wide_min_b_measured": measured,
+          "wide_min_b": WIDE_MIN_B, "agrees": measured == WIDE_MIN_B,
+          "wins": {str(b): v for b, v in wins.items()}, "card": smi})
+
+
 SSD_SWEEP = [(8, 2, 0, 8, 3), (8, 2, 1, 8, 3), (8, 2, 1, 8, 4), (4, 4, 1, 4, 4),
              (4, 2, 0, 4, 6), (16, 1, 1, 16, 1)]
 SSD_SWEEP_PROMPTS = (4096, 1000)
@@ -4005,6 +4383,10 @@ def main() -> int:
                     help="only build, check the head kernels and sweep thin_rows.cuh's "
                          "warps, rows a warp, loads in flight and blocks an SM at the "
                          "glm4-9b and Mamba-2 heads' shapes (no serve, no device line)")
+    ap.add_argument("--sweep-wide", action="store_true",
+                    help="only build, check the head kernels and time the thin-row and the "
+                         "wide engine at B = 4, 8, 12, 16 and 17 on the glm4-9b block, the "
+                         "glm4-9b W_c and the mamba2-130m W_c (no serve, no device line)")
     ap.add_argument("--c2-order", action="store_true",
                     help="only the vlm, moe and encdec serves, then the glm4-9b train phase, "
                          "with the allocator's state (at an out-of-memory error, its "
@@ -4046,6 +4428,11 @@ def main() -> int:
         kernel_coded_matvec(torch, gen, results)
         sweep_head(torch, args, smi)
         return 0
+    if args.sweep_wide:
+        kernel_coded_decode(torch, gen, results)
+        kernel_coded_matvec(torch, gen, results)
+        sweep_wide(torch, args, smi)
+        return 0
     if args.c2_order:
         return c2_order(torch, args, smi)
     seconds: dict = {}
@@ -4071,6 +4458,7 @@ def main() -> int:
     timed("mesh serve", phase_mesh_serve, torch, serve, mesh, results, smi)
     timed("trace serve", phase_trace_serve, torch, args, serve, results, smi)
     timed("macro glm4-9b", phase_macro_glm, torch, serve, results, smi)
+    timed("wide glm4-9b", phase_wide_glm, torch, args, serve, mesh, results, smi)
     timed("auto glm4-9b", phase_auto_glm, torch, args, serve, mesh, results, smi)
     del serve, mesh
     gc.collect()
@@ -4117,6 +4505,18 @@ def main() -> int:
         ("coded_matvec_decode", "src/repro_torch/kernels/csrc/coded_decode.cu",
          "src/repro/kernels/coded_decode.py:65", "macro serve (graphs)",
          {"launches": results["macro glm4-9b"]["launches"][1]}, "glm4-9b decode"),
+        ("coded_matvec_decode", "src/repro_torch/kernels/csrc/coded_decode.cu",
+         "src/repro/kernels/coded_decode.py:65", "wide glm4-9b serve", results["wide glm4-9b"],
+         "glm4-9b decode B=64"),
+        ("gaussian_encode", "src/repro_torch/kernels/csrc/gaussian_encode.cu",
+         "src/repro/kernels/lt_encode.py:107", "wide glm4-9b serve", results["wide glm4-9b"],
+         "glm4-9b raise"),
+        ("coded_matvec", "src/repro_torch/kernels/csrc/coded_matvec.cu",
+         "src/repro/kernels/coded_matvec.py:47", "wide glm4-9b mesh serve",
+         results["wide glm4-9b mesh"], "glm4-9b block B=64"),
+        ("coded_matvec_decode", "src/repro_torch/kernels/csrc/coded_decode.cu",
+         "src/repro/kernels/coded_decode.py:65", "wide glm4-9b macro serve (graphs)",
+         {"launches": results["macro glm4-9b x64"]["launches"][1]}, "glm4-9b decode B=64"),
         *((name, src, replaces, "auto glm4-9b", results["auto glm4-9b"], shape)
           for name, src, replaces, shape in (
               ("coded_matvec_decode", "src/repro_torch/kernels/csrc/coded_decode.cu",
@@ -4191,6 +4591,9 @@ def main() -> int:
         launches = phase.get("device_encode", phase)["launches"]
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": launches[name], "max_abs_err": r["max_abs_err"],
+                 # of those, the wide engine's (the head kernels; None where
+                 # the kernel has one engine)
+                 "wide_launches": launches.get(f"{name}_wide"),
                  "ms": r["ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"], "path": path, "shape": r["shape"]}

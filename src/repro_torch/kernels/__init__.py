@@ -14,6 +14,10 @@ _SYMBOLS = {"coded_matvec": "MatvecTask",
             "lt_encode": "lt_encode_kernel",
             "ssd_chunk": "ssd_chunk_",
             "ssd_combine": "ssd_combine_"}
+# what names the wide engine's kernel (csrc/wide_rows.cuh), beside the
+# head kernels' own symbols above
+_WIDE_SYMBOL = "wide_rows_kernel"
+_WIDE_KERNELS = ("coded_matvec", "coded_matvec_decode")
 _NODE = re.compile(r'^\s*"?graph_\d+_node_\d+"?\s*\[', re.M)
 
 
@@ -50,17 +54,25 @@ def refuse_grad(wrapper, *tensors) -> None:
             f"autograd Function")
 
 
-def count_launch(wrapper) -> None:
+def count_launch(wrapper, wide: bool = False) -> None:
     """Count one call of ``wrapper``'s C entry on the current stream.  While
     that stream captures a CUDA graph nothing launches: the kernel is
     recorded into the graph and goes to ``wrapper.captured``; it runs, and
-    is counted, at each replay."""
+    is counted, at each replay.  ``wide``: the call launched the wide
+    engine (the head kernels' x of ``WIDE_MIN_B`` columns and more), also
+    counted in ``wrapper.wide_launches`` (``wide_captured``)."""
     import torch
 
-    if torch.cuda.is_current_stream_capturing():
+    capturing = torch.cuda.is_current_stream_capturing()
+    if capturing:
         wrapper.captured += 1
     else:
         wrapper.launches += 1
+    if wide:
+        if capturing:
+            wrapper.wide_captured += 1
+        else:
+            wrapper.wide_launches += 1
 
 
 def graph_kernel_nodes(graph) -> dict[str, int]:
@@ -68,6 +80,12 @@ def graph_kernel_nodes(graph) -> dict[str, int]:
     ``torch.cuda.CUDAGraph``, by kernel name, read from the graph itself
     (CUDA's DOT dump of it).  The graph must have been made with
     ``keep_graph=True``, which keeps the captured graph to dump."""
+    return count_kernel_nodes(graph_dot(graph))
+
+
+def graph_dot(graph) -> str:
+    """CUDA's DOT dump of a captured ``torch.cuda.CUDAGraph`` made with
+    ``keep_graph=True``."""
     with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
         warnings.filterwarnings("ignore", "DEBUG: calling", UserWarning)  # the dump's notices
         path = os.path.join(tmp, "graph.dot")
@@ -75,15 +93,27 @@ def graph_kernel_nodes(graph) -> dict[str, int]:
         if not os.path.exists(path):
             raise RuntimeError("the CUDA graph was not dumped: make it with keep_graph=True")
         with open(path) as f:
-            return count_kernel_nodes(f.read())
+            return f.read()
+
+
+def _dot_nodes(dot: str) -> list[str]:
+    starts = [m.start() for m in _NODE.finditer(dot)]
+    if not starts:
+        raise ValueError("no graph node in the DOT text")
+    return [dot[a:b] for a, b in zip(starts, starts[1:] + [len(dot)])]
 
 
 def count_kernel_nodes(dot: str) -> dict[str, int]:
     """Count, in a CUDA graph's DOT text, the nodes whose label names each
     kernel's symbol; a node is counted once however often its label names
     it (mangled and demangled)."""
-    starts = [m.start() for m in _NODE.finditer(dot)]
-    if not starts:
-        raise ValueError("no graph node in the DOT text")
-    nodes = [dot[a:b] for a, b in zip(starts, starts[1:] + [len(dot)])]
+    nodes = _dot_nodes(dot)
     return {name: sum(sym in node for node in nodes) for name, sym in _SYMBOLS.items()}
+
+
+def count_wide_nodes(dot: str) -> dict[str, int]:
+    """Count, in a CUDA graph's DOT text, each head kernel's nodes that are
+    the wide engine's (their label names both symbols)."""
+    nodes = _dot_nodes(dot)
+    return {name: sum(_SYMBOLS[name] in node and _WIDE_SYMBOL in node for node in nodes)
+            for name in _WIDE_KERNELS}

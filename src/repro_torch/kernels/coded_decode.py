@@ -3,12 +3,13 @@
 ``coded_matvec_decode_cuda`` launches ``csrc/coded_decode.cu`` (the port of
 the Pallas ``repro.kernels.coded_decode.coded_matvec_decode_pallas``):
 y = R · blocked(W_c x), decoded inside the kernel so the coded partials
-never reach device memory.  The row products stream through
-``csrc/thin_rows.cuh`` on the geometry of
-``repro_torch.kernels.thin_rows.head_plan``.  The kernel takes up to
-``MAX_B`` columns of x; a wider x runs in column panels
-(``thin_rows.column_panels``), one launch (and one read of W_c) a panel.
-Its plain version is
+never reach device memory, in one launch at any width of x.  Below
+``WIDE_MIN_B`` columns the row products stream through the thin-row
+engine ``csrc/thin_rows.cuh`` (geometry:
+``repro_torch.kernels.thin_rows.head_plan``); from there on through the
+wide engine ``csrc/wide_rows.cuh`` on the tensor cores (geometry:
+``repro_torch.kernels.wide_rows.wide_plan``), which reads W_c once a
+column tile of up to 256 columns.  Its plain version is
 ``repro_torch.kernels.ref.ref_coded_matvec_decode``; the mode-switching
 wrapper is ``repro_torch.kernels.ops.coded_matvec_decode``.
 """
@@ -19,12 +20,11 @@ import functools
 
 import torch
 
-from repro_torch.kernels import count_launch, refuse_grad, thin_rows
+from repro_torch.kernels import count_launch, refuse_grad, thin_rows, wide_rows
 from repro_torch.kernels._build import c_function
 
-__all__ = ["MAX_B", "MAX_BLOCKS", "coded_matvec_decode_cuda"]
+__all__ = ["MAX_BLOCKS", "coded_matvec_decode_cuda"]
 
-MAX_B = thin_rows.MAX_B   # widest x one launch takes; wider runs in panels
 MAX_BLOCKS = 32   # most code blocks (the mask-keyed cache stops at 20)
 
 
@@ -33,7 +33,8 @@ def coded_matvec_decode_cuda(
 ) -> torch.Tensor:
     """w_coded [nb*br, M], x [M] or [M, B] (any B >= 1), rec [n_data, nb] —
     all fp32, contiguous, on one CUDA device -> y [n_data*br(, B)] fp32.
-    B > 16 runs in ceil(B / 16) column panels, each one launch, counted."""
+    One launch, counted; from ``WIDE_MIN_B`` columns on the wide engine,
+    also counted in ``.wide_launches``."""
     refuse_grad(coded_matvec_decode_cuda, w_coded, x, rec)
     for name, t in (("w_coded", w_coded), ("x", x), ("rec", rec)):
         if not t.is_cuda:
@@ -57,18 +58,20 @@ def coded_matvec_decode_cuda(
         raise ValueError(f"{rows} coded rows not a positive multiple of {nb} blocks")
     if b < 1:
         raise ValueError("x has no columns")
-    if b > MAX_B:
-        return torch.cat([_launch(w_coded, x[:, lo:hi].contiguous(), rec, hi - lo)
-                          for lo, hi in thin_rows.column_panels(b)], dim=1)
+    if b >= wide_rows.WIDE_MIN_B:
+        return _launch_wide(w_coded, x, rec, b)
     return _launch(w_coded, x, rec, b)
 
 
 coded_matvec_decode_cuda.launches = 0
 coded_matvec_decode_cuda.captured = 0
+coded_matvec_decode_cuda.wide_launches = 0
+coded_matvec_decode_cuda.wide_captured = 0
 
 
 def _launch(w_coded: torch.Tensor, x: torch.Tensor, rec: torch.Tensor, b: int) -> torch.Tensor:
-    """One launch on checked inputs, x of at most MAX_B columns."""
+    """One launch of the thin-row engine on checked inputs, x of at most
+    thin_rows.MAX_B columns."""
     rows, m = w_coded.shape
     n_data, nb = rec.shape
     br = rows // nb
@@ -83,6 +86,41 @@ def _launch(w_coded: torch.Tensor, x: torch.Tensor, rec: torch.Tensor, b: int) -
     if err != 0:
         raise RuntimeError(f"coded_matvec_decode launch failed: cudaError {err}")
     return out
+
+
+def _launch_wide(w_coded: torch.Tensor, x: torch.Tensor, rec: torch.Tensor,
+                 b: int) -> torch.Tensor:
+    """One launch of the wide engine on checked inputs (x split into its
+    pieces by the entry's pre-pass, into scratch allocated here)."""
+    rows, m = w_coded.shape
+    n_data, nb = rec.shape
+    br = rows // nb
+    out = torch.empty((n_data * br, b), dtype=torch.float32, device=w_coded.device)
+    plan = _wide_plan(w_coded.device, rows, m, b, nb, n_data)
+    xp = torch.empty(plan.xp_elements, dtype=torch.bfloat16, device=w_coded.device)
+    err = thin_rows.call_on(w_coded.device, _wide_entry(), w_coded.data_ptr(), x.data_ptr(),
+                            xp.data_ptr(), rec.data_ptr(), out.data_ptr(), br, m, b, nb, n_data,
+                            plan.grid, plan.cols, plan.stages, plan.smem_bytes)
+    count_launch(coded_matvec_decode_cuda, wide=True)
+    if err != 0:
+        raise RuntimeError(f"coded_matvec_decode (wide) launch failed: cudaError {err}")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_entry():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return c_function("coded_decode", "coded_matvec_decode_wide",
+                      [p, p, p, p, p, ctypes.c_longlong, ctypes.c_longlong,
+                       i, i, i, i, i, i, i, p])
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_plan(device: torch.device, rows: int, m: int, b: int, nb: int,
+               n_data: int) -> wide_rows.WidePlan:
+    dev = device.index if device.index is not None else torch.cuda.current_device()
+    return wide_rows.wide_plan(rows, m, b, sm_count=thin_rows.sm_count(dev), nb=nb,
+                               n_data=n_data)
 
 
 @functools.lru_cache(maxsize=None)

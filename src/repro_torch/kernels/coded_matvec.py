@@ -2,13 +2,15 @@
 
 ``coded_matvec_cuda`` launches ``csrc/coded_matvec.cu`` (the port of the
 Pallas ``repro.kernels.coded_matvec.coded_matvec_pallas``): one worker's,
-or one code block's, product with fp32 sums, reading A once through the
-thin-row engine ``csrc/thin_rows.cuh``, on the geometry of
-``repro_torch.kernels.thin_rows.head_plan``.  The kernel takes up to
-``MAX_B`` columns of x; a wider x runs in column panels
-(``thin_rows.column_panels``), one launch (and one read of A) a panel.
-Its plain version is ``repro_torch.kernels.ref.ref_coded_matvec``; the
-mode-switching wrapper is ``repro_torch.kernels.ops.coded_matvec``.
+or one code block's, product with fp32 sums, reading A once, in one launch
+at any width of x.  Below ``WIDE_MIN_B`` columns the rows stream through
+the thin-row engine ``csrc/thin_rows.cuh`` (geometry:
+``repro_torch.kernels.thin_rows.head_plan``); from there on through the
+wide engine ``csrc/wide_rows.cuh`` on the tensor cores (geometry:
+``repro_torch.kernels.wide_rows.wide_plan``), which reads A once a column
+tile of up to 256 columns.  Its plain version is
+``repro_torch.kernels.ref.ref_coded_matvec``; the mode-switching wrapper
+is ``repro_torch.kernels.ops.coded_matvec``.
 """
 from __future__ import annotations
 
@@ -17,20 +19,20 @@ import functools
 
 import torch
 
-from repro_torch.kernels import count_launch, refuse_grad, thin_rows
+from repro_torch.kernels import count_launch, refuse_grad, thin_rows, wide_rows
 from repro_torch.kernels._build import c_function
 
-__all__ = ["MAX_B", "coded_matvec_cuda"]
+__all__ = ["coded_matvec_cuda"]
 
-MAX_B = thin_rows.MAX_B  # widest x one launch takes; wider runs in panels
 _DTYPES = (torch.float32, torch.float16)
 
 
 def coded_matvec_cuda(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """a [R, M], x [M] or [M, B] (any B >= 1) — both fp32 or both fp16,
     contiguous, on one CUDA device -> y [R(, B)] fp32.  ``a`` may be a row
-    view (a code block of a coded weight) at any element offset.  B > 16
-    runs in ceil(B / 16) column panels, each one launch, counted."""
+    view (a code block of a coded weight) at any element offset.  One
+    launch, counted; from ``WIDE_MIN_B`` columns on the wide engine, also
+    counted in ``.wide_launches``."""
     refuse_grad(coded_matvec_cuda, a, x)
     for name, t in (("a", a), ("x", x)):
         if not t.is_cuda:
@@ -53,18 +55,20 @@ def coded_matvec_cuda(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"empty product: a {tuple(a.shape)}")
     if b < 1:
         raise ValueError("x has no columns")
-    if b > MAX_B:
-        return torch.cat([_launch(a, x[:, lo:hi].contiguous(), hi - lo)
-                          for lo, hi in thin_rows.column_panels(b)], dim=1)
+    if b >= wide_rows.WIDE_MIN_B:
+        return _launch_wide(a, x, b)
     return _launch(a, x, b)
 
 
 coded_matvec_cuda.launches = 0
 coded_matvec_cuda.captured = 0
+coded_matvec_cuda.wide_launches = 0
+coded_matvec_cuda.wide_captured = 0
 
 
 def _launch(a: torch.Tensor, x: torch.Tensor, b: int) -> torch.Tensor:
-    """One launch on checked inputs, x of at most MAX_B columns."""
+    """One launch of the thin-row engine on checked inputs, x of at most
+    thin_rows.MAX_B columns."""
     r, m = a.shape
     out = torch.empty((r, b) if x.dim() == 2 else (r,), dtype=torch.float32, device=a.device)
     half = a.dtype == torch.float16
@@ -77,6 +81,37 @@ def _launch(a: torch.Tensor, x: torch.Tensor, b: int) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"coded_matvec launch failed: cudaError {err}")
     return out
+
+
+def _launch_wide(a: torch.Tensor, x: torch.Tensor, b: int) -> torch.Tensor:
+    """One launch of the wide engine on checked inputs (x split into its
+    pieces by the entry's pre-pass, into scratch allocated here)."""
+    r, m = a.shape
+    out = torch.empty((r, b), dtype=torch.float32, device=a.device)
+    half = a.dtype == torch.float16
+    plan = _wide_plan(a.device, r, m, b, half)
+    xp = torch.empty(plan.xp_elements, dtype=torch.float16 if half else torch.bfloat16,
+                     device=a.device)
+    err = thin_rows.call_on(a.device, _wide_entry(), a.data_ptr(), x.data_ptr(), xp.data_ptr(),
+                            out.data_ptr(), r, m, b, int(half), plan.grid, plan.cols,
+                            plan.stages, plan.smem_bytes)
+    count_launch(coded_matvec_cuda, wide=True)
+    if err != 0:
+        raise RuntimeError(f"coded_matvec (wide) launch failed: cudaError {err}")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_entry():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return c_function("coded_matvec", "coded_matvec_wide",
+                      [p, p, p, p, ctypes.c_longlong, ctypes.c_longlong, i, i, i, i, i, i, p])
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_plan(device: torch.device, r: int, m: int, b: int, half: bool) -> wide_rows.WidePlan:
+    dev = device.index if device.index is not None else torch.cuda.current_device()
+    return wide_rows.wide_plan(r, m, b, sm_count=thin_rows.sm_count(dev), half=half)
 
 
 @functools.lru_cache(maxsize=None)

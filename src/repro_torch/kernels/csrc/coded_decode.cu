@@ -33,7 +33,16 @@
 // 0.0612, 0.0718 and 0.1013 (chip_smoke.py --sweep-head, kernel rows; on
 // another card of the same kind the W_c read took 0.897 ms).  The first
 // port took 0.978 ms at glm4-9b B = 4 and 0.0726 at mamba2 B = 4.
+//
+// x of WIDE_MIN_B (8) columns and more goes to the second entry,
+// coded_matvec_decode_wide, on the wide engine (wide_rows.cuh): a tile is
+// 128 / nb rows of each code block on the tensor cores, W_c read once a
+// tile of up to 256 columns of x, the decode per tile in shared memory.
+// It takes 1.1736 ms at the glm4-9b head at B = 64 and 0.1694 at the
+// mamba2-130m head at 128 (torch.matmul(W_c, x) 2.3183 and 0.2839;
+// chip_smoke.py kernel rows, H100 80GB HBM3, 700 W).
 #include "thin_rows.cuh"
+#include "wide_rows.cuh"
 
 namespace {
 
@@ -142,6 +151,98 @@ thin_rows::KernelFn<DecodeTask> pick(int b, bool vec) {
   return thin_rows::pick<DecodeTask, kTileRowsPerWarp>(b, vec);
 }
 
+// ---- the wide engine (wide_rows.cuh): x of WIDE_MIN_B columns and more
+//
+// A row tile is bt = 128 / nb rows of every code block: tile row j * bt + i
+// is row rt * bt + i of block j.  Epilogue scratch: ys [128][kEpiPitch], a
+// tile's coded sums for 32 columns at a time, and R transposed and padded.
+struct WideDecodeTask {
+  using Elem = float;
+  const float* w;
+  const float* rec;
+  float* out;
+  int64_t br;
+  int b, nb, n_data;
+
+  // R transposed, [nb][kDs * ceil(n_data / kDs)], zero-padded: a thread
+  // reads kDs decoded rows' coefficients of a block in one float4 pair
+  __device__ void prologue(unsigned char* smem, const wide_rows::Geometry& g, int tid,
+                           int n) const {
+    float* rt = reinterpret_cast<float*>(smem + g.rec_off);
+    const int pitch = d_pitch();
+    for (int i = tid; i < nb * pitch; i += n) {
+      const int j = i / pitch, d = i - j * pitch;
+      rt[i] = d < n_data ? rec[d * nb + j] : 0.f;
+    }
+  }
+  static constexpr int kDs = 8;   // decoded rows a thread sums at once
+  __device__ int d_pitch() const { return (n_data + kDs - 1) / kDs * kDs; }
+  __device__ void tma_w(uint32_t dst, const CUtensorMap* map, uint64_t* bar, int rt, int kt,
+                        const wide_rows::Geometry& g, uint64_t policy) const {
+    wide_rows::tma_3d(dst, map, bar, kt * g.bk, rt * g.bt, 0, policy);
+  }
+  // tile row rr = j * bt + i is row rt * bt + i of block j; none past nb * bt
+  // or W_c's block edge
+  __device__ const float* w_row(int rr, int rt, const wide_rows::Geometry& g) const {
+    if (rr >= g.tile_rows) return nullptr;
+    const int j = rr / g.bt, i = rr - j * g.bt;
+    const int64_t row = static_cast<int64_t>(rt) * g.bt + i;
+    return row < br ? w + (j * br + row) * g.m : nullptr;
+  }
+  // y[d, rt * bt + i, col] = sum_j R[d, j] * sums[j * bt + i][col], in j
+  // order, 32 columns at a time through shared memory; acc[c][4 j + 2 h +
+  // e] is tile row row0 + 8 h, column 32 c + 8 j + 2 t + e.  A thread
+  // takes an (i, col) and kDs decoded rows at a time, each block's sum read
+  // once for them.
+  template <int NT>
+  __device__ void epilogue(const float (&acc)[NT][16], unsigned char* smem, int rt, int ct,
+                           const wide_rows::Geometry& g, int row0, int t, int ctid) const {
+    constexpr int kConsumers = 32 * wide_rows::kConsumerWarps;
+    constexpr int kQ = wide_rows::kColQuantum;
+    float* ys = reinterpret_cast<float*>(smem + g.epi_off);
+    const float* rtr = reinterpret_cast<const float*>(smem + g.rec_off);
+    const int pitch = d_pitch();
+#pragma unroll
+    for (int c = 0; c < NT; ++c) {
+      const int col0 = ct * g.cols + c * kQ;
+      if (col0 >= b) continue;  // the same for every consumer thread
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            ys[(row0 + 8 * h) * wide_rows::kEpiPitch + 8 * j + 2 * t + e] =
+                acc[c][4 * j + 2 * h + e];
+      wide_rows::named_sync(1, kConsumers);
+      for (int p = ctid; p < g.bt * kQ; p += kConsumers) {
+        const int i = p / kQ, col = p - i * kQ;
+        const int64_t row = static_cast<int64_t>(rt) * g.bt + i;
+        if (row >= br || col0 + col >= b) continue;
+        for (int d0 = 0; d0 < n_data; d0 += kDs) {
+          float s[kDs];
+#pragma unroll
+          for (int u = 0; u < kDs; ++u) s[u] = 0.f;
+          for (int j = 0; j < nb; ++j) {
+            const float y = ys[(j * g.bt + i) * wide_rows::kEpiPitch + col];
+            const float4 r0 = *reinterpret_cast<const float4*>(rtr + j * pitch + d0);
+            const float4 r1 = *reinterpret_cast<const float4*>(rtr + j * pitch + d0 + 4);
+            s[0] = fmaf(r0.x, y, s[0]); s[1] = fmaf(r0.y, y, s[1]);
+            s[2] = fmaf(r0.z, y, s[2]); s[3] = fmaf(r0.w, y, s[3]);
+            s[4] = fmaf(r1.x, y, s[4]); s[5] = fmaf(r1.y, y, s[5]);
+            s[6] = fmaf(r1.z, y, s[6]); s[7] = fmaf(r1.w, y, s[7]);
+          }
+#pragma unroll
+          for (int u = 0; u < kDs; ++u)
+            if (d0 + u < n_data)
+              out[(static_cast<int64_t>(d0 + u) * br + row) * b + col0 + col] = s[u];
+        }
+      }
+      wide_rows::named_sync(1, kConsumers);
+    }
+  }
+};
+
 }  // namespace
 
 // Blocks of the (b, vec) variant that fit on one SM with smem_bytes of
@@ -175,4 +276,45 @@ extern "C" int coded_matvec_decode(const float* w, const float* x, const float* 
     return static_cast<int>(cudaErrorInvalidValue);
   const DecodeTask task{w, x, rec, out, br, b, nb, n_data, bt};
   return thin_rows::launch(pick(b, vec != 0), grid, stream, task, geo);
+}
+
+// The wide engine: w [nb*br, m], x [m, b], rec [n_data, nb], out
+// [n_data*br, b]; all fp32, contiguous, on the current device; xp the
+// scratch of x's pieces (6 * b_pad * m_pad bytes, 16-byte aligned).  The
+// geometry comes from the wrapper (kernels/wide_rows.py::wide_plan): the
+// persistent grid (at most the plan's items), the tile's columns, the
+// stages and smem_bytes, which must equal wide_rows::geometry's.  Launches
+// the split of x, then the kernel.  Returns cudaGetLastError() after the
+// launches (cudaErrorInvalidValue for a shape or geometry the kernel does
+// not take, cudaErrorNotSupported if the driver encodes no tensor map).
+extern "C" int coded_matvec_decode_wide(const float* w, const float* x, void* xp,
+                                        const float* rec, float* out, long long br, long long m,
+                                        int b, int nb, int n_data, int grid, int cols, int stages,
+                                        int smem_bytes, void* stream) {
+  if (b < 1 || nb < 1 || nb > wide_rows::kMaxBlocks || n_data < 1 || n_data > nb || br < 1 ||
+      br * nb >= (1LL << 31) || m < 1 || m >= (1LL << 31) ||
+      reinterpret_cast<uintptr_t>(xp) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  wide_rows::Geometry g = wide_rows::geometry(br, m, b, 4, nb, n_data);
+  if (!wide_rows::same_plan(g, grid, cols, stages, smem_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  g.tma_w = reinterpret_cast<uintptr_t>(w) % 16 == 0 && m % 4 == 0;
+  CUtensorMap w_map{}, x_map{};
+  if (g.tma_w) {  // W_c as [nb, br, m]: a tile is the box [nb][bt][bk]
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(m), static_cast<cuuint64_t>(br),
+                                static_cast<cuuint64_t>(nb)};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(m) * 4,
+                                   static_cast<cuuint64_t>(m) * br * 4};
+    const cuuint32_t box[3] = {static_cast<cuuint32_t>(g.bk), static_cast<cuuint32_t>(g.bt),
+                               static_cast<cuuint32_t>(nb)};
+    if (!wide_rows::encode(&w_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, w, dims, strides, box,
+                           CU_TENSOR_MAP_SWIZZLE_128B))
+      return static_cast<int>(cudaErrorNotSupported);
+  }
+  if (!wide_rows::encode_x(&x_map, xp, g)) return static_cast<int>(cudaErrorNotSupported);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = wide_rows::split_x(x, xp, g, s);
+  if (err != 0) return err;
+  const WideDecodeTask task{w, rec, out, br, b, nb, n_data};
+  return wide_rows::launch(grid, s, w_map, x_map, task, g);
 }

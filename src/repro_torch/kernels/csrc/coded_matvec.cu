@@ -24,7 +24,15 @@
 // 0.028-0.047 ms a call against the C entry's 0.007-0.013, under the
 // kernel's, so the device does not wait on it (chip_smoke.py --sweep-head,
 // kernel rows).  The first port took 0.0781, 0.0772 and 0.0479.
+//
+// x of WIDE_MIN_B (8) columns and more goes to the second entry,
+// coded_matvec_wide, on the wide engine (wide_rows.cuh: 128-row tiles on
+// the tensor cores, A read once a tile of up to 256 columns of x).  At the
+// glm4-9b block it takes 0.0757, 0.1049, 0.1038 and 0.1576 ms at B = 17,
+// 33, 64 and 128 (torch.matmul 0.0978 to 0.2354), 0.0403 in fp16 at 64
+// (torch.matmul 0.0344) (chip_smoke.py kernel rows, H100 80GB HBM3, 700 W).
 #include "thin_rows.cuh"
+#include "wide_rows.cuh"
 
 namespace {
 
@@ -75,6 +83,49 @@ int run(const void* a, const void* x, float* out, long long r, long long m, int 
   return thin_rows::launch(pick<T>(b, vec != 0), grid, stream, task, geo);
 }
 
+// ---- the wide engine (wide_rows.cuh): x of WIDE_MIN_B columns and more
+//
+// A row tile is 128 rows of A; its sums go straight from the registers to y.
+template <typename T>
+struct WideMatvecTask {
+  using Elem = T;
+  const T* a;
+  float* out;
+  int64_t r;
+  int b;
+
+  __device__ void prologue(unsigned char*, const wide_rows::Geometry&, int, int) const {}
+  __device__ void tma_w(uint32_t dst, const CUtensorMap* map, uint64_t* bar, int rt, int kt,
+                        const wide_rows::Geometry& g, uint64_t policy) const {
+    wide_rows::tma_2d(dst, map, bar, kt * g.bk, rt * wide_rows::kTileRows, policy);
+  }
+  // tile row rr is row rt * 128 + rr of A; none past A's edge
+  __device__ const T* w_row(int rr, int rt, const wide_rows::Geometry& g) const {
+    const int64_t row = static_cast<int64_t>(rt) * wide_rows::kTileRows + rr;
+    return row < r ? a + row * g.m : nullptr;
+  }
+  // acc[c][4 j + 2 h + e] is row row0 + 8 h, column 32 c + 8 j + 2 t + e
+  template <int NT>
+  __device__ void epilogue(const float (&acc)[NT][16], unsigned char*, int rt, int ct,
+                           const wide_rows::Geometry& g, int row0, int t, int) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t row = static_cast<int64_t>(rt) * wide_rows::kTileRows + row0 + 8 * h;
+      if (row >= r) continue;
+      float* y = out + row * b;
+#pragma unroll
+      for (int c = 0; c < NT; ++c)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = ct * g.cols + c * wide_rows::kColQuantum + 8 * j + 2 * t + e;
+            if (col < b) y[col] = acc[c][4 * j + 2 * h + e];
+          }
+    }
+  }
+};
+
 }  // namespace
 
 // Blocks of the (b, half, vec) variant that fit on one SM with smem_bytes
@@ -102,4 +153,48 @@ extern "C" int coded_matvec(const void* a, const void* x, float* out, long long 
   if (half)
     return run<__half>(a, x, out, r, m, b, vec, grid, group_rows, x_panel, smem_bytes, stream);
   return run<float>(a, x, out, r, m, b, vec, grid, group_rows, x_panel, smem_bytes, stream);
+}
+
+// The wide engine: a [r, m], x [m, b] (both fp32, or both fp16 when half !=
+// 0), out [r, b] fp32, xp the scratch of x's pieces (2 * pieces * b_pad *
+// m_pad bytes, 16-byte aligned); all contiguous, on the current device.  The
+// geometry comes from the wrapper (kernels/wide_rows.py::wide_plan): the
+// persistent grid (at most the plan's items), the tile's columns, the
+// stages and smem_bytes, which must equal wide_rows::geometry's.  Launches
+// the split of x, then the kernel.  Returns cudaGetLastError() after the
+// launches (cudaErrorInvalidValue for a shape or geometry the kernel does
+// not take, cudaErrorNotSupported if the driver encodes no tensor map).
+extern "C" int coded_matvec_wide(const void* a, const void* x, void* xp, float* out,
+                                 long long r, long long m, int b, int half, int grid, int cols,
+                                 int stages, int smem_bytes, void* stream) {
+  if (b < 1 || r < 1 || r >= (1LL << 31) || m < 1 || m >= (1LL << 31) ||
+      reinterpret_cast<uintptr_t>(xp) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int elt = half ? 2 : 4;
+  wide_rows::Geometry g = wide_rows::geometry(r, m, b, elt, 0, 0);
+  if (!wide_rows::same_plan(g, grid, cols, stages, smem_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  g.tma_w = reinterpret_cast<uintptr_t>(a) % 16 == 0 && (m * elt) % 16 == 0;
+  CUtensorMap w_map{}, x_map{};
+  if (g.tma_w) {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(m), static_cast<cuuint64_t>(r)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(m) * elt};
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(g.bk), wide_rows::kTileRows};
+    const CUtensorMapDataType type =
+        half ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    if (!wide_rows::encode(&w_map, type, 2, a, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
+      return static_cast<int>(cudaErrorNotSupported);
+  }
+  if (!wide_rows::encode_x(&x_map, xp, g)) return static_cast<int>(cudaErrorNotSupported);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (half) {
+    const int err = wide_rows::split_x(static_cast<const __half*>(x), xp, g, s);
+    if (err != 0) return err;
+    const WideMatvecTask<__half> task{static_cast<const __half*>(a), out, r, b};
+    return wide_rows::launch(grid, s, w_map, x_map, task, g);
+  }
+  const int err = wide_rows::split_x(static_cast<const float*>(x), xp, g, s);
+  if (err != 0) return err;
+  const WideMatvecTask<float> task{static_cast<const float*>(a), out, r, b};
+  return wide_rows::launch(grid, s, w_map, x_map, task, g);
 }

@@ -1,5 +1,5 @@
 // Thin row products on an H100: fp32 dot products of the rows of a tall
-// weight W with a thin x [M, B] (B <= 16), reading W once.  The engine of
+// weight W with a thin x [M, B] (B <= 7), reading W once.  The engine of
 // coded_matvec.cu (y = A x) and coded_decode.cu (y = R . blocked(W_c x));
 // each source supplies a Task: which rows a unit is, and what happens to
 // their sums (the epilogue).
@@ -16,7 +16,7 @@
 //  * x staged once a block in shared memory, converted to fp32 and
 //    transposed to [B][M], with 16-byte loads, when B x M x 4 bytes fit
 //    kXCapBytes; above that it is walked in panels, restaged per row group
-//    (the ragged B = 16 shapes).
+//    (B 5-7 at M = 4096).
 //  * Rows are streamed in groups of up to 32 (one group's sums live in the
 //    registers of the warps, RPW rows a warp) by a register stream: 16
 //    warps, each lane keeping 6 16-byte streaming loads (__ldcs, evict
@@ -49,7 +49,7 @@ constexpr int kRowsPerWarp = 2;     // rows a warp streams at once (coded_matvec
 constexpr int kLoadsInFlight = 12;  // 16-byte loads a lane has in flight, all its rows
 
 // ---- fixed geometry
-constexpr int kMaxB = 16;
+constexpr int kMaxB = 7;  // x of WIDE_MIN_B = 8 columns and more takes the wide engine
 constexpr int kMaxGroupRows = 32;          // rows whose sums a block holds at once
 constexpr int kXCapBytes = 64 * 1024;      // x stays resident up to this many bytes
 constexpr int kXPanelQuantum = 256;        // x panels are multiples of this many columns
@@ -491,13 +491,18 @@ __global__ void __launch_bounds__(kThreads, 1) thin_rows_kernel(const Task task,
 }
 
 // The instantiation for (b, vec): BMAX is b rounded up to a power of two.
+// BMAX 16 exists only in a copy built with a kMaxB above 8 (chip_smoke.py
+// --sweep-wide times such a copy against the wide engine).
+static_assert(kMaxB >= 1 && kMaxB <= 16, "1 to 16 columns");
 template <class Task, int RPW, bool VEC>
 KernelFn<Task> pick_b(int b) {
   if (b <= 1) return &thin_rows_kernel<Task, 1, RPW, VEC>;
   if (b <= 2) return &thin_rows_kernel<Task, 2, RPW, VEC>;
   if (b <= 4) return &thin_rows_kernel<Task, 4, RPW, VEC>;
-  if (b <= 8) return &thin_rows_kernel<Task, 8, RPW, VEC>;
-  return &thin_rows_kernel<Task, 16, RPW, VEC>;
+  if constexpr (kMaxB > 8) {
+    if (b > 8) return &thin_rows_kernel<Task, 16, RPW, VEC>;
+  }
+  return &thin_rows_kernel<Task, 8, RPW, VEC>;
 }
 template <class Task, int RPW>
 KernelFn<Task> pick(int b, bool vec) {

@@ -1,10 +1,9 @@
 """Launch geometry of the thin row-product kernels, computed on the host.
 
 ``csrc/thin_rows.cuh`` is the engine of ``coded_matvec.cu`` and
-``coded_decode.cu``: fp32 dot products of the rows of a tall weight with a
-thin x [M, B] (B <= 16), reading the weight once.  A wider x runs in column
-panels of at most 16 (:func:`column_panels`), one launch a panel, so the
-weight is read once a panel.  :func:`head_plan` gives one launch's
+``coded_decode.cu`` for a thin x [M, B] (B below ``wide_rows.WIDE_MIN_B``):
+fp32 dot products of the rows of a tall weight with x, reading the weight
+once.  A wider x goes to the wide engine (``kernels/wide_rows.py``).  :func:`head_plan` gives one launch's
 geometry: the persistent grid, the unit (a row, or a row tile
 across the nb code blocks of the decode), the rows streamed together,
 whether x stays resident in shared memory, and the shared bytes.  The C
@@ -19,13 +18,13 @@ from typing import Callable
 
 import torch
 
-__all__ = ["HeadPlan", "call_on", "column_panels", "head_plan", "sm_count"]
+__all__ = ["HeadPlan", "call_on", "head_plan", "sm_count"]
 
 # thin_rows.cuh's setting (kWarps, kRowsPerWarp) and fixed geometry
 WARPS = 16                   # warps a block
 ROWS_PER_WARP = 2            # rows a warp streams at once (coded_matvec: its rows a group)
 BLOCKS_PER_SM = 2            # the grid's cap an SM (the occupancy may allow fewer)
-MAX_B = 16
+MAX_B = 7                    # kMaxB: x of WIDE_MIN_B = 8 columns and more goes wide
 MAX_GROUP_ROWS = 32          # rows whose sums a block holds at once
 X_CAP_BYTES = 64 * 1024      # x stays resident in shared memory up to this
 X_PANEL_QUANTUM = 256        # x panels (above the cap) are multiples of this many columns
@@ -50,33 +49,20 @@ def _cdiv(x: int, y: int) -> int:
     return -(-x // y)
 
 
-def column_panels(b: int) -> list[tuple[int, int]]:
-    """The [lo, hi) column ranges of an x with ``b`` columns that the head
-    kernels launch on: ceil(b / MAX_B) panels whose widths differ by at most
-    one (17 columns are 9 + 8, 33 are 11 + 11 + 11).  Each panel is one
-    launch and reads the whole weight; a column's sums do not depend on the
-    panel it is in."""
-    if b < 1:
-        raise ValueError(f"x has {b} columns")
-    n = _cdiv(b, MAX_B)
-    q, extra = divmod(b, n)
-    bounds = [0]
-    for i in range(n):
-        bounds.append(bounds[-1] + q + (i < extra))
-    return list(zip(bounds[:-1], bounds[1:]))
-
-
 def head_plan(rows: int, m: int, b: int, *, sm_count: int, occupancy: Callable[[int], int],
-              nb: int | None = None, n_data: int | None = None) -> HeadPlan:
+              nb: int | None = None, n_data: int | None = None,
+              max_b: int = MAX_B) -> HeadPlan:
     """The geometry of y = W x for W [rows, m] and x [m, b]: coded_matvec
     when ``nb`` is None (a unit is a row, a group WARPS * ROWS_PER_WARP
     rows), else coded_matvec_decode over nb code blocks of rows // nb rows
     with ``n_data`` decoded blocks (a unit is a tile of bt = 32 // nb rows of
     every block, a group one tile).  ``occupancy(smem_bytes)`` is the blocks
     an SM of the instantiation to launch; the grid is at most BLOCKS_PER_SM
-    of them on each of ``sm_count`` SMs, and at most one block a unit."""
-    if min(rows, m, b) < 1 or b > MAX_B:
-        raise ValueError(f"rows={rows}, m={m}, b={b}: need rows, m >= 1 and 1 <= b <= {MAX_B}")
+    of them on each of ``sm_count`` SMs, and at most one block a unit.
+    ``max_b`` is the instantiation's kMaxB: MAX_B as shipped, 16 for the
+    copy that ``chip_smoke.py --sweep-wide`` builds."""
+    if min(rows, m, b) < 1 or b > max_b:
+        raise ValueError(f"rows={rows}, m={m}, b={b}: need rows, m >= 1 and 1 <= b <= {max_b}")
     if nb is None:
         bt, n_units = 1, rows
         group_rows = WARPS * ROWS_PER_WARP

@@ -59,7 +59,7 @@ import numpy as np
 import torch
 
 from repro_torch import default_device
-from repro_torch.kernels import graph_kernel_nodes, kernel_wrappers
+from repro_torch.kernels import count_kernel_nodes, count_wide_nodes, graph_dot, kernel_wrappers
 from repro_torch.models.registry import Model, build_model
 from repro_torch.sharding.ctx import macro_step_k
 
@@ -145,9 +145,14 @@ class _BlockGraph:
     graph: Any                  # torch.cuda.CUDAGraph
     toks: torch.Tensor          # [k, n_slots] int32, written by every replay
     launches: dict[str, int]    # kernel nodes of the graph (launches a replay), by kernel name
+    wide: dict[str, int]        # of those, the wide engine's (csrc/wide_rows.cuh), by head kernel
 
 
 class ServeEngine:
+    # the head kernels whose wide-engine launches (x of WIDE_MIN_B columns
+    # and more) are also counted on their own
+    _WIDE = ("coded_matvec", "coded_matvec_decode")
+
     def __init__(
         self,
         model: Model,
@@ -701,20 +706,24 @@ class ServeEngine:
         torch.cuda.current_stream(dev).wait_stream(stream)
         toks = torch.empty((k, self.n_slots), dtype=torch.int32, device=dev)
         recorded = {name: fn.captured for name, fn in wrappers.items()}
+        wide0 = {name: wrappers[name].wide_captured for name in self._WIDE}
         graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept, so its nodes can be counted
         with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream):
             self._run_block(k, masks, toks)
         recorded = {name: fn.captured - recorded[name] for name, fn in wrappers.items()}
-        nodes = graph_kernel_nodes(graph)
+        wide = {name: wrappers[name].wide_captured - wide0[name] for name in self._WIDE}
+        dot = graph_dot(graph)
+        nodes, wide_nodes = count_kernel_nodes(dot), count_wide_nodes(dot)
         graph.instantiate()
-        if nodes != recorded:
-            raise RuntimeError(f"the K={k} graph holds kernel nodes {nodes}, but the "
-                               f"wrappers recorded {recorded}")
+        if nodes != recorded or wide_nodes != wide:
+            raise RuntimeError(f"the K={k} graph holds kernel nodes {nodes} (wide "
+                               f"{wide_nodes}), but the wrappers recorded {recorded} "
+                               f"(wide {wide})")
         self.graph_log.append({
             "k": k, "n_parity": self.model.cfg.coded_parity if self.model.cfg.coded else 0,
             "launches_per_replay": {name: n for name, n in nodes.items() if n},
         })
-        blk = self._graphs[k] = _BlockGraph(graph, toks, nodes)
+        blk = self._graphs[k] = _BlockGraph(graph, toks, nodes, wide_nodes)
         return blk
 
     def _launch_block(self, k: int, masks: list) -> np.ndarray:
@@ -737,6 +746,8 @@ class ServeEngine:
         blk.graph.replay()
         for name, fn in kernel_wrappers().items():
             fn.launches += blk.launches[name]
+            if name in self._WIDE:
+                fn.wide_launches += blk.wide[name]
         self.graph_replays += 1
         return blk.toks.cpu().numpy()
 

@@ -548,10 +548,15 @@ def test_cuda_coded_matvec_decode_block_count_and_cap_edges_bit_equal_relaunch(n
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=tol)
 
 
-# B over one launch's 16 columns: 17 (panels of 9 + 8), 33 (11 x 3) and 128
-# (16 x 8, the dry run's decode batch); M 4096 runs x in panels of its own
-# (over the 64 KB resident cap) and M 768 keeps it resident
-WIDE_B = [17, 33, 128]
+# x of WIDE_MIN_B columns and more runs on the wide engine (csrc/wide_rows.cuh),
+# one launch a call at any width: 17, 33 and 128 (the dry run's decode
+# batch) in one column tile of 32, 64 and 128 columns, 300 in two tiles of
+# 160; M 4096 and 768 through the TMA, M 4104 fp16
+WIDE_B = [17, 33, 128, 300]
+
+
+def _wide_counts(wrapper):
+    return wrapper.launches, wrapper.wide_launches
 
 
 @pytest.mark.gpu
@@ -559,22 +564,26 @@ WIDE_B = [17, 33, 128]
 @pytest.mark.parametrize("m,dtype", [(4096, torch.float32), (768, torch.float32),
                                      (4104, torch.float16)])
 def test_cuda_coded_matvec_takes_any_batch_width(b, m, dtype):
-    """B > 16 runs in column panels, one launch (counted) a panel, each
-    column within the plain version's tolerance and bit-equal to the same
-    column launched alone."""
-    from repro_torch.kernels.thin_rows import column_panels
+    """B >= WIDE_MIN_B: one launch (counted, and counted as the wide
+    engine's) a call, within the plain version's tolerance, and the first
+    and the last WIDE_MIN_B columns bit-equal to the same columns launched
+    alone (at B = 300 the last ones lie in the second column tile)."""
+    from repro_torch.kernels.wide_rows import WIDE_MIN_B
 
     dev = _cuda()
     gen = torch.Generator(device=dev).manual_seed(b + m)
     a = torch.randn(1001, m, device=dev, generator=gen).to(dtype)
     x = torch.randn(m, b, device=dev, generator=gen).to(dtype)
-    before = coded_matvec_cuda.launches
+    before = _wide_counts(coded_matvec_cuda)
     got = ops.coded_matvec(a, x)
-    assert coded_matvec_cuda.launches - before == len(column_panels(b)) == -(-b // 16)
+    assert _wide_counts(coded_matvec_cuda) == (before[0] + 1, before[1] + 1)
     want = ops.coded_matvec(a, x, mode="off")
-    lone = coded_matvec_cuda(a, x[:, b - 1:].contiguous())
+    first = coded_matvec_cuda(a, x[:, :WIDE_MIN_B].contiguous())
+    last = coded_matvec_cuda(a, x[:, b - WIDE_MIN_B:].contiguous())
     torch.cuda.synchronize()
-    assert got.shape == (1001, b) and torch.equal(got[:, b - 1:], lone)
+    assert got.shape == (1001, b)
+    assert torch.equal(got[:, :WIDE_MIN_B], first)
+    assert torch.equal(got[:, b - WIDE_MIN_B:], last)
     tol = _matvec_tol(dtype, want)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=tol, atol=tol)
 
@@ -584,10 +593,13 @@ def test_cuda_coded_matvec_takes_any_batch_width(b, m, dtype):
 @pytest.mark.parametrize("n_data,n_parity,br,m", [(14, 2, 3592, 768), (14, 2, 300, 4096),
                                                   (13, 3, 77, 516)])
 def test_cuda_coded_matvec_decode_takes_any_batch_width(b, n_data, n_parity, br, m):
-    """The decode kernel at B > 16 (the mamba2-130m head at B = 128 among
-    them): panels, launches and tolerance as for coded_matvec, under an
-    erasure, through ``CodedLinear.apply`` with None and 'auto' too."""
+    """The decode kernel at B >= WIDE_MIN_B (the mamba2-130m head at B =
+    128 among them): one launch a call and the tolerance as for
+    coded_matvec, under an erasure, the first and the last WIDE_MIN_B
+    columns bit-equal to the same columns alone, and through
+    ``CodedLinear.apply`` with None and 'auto' too."""
     from repro_torch.core.coded_ops import CodedLinear
+    from repro_torch.kernels.wide_rows import WIDE_MIN_B
 
     dev = _cuda()
     gen = torch.Generator(device=dev).manual_seed(b * 7 + br)
@@ -597,19 +609,151 @@ def test_cuda_coded_matvec_decode_takes_any_batch_width(b, n_data, n_parity, br,
     mask = torch.ones(nb, device=dev)
     mask[1] = 0.0
     rec = get_decoder_cache(n_data, n_parity).recovery(mask)
-    before = coded_matvec_decode_cuda.launches
+    before = _wide_counts(coded_matvec_decode_cuda)
     got = ops.coded_matvec_decode(w, x, rec)
-    assert coded_matvec_decode_cuda.launches - before == -(-b // 16)
+    assert _wide_counts(coded_matvec_decode_cuda) == (before[0] + 1, before[1] + 1)
     want = ops.coded_matvec_decode(w, x, rec, mode="off")
+    for cols in (slice(0, WIDE_MIN_B), slice(b - WIDE_MIN_B, b)):
+        assert torch.equal(got[:, cols], coded_matvec_decode_cuda(w, x[:, cols].contiguous(), rec))
     torch.cuda.synchronize()
     tol = 1e-4 * max(1.0, want.abs().max().item())
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=tol)
     head = CodedLinear(n_data, n_parity, n_data * br)
     for mode in (None, "auto"):
-        before = coded_matvec_decode_cuda.launches
+        before = coded_matvec_decode_cuda.wide_launches
         y = head.apply(w, x, mask, kernel_mode=mode)
-        assert coded_matvec_decode_cuda.launches - before == -(-b // 16), mode
+        assert coded_matvec_decode_cuda.wide_launches - before == 1, mode
         assert torch.equal(y, got), mode
+
+
+def _wide_decode_inputs(dev, gen, n_data, n_parity, br, m, b, erased=(1,)):
+    nb = n_data + n_parity
+    w = torch.randn(nb * br, m, device=dev, generator=gen)
+    x = torch.randn(m, b, device=dev, generator=gen)
+    mask = torch.ones(nb, device=dev)
+    mask[list(erased)] = 0.0
+    return w, x, get_decoder_cache(n_data, n_parity).recovery(mask)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["coded_matvec", "coded_matvec_decode"])
+def test_cuda_wide_columns_bit_equal_across_widths(kernel):
+    """Column j of a 64-wide call is bit-equal to the same column in a 17-
+    and a 33-wide call: a column's sums do not depend on B or on the other
+    columns (a fixed K order, no atomics, the same instructions)."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(64)
+    if kernel == "coded_matvec":
+        a = torch.randn(1001, 4096, device=dev, generator=gen)
+        x = torch.randn(4096, 64, device=dev, generator=gen)
+        call = lambda xs: coded_matvec_cuda(a, xs)  # noqa: E731
+    else:
+        w, x, rec = _wide_decode_inputs(dev, gen, 14, 2, 300, 4096, 64)
+        call = lambda xs: coded_matvec_decode_cuda(w, xs, rec)  # noqa: E731
+    wide = call(x)
+    for b in (17, 33):
+        assert torch.equal(call(x[:, :b].contiguous()), wide[:, :b]), b
+
+
+@pytest.mark.gpu
+def test_cuda_wide_decode_erased_block_garbage_leaves_the_bits():
+    """An erased code block overwritten with finite garbage leaves every
+    bit of the decoded output as it was: R's column for it is zero."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    w, x, rec = _wide_decode_inputs(dev, gen, 14, 2, 300, 4096, 64, erased=(3, 12))
+    before = coded_matvec_decode_cuda(w, x, rec)
+    for blk in (3, 12):
+        w[blk * 300:(blk + 1) * 300] = 1e6 * torch.randn(300, 4096, device=dev, generator=gen)
+    after = coded_matvec_decode_cuda(w, x, rec)
+    torch.cuda.synchronize()
+    assert torch.isfinite(after).all() and torch.equal(before, after)
+
+
+# inputs the TMA cannot take: the producer warp's own loads.  A code block
+# view that starts mid-row (M odd), and M % 4 != 0 at an aligned base.  The
+# same product with W and x zero-padded to a 16-byte row pitch goes through
+# the TMA into the same stages with the same K tiles, so it has the same bits.
+def _padded(w, x, m_pad):
+    wp = torch.zeros(w.shape[0], m_pad, dtype=w.dtype, device=w.device)
+    wp[:, :w.shape[1]] = w
+    xp = torch.zeros(m_pad, x.shape[1], dtype=x.dtype, device=x.device)
+    xp[:x.shape[0]] = x
+    return wp, xp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["misaligned view", "m % 4", "m % 4 fp16"])
+def test_cuda_coded_matvec_wide_without_the_tma(case):
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    dtype = torch.float16 if case.endswith("fp16") else torch.float32
+    if case == "misaligned view":
+        a = torch.randn(16 * 301, 1027, device=dev, generator=gen).chunk(16)[3]
+        assert a.data_ptr() % 16 != 0
+    else:
+        a = torch.randn(301, 1030, device=dev, generator=gen).to(dtype)
+    x = torch.randn(a.shape[1], 40, device=dev, generator=gen).to(dtype)
+    got = coded_matvec_cuda(a, x)
+    again = coded_matvec_cuda(a, x)
+    via_tma = coded_matvec_cuda(*_padded(a, x, -(-a.shape[1] // 8) * 8))
+    want = ops.coded_matvec(a, x, mode="off")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, via_tma)
+    tol = _matvec_tol(dtype, want)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1030, 517])
+def test_cuda_coded_matvec_decode_wide_without_the_tma(m):
+    """W_c with M % 4 != 0: the producer warp's own loads, bit-equal on a
+    relaunch, within the plain version's tolerance."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(m)
+    w, x, rec = _wide_decode_inputs(dev, gen, 13, 3, 77, m, 40)
+    got = coded_matvec_decode_cuda(w, x, rec)
+    again = coded_matvec_decode_cuda(w, x, rec)
+    via_tma = coded_matvec_decode_cuda(*_padded(w, x, -(-m // 4) * 4), rec)
+    want = ops.coded_matvec_decode(w, x, rec, mode="off")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, via_tma)
+    tol = 1e-4 * max(1.0, want.abs().max().item())
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["coded_matvec", "coded_matvec_decode"])
+def test_cuda_wide_call_captured_in_a_graph_equals_eager(kernel):
+    """A wide call captured in a CUDA graph (after an eager call, as the
+    engine's warm-up does): recorded as one wide node, and its replay is
+    bit-equal to the eager call."""
+    from repro_torch.kernels import count_wide_nodes, graph_dot
+
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    if kernel == "coded_matvec":
+        a = torch.randn(1001, 4096, device=dev, generator=gen)
+        x = torch.randn(4096, 64, device=dev, generator=gen)
+        wrapper, call = coded_matvec_cuda, lambda: coded_matvec_cuda(a, x)
+    else:
+        w, x, rec = _wide_decode_inputs(dev, gen, 14, 2, 300, 4096, 64)
+        wrapper, call = coded_matvec_decode_cuda, lambda: coded_matvec_decode_cuda(w, x, rec)
+    eager = call()
+    before = (wrapper.launches, wrapper.captured, wrapper.wide_captured)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev)):
+        out = call()
+    assert (wrapper.launches, wrapper.captured, wrapper.wide_captured) == (
+        before[0], before[1] + 1, before[2] + 1)
+    assert count_wide_nodes(graph_dot(graph))[kernel] == 1
+    graph.instantiate()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 @pytest.mark.gpu
@@ -617,7 +761,7 @@ def test_cuda_dryrun_cell_argument_bytes_equal_its_reckoning():
     """A small dry-run cell of each kind (``repro_torch.launch.dryrun``) run
     on the card: its arguments, made there with the reckoned shapes, hold
     exactly the bytes the 1 x 1 mesh reckons; the step runs through the
-    kernels (the decode at 20 sequences: two column panels) and its output
+    kernels (the decode at 20 sequences: the wide engine) and its output
     is finite."""
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import Workload
@@ -646,7 +790,7 @@ def test_cuda_dryrun_cell_argument_bytes_equal_its_reckoning():
         else:
             assert bool(torch.isfinite(out[0]).all())
             if wl.kind == "decode":
-                assert after["coded_matvec_decode"] == 2
+                assert after["coded_matvec_decode"] == 1
             else:
                 assert after["ssd_chunk"] == cfg.n_layers
 

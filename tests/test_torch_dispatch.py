@@ -164,31 +164,39 @@ def test_cuda_candidates_are_kernels(macro_k):
         assert params == {}
 
 
-@pytest.mark.parametrize("b,panels", [(1, 1), (16, 1), (17, 2), (33, 3), (128, 8)])
-def test_cuda_costs_count_the_head_kernels_panels(b, panels):
-    """Above 16 columns of x the head kernels run in panels: the card's
-    costs count one launch and one read of the weight a panel, the panels'
-    copies of x and the concatenation; 16 columns and fewer cost as before."""
-    from repro_torch.kernels.thin_rows import column_panels
+@pytest.mark.parametrize("b,reads", [(1, 1), (16, 1), (17, 1), (33, 1), (128, 1), (300, 2)])
+def test_cuda_costs_count_the_head_kernels_panels(b, reads):
+    """A head kernel is one launch at any width of x.  From WIDE_MIN_B
+    columns it runs on the wide engine: the card's costs count one more node
+    (the split of x), x's pieces written and read once, one read of the
+    weight a column tile of 256, and six bf16 products an fp32 one on the
+    tensor cores; below WIDE_MIN_B they cost as before."""
+    from repro_torch.kernels.wide_rows import WIDE_MIN_B, wide_plan
 
-    assert len(column_panels(b)) == panels
+    wide = b >= WIDE_MIN_B
+    assert wide_plan(16 * 3592, 768, b, sm_count=132, nb=16, n_data=14).weight_reads == reads
     one = {"coded_matvec": cost.matvec_costs(1001, 4096, 1, "cuda")["cuda"],
            "coded_matvec_decode": cost.matvec_decode_costs(16 * 3592, 768, 1, 14, 16,
                                                            "cuda")["cuda"],
            "coded_linear": cost.coded_linear_costs(14 * 3592, 768, 1, 14, 2, "cuda")["fused"]}
-    wide = {"coded_matvec": cost.matvec_costs(1001, 4096, b, "cuda")["cuda"],
+    at_b = {"coded_matvec": cost.matvec_costs(1001, 4096, b, "cuda")["cuda"],
             "coded_matvec_decode": cost.matvec_decode_costs(16 * 3592, 768, b, 14, 16,
                                                             "cuda")["cuda"],
             "coded_linear": cost.coded_linear_costs(14 * 3592, 768, b, 14, 2, "cuda")["fused"]}
     w_bytes = {"coded_matvec": 4 * 1001 * 4096, "coded_matvec_decode": 4 * 16 * 3592 * 768,
                "coded_linear": 4 * 16 * 3592 * 768}
+    x_bytes = {"coded_matvec": 4 * 4096 * b, "coded_matvec_decode": 4 * 768 * b,
+               "coded_linear": 4 * 768 * b}
+    gemm = {"coded_matvec": 2 * 1001 * 4096 * b, "coded_matvec_decode": 2 * 16 * 3592 * 768 * b,
+            "coded_linear": 2 * 16 * 3592 * 768 * b}
     hw = cost.H100_HOST
-    for op, c in wide.items():
-        assert c.launches == panels, op
-        assert c.nodes - one[op].nodes == (panels + 1 if panels > 1 else 0), op
-        assert c.bytes >= panels * w_bytes[op], op
-        assert c.bytes < (panels + 1) * w_bytes[op], op
-        assert c.predicted_us(hw) >= panels * (hw.dispatch_us + w_bytes[op] / hw.mem_bw * 1e6)
+    for op, c in at_b.items():
+        assert c.nodes - one[op].nodes == (1 if wide else 0), op
+        assert c.bytes >= reads * w_bytes[op] + (3 * x_bytes[op] if wide else 0), op
+        assert c.bytes < (reads + 1) * w_bytes[op] + 5 * x_bytes[op], op
+        scale = 6 * 67 / 989 if wide else 1.0
+        assert c.flops == pytest.approx(scale * gemm[op], rel=0.2), op
+        assert c.predicted_us(hw) >= hw.dispatch_us + reads * w_bytes[op] / hw.mem_bw * 1e6
     # 'auto' resolves at any width on both backends
     d = choose_coded_linear(14 * 3592, 768, b, 14, 2, backend="cuda")
     assert (d.impl, d.mode) == ("fused", "cuda")

@@ -15,6 +15,7 @@ import torch
 
 from repro.core.coded_ops import encode_blocks as jax_encode_blocks
 from repro.kernels.coded_decode import coded_matvec_decode_pallas
+from repro.kernels.coded_matvec import coded_matvec_pallas
 from repro.core.encoding import GaussianCode as RefGaussianCode
 from repro.core.encoding import LTCode as RefLTCode
 from repro.kernels.lt_encode import gaussian_encode_pallas, lt_encode_pallas
@@ -28,14 +29,19 @@ from repro_torch.kernels.lt_encode import gaussian_encode_cuda, lt_encode_cuda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# (n_data, n_parity, out, inner, b): ragged block rows, unaligned inner, B = 1..16
+# (n_data, n_parity, out, inner, b): ragged block rows, unaligned inner, B = 1..16,
+# and x wider than the thin-row engine's 16 columns (17, 40: the card's wide engine)
 DECODE_SHAPES = [
     (6, 2, 100, 64, 8),
     (12, 4, 256, 32, 1),
     (4, 2, 64, 129, 3),
     (14, 2, 515, 130, 4),
     (13, 3, 77, 516, 16),
+    (14, 2, 515, 130, 17),
+    (13, 3, 77, 516, 40),
 ]
+# (r, m, b): coded_matvec's plain version against the Pallas kernel, thin and wide x
+MATVEC_SHAPES = [(100, 70, 1), (513, 129, 3), (300, 260, 17), (77, 516, 40)]
 # (q, r, m): the encode's skinny K, ragged q / r / M
 ENCODE_SHAPES = [(16, 13, 700), (16, 14, 1), (5, 3, 129), (33, 40, 257), (1, 1, 4)]
 # (q, d_max, r, m, zero_frac): LT degree tables kept small (interpret mode
@@ -75,6 +81,16 @@ def test_plain_coded_matvec_decode_matches_pallas(n_data, n_parity, out, inner, 
         truth = w @ x
         np.testing.assert_allclose(got.numpy()[:out], truth, rtol=1e-3,
                                    atol=1e-3 * max(1.0, np.abs(truth).max()))
+
+
+@pytest.mark.parametrize("r,m,b", MATVEC_SHAPES)
+def test_plain_coded_matvec_matches_pallas(r, m, b):
+    rng = np.random.default_rng(r * 10 + m + b)
+    a = rng.standard_normal((r, m)).astype(np.float32)
+    x = rng.standard_normal((m, b)).astype(np.float32)
+    got = ops.coded_matvec(torch.as_tensor(a), torch.as_tensor(x)).numpy()
+    want = np.asarray(coded_matvec_pallas(jnp.asarray(a), jnp.asarray(x), interpret=True))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * max(1.0, np.abs(want).max()))
 
 
 def test_plain_coded_matvec_decode_vector_x():
