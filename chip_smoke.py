@@ -100,6 +100,22 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    decoded step, host syncs per token, fused blocks, capture seconds per
    bucket, the graph pool's bytes, the 16-step graph's device time, and the
    step's byte bound and share;
+9b. macro serve, svd: fused blocks whose head decodes through
+   ``svd_recovery``, its recovery matrix built in the graphs by the
+   ``masked_pinv`` kernel.  ``masked_pinv`` against its plain version
+   (float64 ``torch.linalg.pinv``) on every mask of at most 6 erasures at
+   (10, 6) (14,893) and of at most 2 at (14, 2), and 64 masks of one
+   erasure more each, in one launch: each mask within 1e-6 of its own
+   max|rec|, erased columns zero,
+   relaunches and single-mask calls bit-equal; at the served mask timed in
+   turns with ``torch.linalg.pinv`` (a yardstick), its device time in a
+   graph, its host time and its bound.  The serve phase's head re-encoded
+   on the card into (10, 6) (``gaussian_encode``, checked and timed), its
+   decode at B = 4 under six erasures checked and timed; then phase 9's
+   macro pair with 16 new tokens for the (10, 6) head under six fixed
+   erasures and for the (14, 2) head with ``head_kernel_mode='svd'``:
+   equal tokens, ``coded_matvec_decode`` and ``masked_pinv`` each launched
+   once a head call; the phase's seconds held to a budget of 60 s;
 10. auto glm4-9b: ``kernel_mode='auto'`` through the committed dispatch
    table (``reports/bench/cuda/autotune.json``, checked: measured on an
    H100, every winner a kernel within the cost model's error bound) on the
@@ -234,6 +250,7 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (data sheet)
 FP32_FLOPS = 67e12           # H100 SXM fp32 outside the tensor cores (data sheet)
 TC_BF16_FLOPS = 989e12       # H100 SXM dense bf16 on the tensor cores (data sheet)
+FP64_FLOPS = 67e12           # H100 SXM float64 on the tensor cores (DMMA; data sheet)
 SPLIT_PRODUCTS = 6           # the wide head engine's bf16 products an fp32 one (wide_rows.cuh)
 WIDE_ERR_VS_MATMUL = 2.0     # its error against float64, at most this times fp32 torch.matmul's
 PAPER_M = 500_000            # the paper's width of A (benchmarks/paper_ec2.py)
@@ -1958,7 +1975,8 @@ def _step_bytes(eng) -> int:
 
 
 def phase_macro_pair(torch, make_engine, prompts, max_new: int, arch: str, smi: str,
-                     req_kw: dict | None = None) -> dict:
+                     req_kw: dict | None = None,
+                     per_call: tuple = ("coded_matvec_decode",)) -> dict:
     """The workload through ``make_engine(1)`` (scalar steps) and
     ``make_engine(16)`` (fused blocks, one CUDA graph per K bucket), three
     waves of the same prompts on one engine.  Every wave is counted: equal
@@ -1972,7 +1990,9 @@ def phase_macro_pair(torch, make_engine, prompts, max_new: int, arch: str, smi: 
     per token and fused blocks.  Each capture's seconds (its warm-up step
     included) and the reserved bytes it adds (the graph pool) are read
     around it here.  ``req_kw``: more fields of every request (a vlm's
-    image)."""
+    image).  ``per_call``: the kernels every head call launches once, each
+    held to that count (``masked_pinv`` too where the head decodes through
+    ``svd_recovery``)."""
     from repro_torch.serve import Request
 
     runs = {}
@@ -2005,9 +2025,10 @@ def phase_macro_pair(torch, make_engine, prompts, max_new: int, arch: str, smi: 
             check(len(done) == len(prompts) and all(len(t) == max_new for t in tokens.values()),
                   f"{arch} macro K={k} wave {wave}: requests or token counts short")
             warmups = len(eng.graph_log) - caps0   # one eager step before each capture
-            check(launches["coded_matvec_decode"] == len(prompts) + steps + warmups,
-                  f"{arch} macro K={k} wave {wave}: coded_matvec_decode launches {launches} != "
-                  f"{len(prompts)} prefills + {steps} steps + {warmups} warm-ups")
+            for name in per_call:
+                check(launches[name] == len(prompts) + steps + warmups,
+                      f"{arch} macro K={k} wave {wave}: {name} launches {launches} != "
+                      f"{len(prompts)} prefills + {steps} steps + {warmups} warm-ups")
             waves.append({"tokens": tokens, "steps": steps, "wall_s": wall,
                           "ms_per_step": wall * 1e3 / max(eng._steps - steps_t0, 1),
                           "timed_steps": eng._steps - steps_t0,
@@ -2188,6 +2209,215 @@ def phase_macro_glm(torch, serve: dict, results: dict, smi: str) -> None:
 
     prompts = [serve["rng"].integers(0, cfg.vocab, 16) for _ in range(4)]
     results["macro glm4-9b"] = phase_macro_pair(torch, make_engine, prompts, 64, cfg.name, smi)
+
+
+# the svd macro pairs' new tokens (phase 9 serves 64): at 32 the phase took
+# 44.8-59.8 s on an H100 80GB HBM3 at 700 W, by its host's speed, at the
+# edge of its budget
+SVD_MAX_NEW = 16
+SVD_BUDGET_S = 60.0    # the svd macro phase's share of the smoke's 1,200 s
+SVD_ERASED = {(10, 6): (0, 3, 6, 9, 12, 15), (14, 2): (3, 12)}   # each pair's fixed mask
+SVD_REPLACES = "none: jnp.linalg.pinv at src/repro/core/coded_ops.py:179"
+
+
+def _all_masks(nb: int, n_parity: int, extra: int = 64, seed: int = 0) -> np.ndarray:
+    """Every mask of at most n_parity erasures, then ``extra`` seeded masks
+    of one erasure too many (the least-norm pseudo-inverse)."""
+    rows = []
+    for e in range(n_parity + 1):
+        for erased in itertools.combinations(range(nb), e):
+            m = np.ones(nb, np.float32)
+            m[list(erased)] = 0.0
+            rows.append(m)
+    rng = np.random.default_rng(seed)
+    for _ in range(extra):
+        m = np.ones(nb, np.float32)
+        m[rng.choice(nb, n_parity + 1, replace=False)] = 0.0
+        rows.append(m)
+    return np.stack(rows)
+
+
+def _pinv_ops(nb: int, n: int) -> int:
+    """float64 operations that rec = pinv(diag(m) B) diag(m) needs at the
+    least, whatever the algorithm: forming the n x nb result from a
+    factorization, a multiply and an add for each of its entries' n terms
+    (no sweep, rotation or convergence test counted)."""
+    return 2 * n * n * nb
+
+
+def kernel_masked_pinv(torch, n_data: int, n_parity: int, label: str, smi: str) -> dict:
+    """masked_pinv against ref_masked_pinv (float64 ``torch.linalg.pinv``)
+    on every mask of at most n_parity erasures and 64 of one more, in one
+    launch: each mask within 1e-6 of its own max|rec|, erased columns
+    exactly 0, a second launch and
+    each single-mask call bit-equal to the batch; then at the served mask
+    (one mask, as every decode step launches it) timed in turns with
+    ``torch.linalg.pinv`` of the masked generator (a yardstick: it syncs the
+    host), beside the plain version, the device time of 20 launches in a
+    CUDA graph a launch, the host time a call and the bound."""
+    from repro_torch.core.coded_ops import _generator64
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.masked_pinv import MAX_SWEEPS, masked_pinv_cuda
+
+    dev = torch.device("cuda")
+    nb = n_data + n_parity
+    masks = torch.as_tensor(_all_masks(nb, n_parity), device=dev)
+    gen = _generator64(nb, n_data, dev)
+    sweeps = torch.zeros(len(masks), dtype=torch.int32, device=dev)
+    got = masked_pinv_cuda(masks, gen, sweeps)
+    again = masked_pinv_cuda(masks, gen)
+    want = ref.ref_masked_pinv(masks, gen)
+    torch.cuda.synchronize()
+    err, scale = max_err(torch, got, want)
+    tol = 1e-6 * want.abs().amax((1, 2))
+    over_tol = float(((got - want).abs().amax((1, 2)) / tol).max())
+    zero = not bool(got[(masks == 0)[:, None, :].expand_as(got)].any())
+    singles = all(torch.equal(masked_pinv_cuda(masks[i].contiguous(), gen), got[i])
+                  for i in range(0, len(masks), max(1, len(masks) // 16)))
+    mask = torch.ones(nb, device=dev)
+    mask[list(SVD_ERASED[(n_data, n_parity)])] = 0.0
+    one_sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
+    masked_pinv_cuda(mask, gen, one_sweeps)
+    bm = gen * mask.double()[:, None]
+    row = {"phase": "kernel", "kernel": "masked_pinv", "shape": label, "gen": [nb, n_data],
+           "masks": len(masks), "erased": list(SVD_ERASED[(n_data, n_parity)]),
+           "max_abs_err": err, "max_abs_rec": scale, "tol": "1e-6 x each mask's max|rec|",
+           "max_err_over_tol": over_tol, "erased_columns_zero": zero,
+           "bit_equal_relaunch": torch.equal(got, again), "bit_equal_single_calls": singles,
+           "sweeps_max": int(sweeps.max()), "sweeps_mean": float(sweeps.float().mean()),
+           "sweeps_served_mask": int(one_sweeps[0]), "card": smi}
+    del got, again, want
+    row["ms"], row["library_ms"], row["turns_ms"] = time_turns(
+        torch, lambda: masked_pinv_cuda(mask, gen),
+        lambda: torch.linalg.pinv(bm, rtol=1e-6), 50)
+    row["library_call"] = "torch.linalg.pinv(diag(m) B, rtol=1e-6), float64 (yardstick; syncs)"
+    row["plain_ms"] = time_ms(torch, lambda: ref.ref_masked_pinv(mask, gen), 50)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev)):
+        for _ in range(20):
+            masked_pinv_cuda(mask, gen)
+    row["device_ms"] = time_ms(torch, graph.replay, 10) / 20
+    row["host_ms"] = host_ms(torch, lambda: masked_pinv_cuda(mask, gen))
+    n_bytes = 4 * nb + 8 * nb * n_data + 4 * n_data * nb
+    row["bound_ms"], row["bound_by"] = bound(n_bytes, _pinv_ops(nb, n_data), FP64_FLOPS)
+    against_library(row)
+    del graph
+    emit(row)
+    check(over_tol <= 1.0, f"masked_pinv {label}: a mask's error is {over_tol} x its tol")
+    check(zero, f"masked_pinv {label}: an erased column is not zero")
+    check(row["bit_equal_relaunch"] and singles, f"masked_pinv {label}: launches differ")
+    check(row["sweeps_max"] < MAX_SWEEPS, f"masked_pinv {label}: a mask hit the sweep cap")
+    return row
+
+
+def phase_macro_svd(torch, serve: dict, results: dict, smi: str) -> None:
+    """Phase 9b: fused blocks whose head decodes through ``svd_recovery``,
+    its recovery matrix built by the ``masked_pinv`` kernel inside the CUDA
+    graphs.  The kernel against its plain version at (10, 6) and (14, 2)
+    (``kernel_masked_pinv``); the serve phase's head re-encoded on the card
+    into (10, 6) as a parity raise does (``gaussian_encode``, then its
+    coded_matvec_decode at B = 4 checked and timed); then two macro pairs as
+    phase 9's: the (10, 6) head under six fixed erasures, and phase 9's
+    (14, 2) head and mask with ``head_kernel_mode='svd'``; equal tokens,
+    ``coded_matvec_decode`` and ``masked_pinv`` each launched once a head
+    call."""
+    from repro_torch.core.coded_ops import block_mds_generator, svd_recovery
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import ServeEngine
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = serve["cfg"]
+    pinv_rows = {label: kernel_masked_pinv(torch, nd, npar, label, smi)
+                 for label, nd, npar in (("glm4-9b (10, 6) head", 10, 6),
+                                         ("glm4-9b (14, 2) svd", 14, 2))}
+    results["masked_pinv"] = pinv_rows
+
+    # the (10, 6) head, re-encoded on the card as ServeEngine._raise_parity does
+    head = serve["params"]["lm_head"].T.to(torch.float32)
+    _reset_launches()
+    coded = ops.encode_blocks_device(head, 10, 6, mode="cuda")
+    torch.cuda.synchronize()
+    encode_launches = _launches()
+    check(encode_launches["gaussian_encode"] == 1, f"(10, 6) encode launches {encode_launches}")
+    br = coded.shape[0] // 16
+    blocks = torch.zeros(10 * br, head.shape[1], device=dev)
+    blocks[: head.shape[0]] = head
+    g = block_mds_generator(16, 10, device=dev)
+    enc_row = gaussian_row(torch, g, blocks.view(10, br * head.shape[1]), "glm4-9b (10, 6) encode",
+                           10)
+    del blocks
+    results.setdefault("gaussian_encode", {})["glm4-9b (10, 6) encode"] = enc_row
+    mask = torch.ones(16, device=dev)
+    mask[list(SVD_ERASED[(10, 6)])] = 0.0
+    rec = svd_recovery(mask, 10, 6)
+    x = torch.randn(head.shape[1], 4, device=dev, generator=torch.Generator(device=dev).manual_seed(6))
+    got = ops.coded_matvec_decode(coded, x, rec, mode="cuda")
+    want = ref.ref_coded_matvec_decode(coded, x, rec)
+    err, scale = max_err(torch, got, want)
+    dec_row = {"phase": "kernel", "kernel": "coded_matvec_decode", "shape": "glm4-9b decode (10, 6)",
+               "w": list(coded.shape), "b": 4, "erased": list(SVD_ERASED[(10, 6)]),
+               "max_abs_err": err, "tol": 1e-4 * max(1.0, scale),
+               "rel_err_uncoded": float((got[: head.shape[0]] - head @ x).abs().max())
+               / float((head @ x).abs().max())}
+    del got, want
+    dec_row["ms"], dec_row["library_ms"], dec_row["turns_ms"] = time_turns(
+        torch, lambda: ops.coded_matvec_decode(coded, x, rec, mode="cuda"),
+        lambda: torch.matmul(coded, x), 20)
+    dec_row["library_call"] = "torch.matmul(W_c, x), the block product alone (partial yardstick)"
+    dec_row["plain_ms"] = time_ms(torch, lambda: ref.ref_coded_matvec_decode(coded, x, rec), 20)
+    n_bytes = 4 * (coded.numel() + x.numel() + rec.numel() + 10 * br * 4)
+    dec_row["bound_ms"], dec_row["bound_by"] = bound(
+        n_bytes, 2 * coded.shape[0] * coded.shape[1] * 4 + 2 * 10 * 16 * br * 4)
+    against_library(dec_row)
+    emit(dec_row)
+    check(err <= dec_row["tol"], f"coded_matvec_decode (10, 6): {err} > {dec_row['tol']}")
+    check(dec_row["rel_err_uncoded"] <= 1e-3,
+          f"the (10, 6) head under six erasures is {dec_row['rel_err_uncoded']} off the uncoded head")
+    results["coded_matvec_decode"]["glm4-9b decode (10, 6)"] = dec_row
+    del x, rec, head
+
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, cfg.vocab, 16) for _ in range(4)]
+    cfg6 = dataclasses.replace(cfg, coded_parity=6)
+    model6 = build_model(cfg6)
+    params6 = dict(serve["params"], lm_head_coded=coded)
+    mask6 = np.ones(16)
+    mask6[list(SVD_ERASED[(10, 6)])] = 0.0
+    per_call = ("coded_matvec_decode", "masked_pinv")
+
+    def make_10_6(macro_steps):
+        return ServeEngine(model6, params6, n_slots=4, s_max=64, mask_fn=lambda: mask6,
+                           head_kernel_mode="cuda", macro_steps=macro_steps, device=dev)
+
+    pair_10_6 = phase_macro_pair(torch, make_10_6, prompts, SVD_MAX_NEW, "glm4-9b (10, 6)", smi,
+                                 per_call=per_call)
+    del params6, coded
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg)
+    mask2 = np.ones(16)
+    mask2[list(SVD_ERASED[(14, 2)])] = 0.0
+
+    def make_svd(macro_steps):
+        return ServeEngine(model, serve["params"], n_slots=4, s_max=64, mask_fn=lambda: mask2,
+                           head_kernel_mode="svd", macro_steps=macro_steps, device=dev)
+
+    pair_svd = phase_macro_pair(torch, make_svd, prompts, SVD_MAX_NEW, "glm4-9b svd", smi,
+                                per_call=per_call)
+    seconds = time.perf_counter() - t_phase
+    row = {"phase": "macro_svd", "encode_launches": encode_launches,
+           "pairs": {name: {k: pair[k] for k in ("scalar_ms_per_step", "fused_ms_per_step",
+                                                 "fused_over_scalar", "launches", "captures",
+                                                 "graph_device_ms_per_step")}
+                     for name, pair in (("(10, 6)", pair_10_6), ("svd", pair_svd))},
+           "seconds": seconds, "budget_s": SVD_BUDGET_S, "within_budget": seconds <= SVD_BUDGET_S,
+           "card": smi}
+    emit(row)
+    check(row["within_budget"], f"macro glm4-9b svd: {seconds} s over its {SVD_BUDGET_S} s")
+    results["macro glm4-9b svd"] = {"(10, 6)": pair_10_6, "svd": pair_svd,
+                                    "encode": {"launches": encode_launches}, "seconds": seconds}
 
 
 WIDE_SLOTS = 64        # the wide glm4-9b phase's slots: x of 64 columns at every decode step
@@ -2719,16 +2949,14 @@ def _dryrun_brief(row: dict) -> dict:
 
 
 def _expected_launches(cfg, kind: str, calls: int, batch: int) -> dict:
-    """The six kernels' launches in ``calls`` calls of a dryrun cell's
+    """Every kernel's launches in ``calls`` calls of a dryrun cell's
     function: the coded head's decode kernel once a call (decode; on the
     wide engine from WIDE_MIN_B columns of x), each Mamba block's SSD pair
     once a prefill, and twice a train step (its forward and the
-    checkpoint's recompute; one microbatch)."""
+    checkpoint's recompute; one microbatch); none of the others."""
     from repro_torch.kernels.wide_rows import WIDE_MIN_B
 
-    want = {"coded_matvec": 0, "coded_matvec_decode": 0, "gaussian_encode": 0,
-            "lt_encode": 0, "ssd_chunk": 0, "ssd_combine": 0,
-            "coded_matvec_wide": 0, "coded_matvec_decode_wide": 0}
+    want = dict.fromkeys(_launches(), 0)
     if kind == "decode" and cfg.coded:
         want["coded_matvec_decode"] = calls
         want["coded_matvec_decode_wide"] = calls if batch >= WIDE_MIN_B else 0
@@ -3275,7 +3503,7 @@ def _refusals(torch) -> dict:
     x = torch.ones(4, 4, device=dev, requires_grad=True)
     one = torch.ones(4, 4, device=dev)
     n_args = {"coded_matvec": 2, "coded_matvec_decode": 3, "gaussian_encode": 2,
-              "lt_encode": 3, "ssd_chunk": 4, "ssd_combine": 3}
+              "lt_encode": 3, "masked_pinv": 2, "ssd_chunk": 4, "ssd_combine": 3}
     out = {}
     for name, wrapper in kernel_wrappers().items():
         before = wrapper.launches
@@ -4458,6 +4686,7 @@ def main() -> int:
     timed("mesh serve", phase_mesh_serve, torch, serve, mesh, results, smi)
     timed("trace serve", phase_trace_serve, torch, args, serve, results, smi)
     timed("macro glm4-9b", phase_macro_glm, torch, serve, results, smi)
+    timed("macro glm4-9b svd", phase_macro_svd, torch, serve, results, smi)
     timed("wide glm4-9b", phase_wide_glm, torch, args, serve, mesh, results, smi)
     timed("auto glm4-9b", phase_auto_glm, torch, args, serve, mesh, results, smi)
     del serve, mesh
@@ -4505,6 +4734,20 @@ def main() -> int:
         ("coded_matvec_decode", "src/repro_torch/kernels/csrc/coded_decode.cu",
          "src/repro/kernels/coded_decode.py:65", "macro serve (graphs)",
          {"launches": results["macro glm4-9b"]["launches"][1]}, "glm4-9b decode"),
+        *((name, src, replaces, f"svd macro serve (graphs), {pair}",
+           {"launches": results["macro glm4-9b svd"][pair]["launches"][1]}, shape)
+          for pair, name, src, replaces, shape in (
+              ("(10, 6)", "masked_pinv", "src/repro_torch/kernels/csrc/masked_pinv.cu",
+               SVD_REPLACES, "glm4-9b (10, 6) head"),
+              ("(10, 6)", "coded_matvec_decode", "src/repro_torch/kernels/csrc/coded_decode.cu",
+               "src/repro/kernels/coded_decode.py:65", "glm4-9b decode (10, 6)"),
+              ("svd", "masked_pinv", "src/repro_torch/kernels/csrc/masked_pinv.cu",
+               SVD_REPLACES, "glm4-9b (14, 2) svd"),
+              ("svd", "coded_matvec_decode", "src/repro_torch/kernels/csrc/coded_decode.cu",
+               "src/repro/kernels/coded_decode.py:65", "glm4-9b decode"))),
+        ("gaussian_encode", "src/repro_torch/kernels/csrc/gaussian_encode.cu",
+         "src/repro/kernels/lt_encode.py:107", "svd macro serve, (10, 6) re-encode",
+         results["macro glm4-9b svd"]["encode"], "glm4-9b (10, 6) encode"),
         ("coded_matvec_decode", "src/repro_torch/kernels/csrc/coded_decode.cu",
          "src/repro/kernels/coded_decode.py:65", "wide glm4-9b serve", results["wide glm4-9b"],
          "glm4-9b decode B=64"),

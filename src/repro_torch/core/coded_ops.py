@@ -33,6 +33,7 @@ __all__ = [
 ]
 
 _GEN_CACHE: dict[tuple[int, int], np.ndarray] = {}
+_GEN64: dict[tuple[int, int, torch.device], torch.Tensor] = {}
 
 
 def _worst_erasure_cond(b: np.ndarray, n_parity: int, max_patterns: int = 4096) -> float:
@@ -138,34 +139,53 @@ def decode_blocks_svd(
     return sol.reshape((n_data,) + tuple(y_coded.shape[1:])).to(y_coded.dtype)
 
 
-def svd_recovery(mask: torch.Tensor, n_data: int, n_parity: int) -> torch.Tensor:
+def _generator64(n_blocks: int, n_data: int, device: torch.device) -> torch.Tensor:
+    """The float64 generator on ``device``, uploaded once per (geometry,
+    device): a decode inside a captured CUDA graph copies nothing from the
+    host (the engine's eager step before each capture uploads it)."""
+    key = (n_blocks, n_data, torch.device(device))
+    gen = _GEN64.get(key)
+    if gen is None:
+        gen = _GEN64[key] = block_mds_generator(n_blocks, n_data, dtype=torch.float64,
+                                                device=device)
+    return gen
+
+
+def svd_recovery(mask: torch.Tensor, n_data: int, n_parity: int,
+                 mode: str | None = None) -> torch.Tensor:
     """[n_data, n_blocks] fp32 recovery matrix for any mask, on its device:
     the masked generator's pseudo-inverse (rtol 1e-6), taken in float64 so
     no refinement is needed, with the erased columns exactly zero.  The
     decode of geometries the DecoderCache refuses, as a matrix the fused
-    kernel takes."""
-    m = mask.to(torch.float64)
-    b = block_mds_generator(n_data + n_parity, n_data, dtype=torch.float64, device=mask.device)
-    rec = torch.linalg.pinv(b * m[:, None], rtol=1e-6) * m[None, :]
-    return rec.to(torch.float32)
+    kernel takes.  ``mode`` as ``kernels.ops``: by default the hand-written
+    ``masked_pinv`` kernel on a CUDA mask (no host sync, so it runs inside
+    a CUDA graph), its plain version (``torch.linalg.pinv``) on a CPU one."""
+    from repro_torch.kernels.ops import masked_pinv
+
+    gen = _generator64(n_data + n_parity, n_data, mask.device)
+    return masked_pinv(mask, gen, mode)
 
 
 def decode_blocks(
-    y_coded: torch.Tensor, mask: torch.Tensor, n_data: int, n_parity: int
+    y_coded: torch.Tensor, mask: torch.Tensor, n_data: int, n_parity: int,
+    mode: str | None = None,
 ) -> torch.Tensor:
     """Recover the data blocks from any ``n_data`` surviving coded blocks.
 
     y_coded [n_blocks, br, ...] (erased entries may hold garbage); mask
     [n_blocks], 1.0 where the block survived.  The decode is the mask-keyed
-    ``DecoderCache`` gather plus one small matmul; geometries too wide for
-    the cache fall back to :func:`decode_blocks_svd`.
+    ``DecoderCache`` gather plus one small matmul; geometries the cache
+    refuses take :func:`svd_recovery`'s matrix instead (the reference takes
+    its :func:`decode_blocks_svd`), so on the card they too run inside a
+    CUDA graph.  ``mode`` is :func:`svd_recovery`'s.
     """
     from repro_torch.core.decoding import cacheable, get_decoder_cache
 
     n_blocks = n_data + n_parity
-    if not cacheable(n_data, n_parity):
-        return decode_blocks_svd(y_coded, mask, n_data, n_parity)
-    rec = get_decoder_cache(n_data, n_parity).recovery(mask)
+    if cacheable(n_data, n_parity):
+        rec = get_decoder_cache(n_data, n_parity).recovery(mask)
+    else:
+        rec = svd_recovery(mask, n_data, n_parity, mode)
     _, flat = _masked_flat(y_coded, mask, n_blocks)
     sol = rec @ flat
     return sol.reshape((n_data,) + tuple(y_coded.shape[1:])).to(y_coded.dtype)
@@ -214,13 +234,15 @@ class CodedLinear:
           * ``'auto'`` — per-shape dispatch (``kernels.dispatch.choose_coded_linear``
             at the enclosing ``sharding.ctx.macro_step_k``): on a CUDA tensor
             the kernel with the DecoderCache (``'fused'``) or
-            :func:`svd_recovery` (``'svd'``, never inside a fused block), as
-            the table measured; on a CPU tensor the plain version.
+            :func:`svd_recovery` (``'svd'``), as the table measured; on a
+            CPU tensor the plain version.
 
-        Geometries the DecoderCache refuses take :func:`svd_recovery` too,
-        and still run the kernel on a CUDA tensor.  The plain version sums
-        the block matmul, then the recovery contraction, as the reference's
-        default path does.
+        Geometries the DecoderCache refuses take :func:`svd_recovery` too.
+        Its matrix comes from the ``masked_pinv`` kernel on a CUDA tensor,
+        so every kernel mode runs inside a fused block's CUDA graph; under
+        ``'off'`` it comes from the plain version, which syncs the host and
+        refuses a capture.  The plain version sums the block matmul,
+        then the recovery contraction, as the reference's default path does.
         """
         from repro_torch.core.decoding import cacheable, get_decoder_cache
         from repro_torch.kernels.ops import coded_matvec_decode
@@ -235,11 +257,11 @@ class CodedLinear:
                 backend=backend_of(w_coded), macro_k=current_macro_step_k(),
             )
             kernel_mode = d.kernel_mode
+        mode = None if kernel_mode == "svd" else kernel_mode
         if kernel_mode == "svd" or not cacheable(self.n_data, self.n_parity):
-            rec = svd_recovery(mask, self.n_data, self.n_parity)
+            rec = svd_recovery(mask, self.n_data, self.n_parity, mode)
         else:
             rec = get_decoder_cache(self.n_data, self.n_parity).recovery(mask)
-        mode = None if kernel_mode == "svd" else kernel_mode
         return coded_matvec_decode(w_coded, x, rec, mode=mode)[: self.out_features]
 
 
@@ -283,7 +305,7 @@ def coded_block_matmul(
     home = mesh.devices[0]
     ys = [coded_matvec(w, x.to(w.device), mode=kernel_mode).to(home) for w in blocks]
     y_all = torch.cat(ys).reshape(n_blocks, blocks[0].shape[0], -1)
-    y = decode_blocks(y_all, mask.to(home), n_data, n_parity)
+    y = decode_blocks(y_all, mask.to(home), n_data, n_parity, kernel_mode)
     return y.reshape(n_data * blocks[0].shape[0], -1)
 
 

@@ -12,6 +12,7 @@ _SYMBOLS = {"coded_matvec": "MatvecTask",
             "coded_matvec_decode": "DecodeTask",
             "gaussian_encode": "gaussian_encode_kernel",
             "lt_encode": "lt_encode_kernel",
+            "masked_pinv": "masked_pinv_kernel",
             "ssd_chunk": "ssd_chunk_",
             "ssd_combine": "ssd_combine_"}
 # what names the wide engine's kernel (csrc/wide_rows.cuh), beside the
@@ -29,12 +30,14 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels.coded_decode import coded_matvec_decode_cuda
     from repro_torch.kernels.coded_matvec import coded_matvec_cuda
     from repro_torch.kernels.lt_encode import gaussian_encode_cuda, lt_encode_cuda
+    from repro_torch.kernels.masked_pinv import masked_pinv_cuda
     from repro_torch.kernels.ssd_scan import ssd_chunk_cuda, ssd_combine_cuda
 
     return {"coded_matvec": coded_matvec_cuda,
             "coded_matvec_decode": coded_matvec_decode_cuda,
             "gaussian_encode": gaussian_encode_cuda,
             "lt_encode": lt_encode_cuda,
+            "masked_pinv": masked_pinv_cuda,
             "ssd_chunk": ssd_chunk_cuda,
             "ssd_combine": ssd_combine_cuda}
 

@@ -24,7 +24,7 @@ PyTorch call for the same function (``torch.matmul``, ``torch.sparse.mm``)
 is timed the same way as ``library_us``: a yardstick, never a candidate.  The table names the
 card and its power limit (``nvidia-smi``), torch and CUDA, and the host
 costs the H100 prior carries (``measured_host``: one ctypes launch, one
-small eager op, one ``svd_recovery``).
+small eager op, one ``svd_recovery``: a ``masked_pinv`` launch).
 
 Cells: the five coded heads (glm4-9b, mamba2-130m, zamba2-1.2b,
 llama-3.2-vision-11b, dbrx-132b at (14, 2)) at B = 1 and 4, a glm4-9b code
@@ -143,7 +143,8 @@ def _host_us(fn, calls: int = 300) -> float:
 def measure_host(reps: int) -> dict:
     """What the H100 prior's host terms stand for, measured: one ctypes
     launch of a kernel from Python (a [64, 64] coded_matvec), one small
-    eager op, and ``svd_recovery`` at (14, 2) per unit of nb * n_data^2."""
+    eager op, and ``svd_recovery`` (one ``masked_pinv`` launch) at (14, 2)
+    per unit of nb * n_data^2."""
     import torch
 
     from repro_torch.core.coded_ops import svd_recovery

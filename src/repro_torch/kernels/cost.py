@@ -13,9 +13,10 @@ oracles, as the reference never dispatches to the Pallas interpreter):
 
   * ``coded_linear`` — ``fused`` (the decode kernel with the DecoderCache's
     recovery matrix) and ``svd`` (the same kernel with
-    ``core.coded_ops.svd_recovery``); ``svd`` is dropped inside a fused
-    block (``macro_k > 1``), which a CUDA graph holds and ``svd_recovery``'s
-    float64 pinv cannot join;
+    ``core.coded_ops.svd_recovery``'s matrix, one launch of the
+    ``masked_pinv`` kernel, priced by ``svd_us`` per unit of svd_n3 in
+    place of the DecoderCache's eager ops); both inside a fused block
+    (``macro_k > 1``) as out of one, since a CUDA graph holds both;
   * ``coded_matvec``, ``coded_matvec_decode``, ``gaussian_encode``,
     ``lt_encode`` — ``cuda``.
 
@@ -108,15 +109,16 @@ CPU_HOST = HostHardware(
 # sheet rates (67 TFLOP/s, 3.35 TB/s).  dispatch_us is one ctypes launch of
 # a hand-written kernel from Python (32.7 µs), node_us one small eager torch
 # op (9.8 µs), both on the host clock; svd_us prices
-# core/coded_ops.py::svd_recovery (float64 pinv of the masked generator on
-# the card, 693 µs a call at (14, 2)) per unit of nb * n_data^2.  All three
-# as ``python -m repro_torch.kernels.autotune`` measured them on an H100
-# 80GB HBM3 at 700 W (a table's ``meta.measured_host``; the host numbers
-# vary up to 2x between machines).  Kernels have no grid-step cost: their
-# grids are persistent.
+# core/coded_ops.py::svd_recovery (one masked_pinv launch: the float64
+# Jacobi pinv of the masked generator on the card, 90.7 µs a call at
+# (14, 2), its host time or its device time, the longer) per unit of
+# nb * n_data^2.  All three as ``autotune.measure_host`` measured them on
+# an H100 80GB HBM3 at 700 W (a table's ``meta.measured_host``; the host
+# numbers vary up to 2x between machines).  Kernels have no grid-step
+# cost: their grids are persistent.
 H100_HOST = HostHardware(
     name="h100", gemm_flops=67e12, mem_bw=3.35e12,
-    dispatch_us=32.7, node_us=9.8, svd_us=0.221, overlap=True, step_us=0.0,
+    dispatch_us=32.7, node_us=9.8, svd_us=0.0289, overlap=True, step_us=0.0,
 )
 
 _PRESETS = {"cpu": CPU_HOST, "cuda": H100_HOST}
@@ -171,9 +173,9 @@ def model_error(predicted_us: float, measured_us: float) -> float:
 # per-op candidate cost constructors
 # --------------------------------------------------------------------------
 # eager ops of a call besides its kernel: DecoderCache.recovery's mask
-# index and two gathers; svd_recovery's casts, generator upload and masking
-# (its pinv is priced by svd_n3); lt_encode's CSR compaction
-_CUDA_NODES = {"fused": 6, "svd": 6, "lt": 10}
+# index and two gathers; lt_encode's CSR compaction.  svd_recovery has
+# none: its one masked_pinv launch is priced by svd_n3
+_CUDA_NODES = {"fused": 6, "lt": 10}
 
 
 # the wide engine's fp32 product is six bf16 piece products on the tensor
@@ -195,13 +197,12 @@ def _head_call(b: int, x_bytes: float) -> tuple[int, int, float, float]:
 
 def coded_linear_costs(
     out: int, inner: int, batch: int, n_data: int, n_parity: int,
-    backend: str = "cpu", macro_k: int = 1,
+    backend: str = "cpu",
 ) -> dict[str, KernelCost]:
     """Candidates for ``CodedLinear.apply`` at (out x inner x batch).
 
     On the CPU the reference's three (``default``, ``svd``, ``fused``); on
-    the card the decode kernel with either recovery matrix, ``svd``
-    dropped for ``macro_k > 1``.
+    the card the decode kernel with either recovery matrix.
     """
     nb = n_data + n_parity
     br = -(-out // n_data)
@@ -217,11 +218,8 @@ def coded_linear_costs(
         fused = KernelCost(flops=scale * gemm + dec,
                            bytes=reads * w_b + x_b + out_b + _F32 * n_data * nb + extra_b,
                            nodes=_CUDA_NODES["fused"] + extra)
-        costs = {"fused": fused}
-        if max(1, int(macro_k)) == 1:
-            costs["svd"] = replace(fused, nodes=_CUDA_NODES["svd"] + extra,
-                                   svd_n3=float(nb * n_data * n_data))
-        return costs
+        return {"fused": fused,
+                "svd": replace(fused, nodes=extra, svd_n3=float(nb * n_data * n_data))}
     costs = {
         # matmul -> reshape -> mask-multiply -> lut index ops -> rec gather
         # -> decode matmul -> slice: yc written, mask-mult read+write,
@@ -303,14 +301,14 @@ def encode_costs(
     raise ValueError(f"unknown encode kind {kind!r}")
 
 
-def candidate_costs(op: str, backend: str, macro_k: int = 1, **geom) -> dict[str, KernelCost]:
+def candidate_costs(op: str, backend: str, **geom) -> dict[str, KernelCost]:
     """Dispatch to the per-op constructor by table op name."""
     if backend not in _PRESETS:
         raise ValueError(f"unknown backend {backend!r}; options: {sorted(_PRESETS)}")
     if op == "coded_linear":
         return coded_linear_costs(
             geom["out"], geom["inner"], geom["batch"],
-            geom["n_data"], geom["n_parity"], backend, macro_k,
+            geom["n_data"], geom["n_parity"], backend,
         )
     if op == "coded_matvec":
         return matvec_costs(geom["r"], geom["m"], geom["b"], backend)
@@ -341,6 +339,6 @@ def predict_best(
     """
     hw = hw or preset(backend)
     k = max(1, int(macro_k))
-    costs = candidate_costs(op, backend, macro_k=k, **geom)
+    costs = candidate_costs(op, backend, **geom)
     impl = min(costs, key=lambda c: costs[c].predicted_block_us(hw, k))
     return impl, costs[impl].predicted_block_us(hw, k) / k, {}

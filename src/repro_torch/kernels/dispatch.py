@@ -58,9 +58,9 @@ TABLE_VERSION = 1
 TABLE_ENV = "REPRO_TORCH_AUTOTUNE_TABLE"
 
 # the kernel candidates of each op on the card ('svd': the decode kernel
-# with svd_recovery's matrix), and those a fused block (a CUDA graph) holds
+# with svd_recovery's matrix from the masked_pinv kernel); a fused block (a
+# CUDA graph) holds every one
 _CUDA_IMPLS = {"coded_linear": ("fused", "svd")}
-_CAPTURABLE = {"coded_linear": ("fused",)}
 
 
 def default_table_path() -> str:
@@ -104,13 +104,10 @@ class Decision:
         return self.mode
 
 
-def _kernel_impls(op: str, backend: str, macro_k: int = 1) -> tuple[str, ...]:
-    """The impls a decision may name: on the card the op's kernels (those a
-    CUDA graph holds inside a fused block)."""
+def _kernel_impls(op: str, backend: str) -> tuple[str, ...]:
+    """The impls a decision may name: on the card the op's kernels."""
     if backend != "cuda":
         return ()
-    if macro_k > 1:
-        return _CAPTURABLE.get(op, _CUDA_IMPLS.get(op, ("cuda",)))
     return _CUDA_IMPLS.get(op, ("cuda",))
 
 
@@ -154,13 +151,10 @@ class DispatchTable:
         return self._hw.get(backend) or _cost.preset(backend)
 
     def lookup(self, op: str, backend: str, shape: str,
-               dtype: str = "float32", geometry: dict | None = None,
-               macro_k: int = 1) -> dict | None:
+               dtype: str = "float32", geometry: dict | None = None) -> dict | None:
         """The entry for this cell as a winner this backend may run, or
-        None.  An interpreter entry is never dispatched; on ``'cuda'`` an
-        entry whose impl or mode is not a kernel is refused, and inside a
-        fused block (``macro_k > 1``) a winner no CUDA graph can hold gives
-        way to the fastest measured candidate that one can."""
+        None.  An interpreter entry is never dispatched, and on ``'cuda'``
+        an entry whose impl or mode is not a kernel is refused."""
         e = self.entries.get((op, backend, shape, dtype))
         if e is None:
             return None
@@ -170,22 +164,10 @@ class DispatchTable:
                 return None
         if e.get("mode") == "interpret":  # never dispatch to the interpreter
             return None
-        if backend != "cuda":
-            return e
-        allowed = _kernel_impls(op, backend)
-        if e.get("impl") not in allowed or e.get("mode") != "cuda":
+        if backend == "cuda" and (e.get("impl") not in _kernel_impls(op, backend)
+                                  or e.get("mode") != "cuda"):
             return None
-        capturable = _kernel_impls(op, backend, macro_k)
-        if e["impl"] in capturable:
-            return e
-        live = [c for c in e.get("candidates", [])
-                if c.get("impl") in capturable and c.get("mode") == "cuda"
-                and c.get("us") is not None]
-        if not live:
-            return None
-        best = min(live, key=lambda c: c["us"])
-        return {**e, **{k: best[k] for k in ("impl", "mode", "params", "us", "predicted_us")
-                        if k in best}}
+        return e
 
 
 _lock = threading.Lock()
@@ -231,7 +213,7 @@ def _resolve(op: str, shape: str, geometry: dict | None,
     table = get_table()
     d = None
     if table is not None:
-        e = table.lookup(op, backend, shape, dtype, geometry, macro_k)
+        e = table.lookup(op, backend, shape, dtype, geometry)
         if e is not None:
             # table rows are measured per-call winners; the macro-step
             # amortization only adjusts the analytical fallback below

@@ -30,6 +30,7 @@ __all__ = [
     "coded_head_matvec",
     "gaussian_encode",
     "lt_encode",
+    "masked_pinv",
     "encode_rows",
     "encode_blocks_device",
     "ssd_forward",
@@ -157,6 +158,22 @@ def lt_encode(a, indices, coeffs, mode: str | None = None):
     from repro_torch.kernels.lt_encode import lt_encode_cuda
 
     return lt_encode_cuda(a.contiguous(), indices.contiguous(), coeffs.contiguous())
+
+
+def masked_pinv(mask, gen, mode: str | None = None):
+    """rec = pinv(diag(m) B, rtol 1e-6) · diag(m), fp32 [n, nb] (or
+    [M, n, nb] for masks [M, nb]), for the float64 generator B [nb, n] on
+    the mask's device; ``'auto'`` is by device (one kernel, no shape to
+    choose for)."""
+    if resolve_mode(mode, mask) == "off":
+        if mask.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise NotImplementedError(
+                "masked_pinv's plain version (torch.linalg.pinv) syncs the host and cannot be "
+                "captured in a CUDA graph; run the kernel (mode None, 'auto' or 'cuda')")
+        return _ref.ref_masked_pinv(mask, gen)
+    from repro_torch.kernels.masked_pinv import masked_pinv_cuda
+
+    return masked_pinv_cuda(mask.to(torch.float32).contiguous(), gen.contiguous())
 
 
 def encode_rows(a, plan, start: int, stop: int, mode: str | None = None, device=None):

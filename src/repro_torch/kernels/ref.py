@@ -16,6 +16,7 @@ __all__ = [
     "ref_coded_matvec_decode",
     "ref_gaussian_encode",
     "ref_lt_encode",
+    "ref_masked_pinv",
     "ref_ssd_chunk",
     "ref_ssd_combine",
 ]
@@ -76,6 +77,17 @@ def ref_lt_encode(
             rs = rows[s : s + step]
             out[rs] += coeffs[rs, d, None] * a[indices[rs, d]]
     return out
+
+
+def ref_masked_pinv(mask: torch.Tensor, gen: torch.Tensor) -> torch.Tensor:
+    """rec = pinv(diag(m) B, rtol 1e-6) · diag(m), fp32: mask [nb] or
+    [M, nb], gen B [nb, n] -> [n, nb] or [M, n, nb], the pseudo-inverse
+    taken in float64 (``torch.linalg.pinv``), so the erased columns are
+    exactly zero and a mask with fewer than n survivors gets the least-norm
+    pseudo-inverse."""
+    m = mask.to(torch.float64)
+    bm = gen.to(torch.float64) * m[..., :, None]
+    return (torch.linalg.pinv(bm, rtol=1e-6) * m[..., None, :]).to(torch.float32)
 
 
 def ref_ssd_chunk(x: torch.Tensor, da: torch.Tensor, b: torch.Tensor, c: torch.Tensor):

@@ -196,11 +196,15 @@ class ServeEngine:
         reach the budget (the first admission always lands).
 
         ``macro_steps`` is K_max of the fused macro-step decode (1 keeps
-        every step scalar).  On CUDA a fused block is a captured CUDA graph;
-        a head the card cannot capture raises NotImplementedError here: its
-        decode through ``svd_recovery`` (the 'svd' mode, or a geometry the
-        DecoderCache refuses, now or after the allowed raises) or a mesh
-        over more than one card."""
+        every step scalar).  On CUDA a fused block is a captured CUDA graph.
+        It holds every coded head the engine serves: a decode through
+        ``svd_recovery`` (the 'svd' mode, or a geometry the DecoderCache
+        refuses, now or after the allowed raises) builds its recovery matrix
+        in the ``masked_pinv`` kernel, from the block's masks on the device.
+        Two setups raise NotImplementedError here: a head mesh over more
+        than one card, and the plain head (``head_kernel_mode`` 'off') on a
+        geometry the DecoderCache refuses, whose ``torch.linalg.pinv``
+        syncs the host."""
         if parity_policy is not None:
             if parity_controller is None:
                 parity_controller = parity_policy.controller
@@ -284,20 +288,17 @@ class ServeEngine:
 
     def _check_capturable(self) -> None:
         cfg = self.model.cfg
-        if not cfg.coded:
-            return
-        from repro_torch.core.decoding import cacheable
+        if cfg.coded and self.head_kernel_mode in ("off", "interpret"):
+            from repro_torch.core.decoding import cacheable
 
-        if self.head_kernel_mode == "svd":
-            raise NotImplementedError(
-                "fused blocks on CUDA with head_kernel_mode='svd': svd_recovery's float64 "
-                "pinv and host-built generator cannot be captured in a CUDA graph")
-        for n_par in range(cfg.coded_parity, cfg.coded_parity + max(self.parity_topup, 0) + 1):
-            if not cacheable(self._n_blocks - n_par, n_par):
-                raise NotImplementedError(
-                    f"fused blocks on CUDA with a ({self._n_blocks - n_par}, {n_par}) head: the "
-                    f"DecoderCache refuses that geometry, and its svd_recovery decode cannot be "
-                    f"captured in a CUDA graph")
+            for n_par in range(cfg.coded_parity,
+                               cfg.coded_parity + max(self.parity_topup, 0) + 1):
+                if not cacheable(self._n_blocks - n_par, n_par):
+                    raise NotImplementedError(
+                        f"fused blocks on CUDA with head_kernel_mode={self.head_kernel_mode!r} "
+                        f"and a ({self._n_blocks - n_par}, {n_par}) head: the DecoderCache "
+                        f"refuses that geometry, and its plain decode (torch.linalg.pinv) syncs "
+                        f"the host, which a CUDA graph cannot hold")
         if self._mesh is not None and len(set(self._mesh.devices)) > 1:
             raise NotImplementedError(
                 "fused blocks on CUDA with a head mesh over several cards: one CUDA graph "

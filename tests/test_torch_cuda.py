@@ -30,6 +30,7 @@ from repro_torch.kernels.lt_encode import (
     gaussian_encode_cuda,
     lt_encode_cuda,
 )
+from repro_torch.kernels.masked_pinv import masked_pinv_cuda
 from repro_torch.kernels.ssd_scan import ssd_chunk_cuda, ssd_combine_cuda
 
 # (r, m, b): the reference's coded_matvec sweep (tests/test_kernels.py), then
@@ -1339,34 +1340,210 @@ def test_cuda_graph_cache_leaves_keep_their_addresses(arch):
     assert ptrs(eng.cache) + [eng._last_tok.data_ptr()] == before
 
 
-@pytest.mark.gpu
-def test_cuda_macro_steps_refuse_what_a_graph_cannot_hold():
-    """On the card, fused blocks with a head whose decode is svd_recovery (a
-    geometry the DecoderCache refuses, or the 'svd' mode) raise when the
-    engine is built; scalar steps still serve them."""
+def _svd_graph_run(case, macro_steps, max_new=14):
+    """A float32 glm4-9b smoke engine on the card whose head decodes
+    through ``svd_recovery`` (the ``masked_pinv`` kernel): a (10, 6) head
+    under seeded masks of up to six erasures (alone, or on a head mesh of
+    sixteen logical devices on the card), the (14, 2) head in the 'svd'
+    mode under masks of up to two, or an (11, 5) head whose six persistent
+    stragglers raise it into (10, 6).  Returns the engine, its tokens and
+    the launches of ``masked_pinv`` and of the head kernels."""
     from repro_torch.configs import get_config
+    from repro_torch.core.adaptive import ParityController
+    from repro_torch.kernels.masked_pinv import masked_pinv_cuda
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.sharding import HeadMesh
+
+    dev = _cuda()
+    parity = {"head_10_6": 6, "mesh_10_6": 6, "svd_mode": 2, "topup_into_10_6": 5}[case]
+    cfg = get_config("glm4-9b", smoke=True).scaled(coded=True, coded_parity=parity,
+                                                   dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(3)
+    kw = {}
+    if case == "topup_into_10_6":
+        lat_rng = np.random.default_rng(4)
+
+        def latency_fn():
+            lat = 1e-3 * (1.0 + 0.1 * lat_rng.random(16))
+            lat[[1, 3, 5, 7, 9, 11]] = 0.5
+            return lat
+
+        kw = dict(latency_fn=latency_fn, parity_controller=ParityController(16, decay=0.5),
+                  parity_topup=1, topup_patience=2)
+    else:
+        def mask_fn():
+            m = np.ones(16)
+            m[rng.choice(16, rng.integers(0, parity + 1), replace=False)] = 0.0
+            return m
+
+        kw = dict(mask_fn=mask_fn, head_kernel_mode="svd" if case == "svd_mode" else None,
+                  mesh=HeadMesh((dev,) * 16) if case == "mesh_10_6" else None)
+    eng = ServeEngine(model, params, n_slots=4, s_max=48, device=dev, macro_steps=macro_steps,
+                      **kw)
+    prompts = np.random.default_rng(1)
+    reqs = [Request(uid=i, prompt=prompts.integers(0, cfg.vocab, 5 + 3 * i),
+                    max_new_tokens=max_new) for i in range(4)]
+    for r in reqs:
+        eng.submit(r)
+    wrappers = (masked_pinv_cuda, coded_matvec_decode_cuda, coded_matvec_cuda)
+    before = [w.launches for w in wrappers]
+    eng.run()
+    torch.cuda.synchronize()
+    launches = tuple(w.launches - b for w, b in zip(wrappers, before))
+    return eng, {r.uid: list(r.out_tokens) for r in reqs}, launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["head_10_6", "svd_mode", "topup_into_10_6", "mesh_10_6"])
+def test_cuda_macro_steps_refuse_what_a_graph_cannot_hold(case):
+    """On the card, fused blocks hold the heads whose decode is
+    ``svd_recovery`` (a geometry the DecoderCache refuses, now or after a
+    raise, or the 'svd' mode; alone or on a head mesh of one card): the
+    ``masked_pinv`` kernel builds the recovery matrix from the block's
+    masks in the graph.  Fused tokens equal scalar tokens; every head call
+    launches ``masked_pinv`` once (prefills + steps, and one eager warm-up
+    step a capture), a replay counting its graph's nodes.  Only a head mesh
+    over several cards still raises."""
+    ref, ref_toks, ref_launches = _svd_graph_run(case, 1)
+    eng, toks, launches = _svd_graph_run(case, 4)
+    assert toks == ref_toks
+    assert eng.parity_events == ref.parity_events
+    assert eng._steps == ref._steps and eng.macro_blocks > 0
+    assert eng.graph_replays == eng.macro_blocks and eng.graph_log
+    head_kernel = 1 if case == "mesh_10_6" else 0    # index of the head's kernel's count
+    svd_calls = [4 + ref._steps, 4 + eng._steps + len(eng.graph_log)]
+    for run, got in ((ref, ref_launches), (eng, launches)):
+        head_calls = got[1 + head_kernel] // (16 if case == "mesh_10_6" else 1)
+        if case == "topup_into_10_6":   # the (11, 5) head before the raise takes the cache
+            assert [e["n_parity"] for e in run.parity_events] == [6]
+            assert 0 < got[0] < head_calls
+        else:
+            assert got[0] == head_calls == svd_calls[run is eng]
+    for entry in eng.graph_log:
+        if entry["n_parity"] == 6 or case == "svd_mode":
+            assert entry["launches_per_replay"]["masked_pinv"] == entry["k"]
+    if torch.cuda.device_count() >= 2 and case == "head_10_6":
+        from repro_torch.serve import ServeEngine
+        from repro_torch.sharding import HeadMesh
+
+        dev = _cuda()
+        mesh = HeadMesh(tuple(torch.device("cuda", i % 2) for i in range(16)))
+        with pytest.raises(NotImplementedError, match="several cards"):
+            ServeEngine(eng.model, eng.params, device=dev, macro_steps=4, mesh=mesh)
+
+
+@pytest.mark.gpu
+def test_cuda_macro_steps_refuse_the_plain_pinv_in_a_graph():
+    """The plain head (``head_kernel_mode`` 'off') decodes a geometry the
+    DecoderCache refuses through ``torch.linalg.pinv``, which syncs the
+    host: fused blocks with it raise when the engine is built, now or after
+    the allowed raises, and scalar steps still serve it; the plain version
+    refuses a capture by name."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.models.registry import build_model
     from repro_torch.serve import ServeEngine
-    from repro_torch.sharding import HeadMesh
 
     dev = _cuda()
     cfg = get_config("glm4-9b", smoke=True).scaled(coded=True, coded_parity=6, dtype="float32")
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
-    with pytest.raises(NotImplementedError, match=r"\(10, 6\) head"):
-        ServeEngine(model, params, device=dev, macro_steps=4)
-    ServeEngine(model, params, device=dev, macro_steps=1)
-    cfg2 = cfg.scaled(coded_parity=2)
-    model2 = build_model(cfg2)
+    for mode in ("off", "interpret"):
+        with pytest.raises(NotImplementedError, match=r"\(10, 6\) head"):
+            ServeEngine(model, params, device=dev, macro_steps=4, head_kernel_mode=mode)
+    ServeEngine(model, params, device=dev, macro_steps=1, head_kernel_mode="off")
+    ServeEngine(model, params, device=dev, macro_steps=4, head_kernel_mode="cuda")
+    model2 = build_model(cfg.scaled(coded_parity=2))
     params2 = model2.init(torch.Generator(device=dev).manual_seed(0), dev)
-    with pytest.raises(NotImplementedError, match="svd"):
-        ServeEngine(model2, params2, device=dev, macro_steps=4, head_kernel_mode="svd")
+    ServeEngine(model2, params2, device=dev, macro_steps=4, head_kernel_mode="off")
     with pytest.raises(NotImplementedError, match=r"\(10, 6\) head"):
-        ServeEngine(model2, params2, device=dev, macro_steps=4, parity_topup=4)
-    if torch.cuda.device_count() >= 2:
-        mesh = HeadMesh(tuple(torch.device("cuda", i % 2) for i in range(16)))
-        with pytest.raises(NotImplementedError, match="several cards"):
-            ServeEngine(model2, params2, device=dev, macro_steps=4, mesh=mesh)
+        ServeEngine(model2, params2, device=dev, macro_steps=4, head_kernel_mode="off",
+                    parity_topup=4)
+    mask, gen = torch.ones(16, device=dev), torch.ones(16, 10, dtype=torch.float64, device=dev)
+    with pytest.raises(NotImplementedError, match="captured"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=torch.cuda.Stream(dev)):
+            ops.masked_pinv(mask, gen, mode="off")
+
+
+def _erasure_masks(nb, n_parity, extra=32):
+    """Every mask of at most n_parity erasures, then ``extra`` seeded masks
+    of one erasure more."""
+    import itertools
+
+    rows = []
+    for e in range(n_parity + 1):
+        for erased in itertools.combinations(range(nb), e):
+            m = np.ones(nb, np.float32)
+            m[list(erased)] = 0.0
+            rows.append(m)
+    rng = np.random.default_rng(nb + n_parity)
+    for _ in range(extra):
+        m = np.ones(nb, np.float32)
+        m[rng.choice(nb, n_parity + 1, replace=False)] = 0.0
+        rows.append(m)
+    return np.stack(rows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_data,n_parity", [(10, 6), (14, 2)])
+def test_cuda_masked_pinv_matches_plain_version_over_every_pattern(n_data, n_parity):
+    """``masked_pinv`` on every pattern of at most n_parity erasures (14,893
+    at (10, 6)) and on masks of one more, in one launch, against its plain
+    version (``torch.linalg.pinv`` in float64), each mask within 1e-6 of
+    its own max|rec|;
+    erased columns exactly 0; a second call bit-identical, and a single
+    mask's call the batch's row bit for bit; one launch counted a call;
+    every mask converged inside the sweep cap."""
+    from repro_torch.core.coded_ops import _generator64, svd_recovery
+    from repro_torch.kernels.masked_pinv import MAX_SWEEPS, masked_pinv_cuda
+    from repro_torch.kernels.ref import ref_masked_pinv
+
+    dev = _cuda()
+    nb = n_data + n_parity
+    masks = torch.as_tensor(_erasure_masks(nb, n_parity), device=dev)
+    gen = _generator64(nb, n_data, dev)
+    sweeps = torch.zeros(len(masks), dtype=torch.int32, device=dev)
+    before = masked_pinv_cuda.launches
+    got = masked_pinv_cuda(masks, gen, sweeps)
+    again = masked_pinv_cuda(masks, gen)
+    torch.cuda.synchronize()
+    assert masked_pinv_cuda.launches == before + 2
+    want = ref_masked_pinv(masks, gen)
+    err = (got - want).abs().amax((1, 2))
+    assert bool((err <= 1e-6 * want.abs().amax((1, 2))).all())
+    assert torch.equal(got, again)
+    assert not got[(masks == 0)[:, None, :].expand_as(got)].any()
+    assert 1 <= int(sweeps.min()) and int(sweeps.max()) < MAX_SWEEPS
+    for i in (0, len(masks) // 3, len(masks) - 1):
+        assert torch.equal(masked_pinv_cuda(masks[i].contiguous(), gen), got[i])
+        assert torch.equal(svd_recovery(masks[i].contiguous(), n_data, n_parity), got[i])
+
+
+@pytest.mark.gpu
+def test_cuda_masked_pinv_in_a_graph_reads_its_mask_buffer():
+    """Captured in a CUDA graph, ``svd_recovery`` reads the mask from the
+    device at each replay (no host copy in the graph) and gives the eager
+    call's bits; its kernel node is counted from the graph."""
+    from repro_torch.core.coded_ops import svd_recovery
+    from repro_torch.kernels import graph_kernel_nodes
+
+    dev = _cuda()
+    masks = torch.as_tensor(_erasure_masks(16, 6, extra=0)[::1500], device=dev)
+    buf = masks[0].clone()
+    svd_recovery(buf, 10, 6)   # eager first: the generator's upload
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev)):
+        out = svd_recovery(buf, 10, 6)
+    assert graph_kernel_nodes(graph)["masked_pinv"] == 1
+    graph.instantiate()
+    for m in masks:
+        buf.copy_(m)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, svd_recovery(m.contiguous(), 10, 6))
 
 
 # ---- the training path ------------------------------------------------------------
@@ -1386,6 +1563,7 @@ def _wrapper_calls(dev):
         (coded_matvec_decode_cuda, (rnd(24, 16), rnd(16, 2), rec)),
         (gaussian_encode_cuda, (rnd(5, 3), rnd(3, 40))),
         (lt_encode_cuda, (rnd(3, 40), idx, torch.ones(2, 2, device=dev))),
+        (masked_pinv_cuda, (torch.ones(6, device=dev), rnd(6, 4).double())),
         (ssd_chunk_cuda, cells),
         (ssd_combine_cuda, (cells[3], torch.cumsum(cells[1], 1), rnd(3, 8, 4))),
     ]

@@ -350,7 +350,7 @@ def test_kernel_wrappers_refuse_grad_requiring_inputs():
     for name, wrapper in kernel_wrappers().items():
         args = [x, torch.ones(4, 4), torch.ones(4, 4), torch.ones(4, 4)]
         n_args = {"coded_matvec": 2, "coded_matvec_decode": 3, "gaussian_encode": 2,
-                  "lt_encode": 3, "ssd_chunk": 4, "ssd_combine": 3}[name]
+                  "lt_encode": 3, "masked_pinv": 2, "ssd_chunk": 4, "ssd_combine": 3}[name]
         with pytest.raises(RuntimeError, match=wrapper.__name__):
             wrapper(*args[:n_args])
         with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
