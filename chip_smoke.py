@@ -53,23 +53,29 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    the bound;
 3. task, LT: the paper's coded task form (§5.1 scenario 1: r = 5,000, five
    EC2 workers, m = 500,000) through ``ClusterEmulator.run_task`` — Algorithm
-   1, LT encode with the reserve rows encoded on the card by ``lt_encode``,
-   adaptive top-ups under churn (worker 0 dies, worker 1 slows 5x), the
-   streaming peeling decode — held to A·x in float64; then a pair of runs at
-   a narrower m (50,000, printed as a cut), one with the device encode and
-   one with the host encode, on the same seed: the same trajectory, and the
-   host encode's y held to A·x; then ``lt_encode`` against its plain
-   version, bit for bit, at the full run's shapes and at ragged ones: at the
-   task's shape the kernel alone on the CSR that ``torch.sparse.mm`` also
-   gets (``kernel_ms``, in turns with it), the call as ``run_task`` makes it
-   (``ms``) and its compaction (``compaction_ms``).  The reserve is encoded
-   with ``TaskSpec``'s default ``encode_mode`` ('device': the card).  m is
-   cut only if host memory is short, and the cut is printed; the seconds of
-   the inputs, the full run and the pair are printed;
-4. task, Gaussian: the same at r = 500 (scenario 2's r/20, ten workers),
-   m = 200,000, ``code="gaussian"``, the reserve encoded by
-   ``gaussian_encode`` (printed as a cut: the host's dense static encode
-   sets the size), its trajectory pair at m = 20,000;
+   1, all of Â (the static rows and the reserve) LT-encoded on the card in
+   one ``lt_encode`` launch by ``TaskSpec``'s default ``encode_mode``
+   ('device': the card), adaptive top-ups under churn (worker 0 dies,
+   worker 1 slows 5x), the streaming peeling decode — held to A·x in
+   float64, with the seconds of the encode's copy in, kernel and copy out;
+   then a pair of runs at a narrower m (50,000, printed as a cut), one with
+   the device encode and one with the host encode, on the same seed: the
+   same trajectory and ``t_complete``, and the host encode's y held to A·x;
+   then ``lt_encode`` against its plain version, bit for bit, at the full
+   run's shapes (the whole plan, and its reserve slice) and at ragged ones:
+   at the task's shapes the kernel alone on the CSR that ``torch.sparse.mm``
+   also gets (``kernel_ms``, in turns with it), the call as ``run_task``
+   makes it (``ms``) and its compaction (``compaction_ms``).  m is cut only
+   if host memory is short, and the cut is printed; the seconds of the
+   inputs, the full run and the pair are printed;
+4. task, Gaussian: the same at r = 500 (scenario 2's r/20, ten workers,
+   printed as a cut) and the paper's m = 500,000, ``code="gaussian"``, all
+   of Â encoded by one ``gaussian_encode``, its trajectory pair at m =
+   20,000; then the paper's EC2 experiments 1 and 2 (Figs 8, 10) through
+   the port's entry point ``examples/ec2_repro_torch.py`` at r/40 and two
+   trials a cell, the master's encode on the card: every task decodes, one
+   ``lt_encode`` launch a coded task (its tables printed), within a budget
+   of 60 s;
 5. head and serve: glm4-9b's coded head at full width under 0 and 2
    erasures; glm4-9b at full width and depth (seeded init on the card),
    4 slots, 6 requests of 16 prompt tokens and 8 new tokens, 3 persistent
@@ -254,7 +260,6 @@ FP64_FLOPS = 67e12           # H100 SXM float64 on the tensor cores (DMMA; data 
 SPLIT_PRODUCTS = 6           # the wide head engine's bf16 products an fp32 one (wide_rows.cuh)
 WIDE_ERR_VS_MATMUL = 2.0     # its error against float64, at most this times fp32 torch.matmul's
 PAPER_M = 500_000            # the paper's width of A (benchmarks/paper_ec2.py)
-GAUSSIAN_TASK_M = 200_000    # the Gaussian task's cut width (phase_task_gaussian)
 TASK_TIME_SCALE = 10.0       # wall seconds per model second of the paced task runs
 # the task forms' trajectory pair (device encode against host encode) runs at
 # a tenth of the full width: the host's encode scales with m, and the task
@@ -262,8 +267,9 @@ TASK_TIME_SCALE = 10.0       # wall seconds per model second of the paced task r
 LT_PAIR_M = 50_000
 GAUSSIAN_PAIR_M = 20_000
 PAIR_REASON = ("the host encode's run exists only for the trajectory check (device vs host "
-               "encode, one seed), whose outcome does not depend on m; at the full width it "
-               "took about 150-250 s of the smoke's 1,200 s limit")
+               "encode, one seed), whose outcome does not depend on m; at the full width the "
+               "host's numpy encode of all of A-hat alone takes minutes of the smoke's 1,200 s "
+               "limit")
 
 
 def emit(obj: dict) -> None:
@@ -1288,7 +1294,9 @@ def _churn(r: int):
 def _run_task(torch, a, x, y_ref, workers, code: str, encode_mode,
               seed: int) -> tuple[dict, object, object]:
     """One ``run_task`` of the adaptive task form, its launches counted around
-    it; returns (row, result, emulator)."""
+    it; with a device encode the row holds what was encoded (all of Â: its
+    static and reserve rows) and the seconds of the copy in, the encode and
+    the copy out; returns (row, result, emulator)."""
     from repro_torch.cluster import ClusterEmulator, TaskSpec
     from repro_torch.core.adaptive import ReallocationPolicy
 
@@ -1311,23 +1319,24 @@ def _run_task(torch, a, x, y_ref, workers, code: str, encode_mode,
            "device_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     enc = em.last_encode
     if enc is not None:
-        row["encode"] = {k: enc[k] for k in ("kind", "rows", "nonzeros", "h2d_s",
-                                             "encode_s", "d2h_s", "static_host_s")}
+        row["encode"] = {k: enc[k] for k in ("kind", "rows", "static_rows", "reserve_rows",
+                                             "nonzeros", "h2d_s", "encode_s", "d2h_s")}
     return row, res, em
 
 
 def _same_trajectory(dev_res, host_res) -> bool:
     return (dev_res.arrivals == host_res.arrivals
             and dev_res.reallocations == host_res.reallocations
-            and dev_res.rows_assigned == host_res.rows_assigned)
+            and dev_res.rows_assigned == host_res.rows_assigned
+            and dev_res.t_complete == host_res.t_complete)
 
 
 def _trajectory_pair(torch, r: int, m: int, workers, code: str, seed: int,
                      x_seed: int) -> dict:
     """The task run twice at a narrower width m, with the device encode and
     with the host encode, on one seed: the trajectory (arrivals,
-    reallocations, rows assigned) must not depend on where the reserve rows
-    are encoded, and the host encode's y is held to A·x as the device's."""
+    reallocations, rows assigned, t_complete) must not depend on where Â is
+    encoded, and the host encode's y is held to A·x as the device's."""
     t0 = time.perf_counter()
     a, x, y_ref = _task_inputs(torch, r, m, x_seed)
     inputs_s = time.perf_counter() - t0
@@ -1347,19 +1356,19 @@ def _trajectory_pair(torch, r: int, m: int, workers, code: str, seed: int,
 
 
 def phase_task_lt(torch, args, results: dict, smi: str) -> None:
-    """The paper's task form at scenario 1 through the port's run_task, the
-    reserve rows LT-encoded on the card by TaskSpec's default encode_mode;
-    the host encode's run beside a device run at a narrower m (the
-    trajectory check); then lt_encode at the full run's shapes."""
+    """The paper's task form at scenario 1 through the port's run_task, all of
+    Â (static rows and reserve) LT-encoded on the card in one launch by
+    TaskSpec's default encode_mode; the host encode's run beside a device run
+    at a narrower m (the trajectory check); then lt_encode at the full run's
+    shapes."""
     from repro_torch.cluster import ec2_scenario
 
     r, workers = ec2_scenario(1)
     m, cut = PAPER_M, None
     # host bytes per A byte, the process's peak on this path: A, the coded
     # rows (capacity ~1.75 r) held once by the master and once spread over
-    # the workers, the static encode's buffer, and room for the reference
-    # copy of y and the encode's pieces
-    need_per_col = 6.0 * r * 4 / 1e9
+    # the workers, and room for the reference copy of y and the pair's inputs
+    need_per_col = 5.0 * r * 4 / 1e9
     avail = _mem_available_gb()
     if need_per_col * m > 0.9 * avail:
         cut = {"m": int(0.9 * avail / need_per_col), "of_m": m,
@@ -1375,13 +1384,14 @@ def phase_task_lt(torch, args, results: dict, smi: str) -> None:
     dev_row, dev_res, em = _run_task(torch, a, x, y_ref, workers, "lt", "device",
                                      args.seed)
     enc = em.last_encode
-    check(enc is not None, "no device encode ran: the top-ups drew no reserve rows")
-    plan = enc["plan"]
-    static_total = dev_row["rows_assigned"] - enc["rows"]
+    check(enc is not None, "no device encode ran")
+    plan, static_rows = enc["plan"], enc["static_rows"]
     del em
     check(dev_res.ok, "LT task (device encode) did not decode")
     check(dev_row["max_rel_err"] <= 2e-3, f"LT task rel err {dev_row['max_rel_err']} > 2e-3")
-    check(dev_row["rows_assigned"] > static_total, "top-ups drew no reserve rows")
+    check(enc["rows"] == dev_row["rows_assigned"],
+          f"the encode made {enc['rows']} rows of {dev_row['rows_assigned']} assigned")
+    check(enc["reserve_rows"] > 0, "top-ups drew no reserve rows")
     check(dev_row["launches"]["lt_encode"] == 1, f"lt_encode launches {dev_row['launches']}")
     del dev_res
     gc.collect()
@@ -1389,7 +1399,8 @@ def phase_task_lt(torch, args, results: dict, smi: str) -> None:
     pair = _trajectory_pair(torch, r, LT_PAIR_M, workers, "lt", args.seed, args.seed)
     row = {"phase": "task", "code": "lt", "scenario": 1, "r": r, "m": m,
            "cut": cut, "pair_cut": pair_cut, "workers": [w.name for w in workers],
-           "time_scale": TASK_TIME_SCALE, "inputs_s": inputs_s, "static_rows": static_total,
+           "time_scale": TASK_TIME_SCALE, "inputs_s": inputs_s,
+           "static_rows": static_rows, "reserve_rows": enc["reserve_rows"],
            "device_encode": dev_row, "pair": pair,
            "same_trajectory": pair["same_trajectory"],
            "seconds": {"inputs": inputs_s, "device_run": dev_row["run_task_wall_s"],
@@ -1398,105 +1409,121 @@ def phase_task_lt(torch, args, results: dict, smi: str) -> None:
     emit(row)
     results["task_lt"] = row
 
-    kernel_lt_encode(torch, a, plan, results)
-    del a, x, y_ref, plan
+    kernel_lt_encode(torch, a, plan, static_rows, results)
+    del a, x, y_ref, plan, enc
     gc.collect()
     torch.cuda.empty_cache()
 
 
-def kernel_lt_encode(torch, a_host, plan, results: dict) -> None:
-    """lt_encode on the card against ref_lt_encode, bit for bit: the task
-    phase's own call (A [r, m], its reserve slice of the plan) in full, and
-    ragged shapes.  At the task's shape the kernel alone, on the CSR that
-    torch.sparse.mm also gets, is timed in turns with it; the call as
-    run_task makes it (compaction and kernel) and the compaction alone
-    beside them."""
-    from repro_torch.core.encoding import LTCode
+def lt_check(torch, a, idx: np.ndarray, cof: np.ndarray, label: str, results: dict,
+             timed: bool) -> dict:
+    """lt_encode on A (on the card) and the table (idx, cof) against
+    ref_lt_encode, bit for bit.  With ``timed`` (a task's shape), also the
+    kernel alone, on the CSR that torch.sparse.mm also gets, in turns with
+    it; the call as run_task makes it (compaction and kernel), the
+    compaction alone and the plain version beside them; the bound; the row
+    is kept in ``results['lt_encode'][label]``.  Each output is freed before
+    the next (a task's Â is up to 17.5 GB)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.lt_encode import _lt_csr, _lt_launch, lt_encode_cuda
 
     dev = torch.device("cuda")
+    i_t = torch.as_tensor(np.ascontiguousarray(idx), device=dev)
+    c_t = torch.as_tensor(np.ascontiguousarray(cof), device=dev)
+    got = lt_encode_cuda(a, i_t, c_t)
+    want = ref.ref_lt_encode(a, i_t, c_t)
+    torch.cuda.synchronize()
+    err, _ = max_err(torch, got, want)
+    del got, want
+    (r, m), (q, d_max) = a.shape, idx.shape
+    nnz = int(np.count_nonzero(cof))
+    row = {"phase": "kernel", "kernel": "lt_encode", "shape": label,
+           "a": [r, m], "q": q, "d_max": d_max, "nonzeros": nnz,
+           "max_degree": int((cof != 0).sum(1).max()),
+           "max_abs_err": err, "tol": 0.0}  # the plain version's bits
+    if timed:
+        csr = _lt_csr(i_t, c_t, r)
+        sparse = torch.sparse_csr_tensor(csr.row_ptr, csr.cols.long(), csr.vals,
+                                         size=(q, r), check_invariants=False)
+        row["kernel_ms"], row["library_ms"], row["turns_ms"] = time_turns(
+            torch, lambda: _lt_launch(a, csr), lambda: torch.sparse.mm(sparse, a), 3,
+            warmup=1)
+        row["library_call"] = "torch.sparse.mm(CSR generator [q, r], A), the same CSR"
+        row["ms"] = time_ms(torch, lambda: lt_encode_cuda(a, i_t, c_t), 3, warmup=1)
+        row["compaction_ms"] = time_ms(torch, lambda: _lt_csr(i_t, c_t, r), 3, warmup=1)
+        row["compaction_share"] = row["compaction_ms"] / row["ms"]
+        row["plain_ms"] = time_ms(torch, lambda: ref.ref_lt_encode(a, i_t, c_t), 2, warmup=1)
+        # each input read once: the rows of A the table references, the
+        # padded table; the output written once
+        used_rows = int(torch.unique(csr.cols).numel())
+        n_bytes = 4 * used_rows * m + 8 * q * d_max + 4 * q * m
+        row["bound_ms"], row["bound_by"] = bound(n_bytes, 2 * nnz * m)
+        row["a_rows_used"] = used_rows
+        row["heavy_rows"] = csr.n_heavy
+        # the same, had every nonzero entry to stream its row of A anew
+        row["bound_no_reuse_ms"] = bound(n_bytes + 4 * (nnz - used_rows) * m, 0)[0]
+        against_library(row, "kernel_ms")
+        results.setdefault("lt_encode", {})[label] = row
+        del csr, sparse
+    emit(row)
+    check(err == 0.0, f"lt_encode {label}: {err} != 0 (the plain version's bits)")
+    del i_t, c_t
+    torch.cuda.empty_cache()
+    return row
+
+
+def kernel_lt_encode(torch, a_host, plan, static_rows: int, results: dict) -> None:
+    """lt_encode on the card against ref_lt_encode, bit for bit: the task
+    phase's own call (A [r, m], the whole plan: all of Â) and its reserve
+    slice (the autotuner's LT cell and ``--sweep-lt``'s shape), each timed,
+    and ragged shapes."""
+    from repro_torch.core.encoding import LTCode
+    from repro_torch.kernels.lt_encode import lt_encode_cuda
+
+    dev = torch.device("cuda")
+    a = torch.as_tensor(a_host, device=dev)
+    lt_check(torch, a, plan.indices, plan.coeffs, "task", results, True)
+    lt_check(torch, a, plan.indices[static_rows:], plan.coeffs[static_rows:],
+             "task reserve slice", results, True)
+    del a
+    torch.cuda.empty_cache()
     gen = np.random.default_rng(7)
-    shapes = [("task reserve slice", torch.as_tensor(a_host, device=dev),
-               plan.indices, plan.coeffs)]
     # ragged: M % 4 != 0 (scalar loads); zeros mid-row with non-unit
     # coefficients and a degree-0 row; q = 1 with d_max = 1; rows of degree
     # over 64 (heavy units) across many 128-column spans
     lt = LTCode(300, seed=3).plan(420)
-    shapes.append(("ragged M % 4 != 0", torch.randn(300, 4097, device=dev),
-                   lt.indices[300:], lt.coeffs[300:]))
+    lt_check(torch, torch.randn(300, 4097, device=dev), lt.indices[300:], lt.coeffs[300:],
+             "ragged M % 4 != 0", results, False)
     idx = gen.integers(0, 200, (70, 9)).astype(np.int32)
     cof = gen.standard_normal((70, 9)).astype(np.float32)
     cof[gen.random((70, 9)) < 0.4] = 0.0
     cof[5] = 0.0
-    shapes.append(("ragged zeros mid-row", torch.randn(200, 1030, device=dev), idx, cof))
-    shapes.append(("ragged q = 1, d_max = 1", torch.randn(3, 4100, device=dev),
-                   np.array([[2]], np.int32), np.array([[0.5]], np.float32)))
+    lt_check(torch, torch.randn(200, 1030, device=dev), idx, cof, "ragged zeros mid-row",
+             results, False)
+    lt_check(torch, torch.randn(3, 4100, device=dev), np.array([[2]], np.int32),
+             np.array([[0.5]], np.float32), "ragged q = 1, d_max = 1", results, False)
     idx = gen.integers(0, 500, (90, 200)).astype(np.int32)
     cof = gen.standard_normal((90, 200)).astype(np.float32)
     cof[gen.random((90, 200)) < 0.6] = 0.0
-    shapes.append(("ragged heavy rows", torch.randn(500, 50_001, device=dev), idx, cof))
-    for label, a, idx, cof in shapes:
-        i_t = torch.as_tensor(idx, device=dev)
-        c_t = torch.as_tensor(cof, device=dev)
-        got = lt_encode_cuda(a, i_t, c_t)
-        want = ref.ref_lt_encode(a, i_t, c_t)
-        torch.cuda.synchronize()
-        err, _ = max_err(torch, got, want)
-        nnz = int(np.count_nonzero(cof))
-        q, d_max = idx.shape
-        row = {"phase": "kernel", "kernel": "lt_encode", "shape": label,
-               "a": list(a.shape), "q": q, "d_max": d_max, "nonzeros": nnz,
-               "max_degree": int((cof != 0).sum(1).max()),
-               "max_abs_err": err, "tol": 0.0}  # the plain version's bits
-        del got, want
-        if label.startswith("task"):
-            r, m = a.shape
-            csr = _lt_csr(i_t, c_t, r)
-            sparse = torch.sparse_csr_tensor(csr.row_ptr, csr.cols.long(), csr.vals,
-                                             size=(q, r), check_invariants=False)
-            row["kernel_ms"], row["library_ms"], row["turns_ms"] = time_turns(
-                torch, lambda: _lt_launch(a, csr), lambda: torch.sparse.mm(sparse, a), 3,
-                warmup=1)
-            row["library_call"] = "torch.sparse.mm(CSR generator [q, r], A), the same CSR"
-            row["ms"] = time_ms(torch, lambda: lt_encode_cuda(a, i_t, c_t), 3, warmup=1)
-            row["compaction_ms"] = time_ms(torch, lambda: _lt_csr(i_t, c_t, r), 3, warmup=1)
-            row["compaction_share"] = row["compaction_ms"] / row["ms"]
-            row["plain_ms"] = time_ms(torch, lambda: ref.ref_lt_encode(a, i_t, c_t), 2, warmup=1)
-            # each input read once: the rows of A the table references, the
-            # padded table; the output written once
-            used_rows = int(torch.unique(csr.cols).numel())
-            n_bytes = 4 * used_rows * m + 8 * q * d_max + 4 * q * m
-            row["bound_ms"], row["bound_by"] = bound(n_bytes, 2 * nnz * m)
-            row["a_rows_used"] = used_rows
-            row["heavy_rows"] = csr.n_heavy
-            # the same, had every nonzero entry to stream its row of A anew
-            row["bound_no_reuse_ms"] = bound(n_bytes + 4 * (nnz - used_rows) * m, 0)[0]
-            against_library(row, "kernel_ms")
-            results.setdefault("lt_encode", {})["task"] = row
-            del csr, sparse
-        emit(row)
-        check(err == 0.0, f"lt_encode {label}: {err} != 0 (the plain version's bits)")
-        del a, i_t, c_t
-        torch.cuda.empty_cache()
+    lt_check(torch, torch.randn(500, 50_001, device=dev), idx, cof, "ragged heavy rows",
+             results, False)
     lt_encode_cuda.launches = 0  # comparison launches are not the path's
 
 
 def phase_task_gaussian(torch, args, results: dict, smi: str) -> None:
-    """The task form with the Gaussian code at a stated cut, the reserve rows
-    encoded by gaussian_encode on the card; the host encode's run beside a
-    device run at a narrower m; then gaussian_encode at the full run's
-    shape."""
+    """The task form with the Gaussian code at r = 500 (printed as a cut) and
+    the paper's m, all of Â encoded by one gaussian_encode on the card; the
+    host encode's run beside a device run at a narrower m; then
+    gaussian_encode at the full run's shapes (the whole plan and its reserve
+    slice)."""
     from repro_torch.cluster import ec2_scenario
     from repro_torch.kernels.lt_encode import gaussian_encode_cuda
 
     r_full, workers = ec2_scenario(2)
-    r, m = r_full // 20, GAUSSIAN_TASK_M
-    cut = {"r": r, "of_r": r_full, "m": m, "of_m": PAPER_M,
-           "reason": "the host's static dense encode (numpy gather and einsum, "
-                     "static rows x r x m multiply-adds): r/20 as "
-                     "benchmarks/paper_ec2.py, and m as wide as keeps the phase "
-                     "within its share of the time limit"}
+    r, m = r_full // 20, PAPER_M
+    cut = {"r": r, "of_r": r_full,
+           "reason": "r/20 as benchmarks/paper_ec2.py: the master's float64 least-squares "
+                     "decode and the dense generator grow as r^2 to r^3 on the host"}
     emit({"phase": "cut", "task": "gaussian", **cut})
     pair_cut = {"same_trajectory_m": GAUSSIAN_PAIR_M, "of_m": m, "reason": PAIR_REASON}
     emit({"phase": "cut", "task": "gaussian", **pair_cut})
@@ -1506,9 +1533,11 @@ def phase_task_gaussian(torch, args, results: dict, smi: str) -> None:
     dev_row, dev_res, em = _run_task(torch, a, x, y_ref, workers, "gaussian", "device",
                                      args.seed)
     enc = em.last_encode
-    check(enc is not None, "no device encode ran: the top-ups drew no reserve rows")
+    check(enc is not None, "no device encode ran")
     check(dev_res.ok and dev_row["max_rel_err"] <= 2e-3,
           f"Gaussian task rel err {dev_row['max_rel_err']}")
+    check(enc["rows"] == dev_row["rows_assigned"],
+          f"the encode made {enc['rows']} rows of {dev_row['rows_assigned']} assigned")
     check(dev_row["launches"]["gaussian_encode"] == 1,
           f"gaussian_encode launches {dev_row['launches']}")
     del dev_res
@@ -1517,7 +1546,8 @@ def phase_task_gaussian(torch, args, results: dict, smi: str) -> None:
                             args.seed + 1)
     row = {"phase": "task", "code": "gaussian", "scenario": 2, "r": r, "m": m,
            "cut": cut, "pair_cut": pair_cut, "workers": [w.name for w in workers],
-           "time_scale": TASK_TIME_SCALE,
+           "time_scale": TASK_TIME_SCALE, "inputs_s": inputs_s,
+           "static_rows": enc["static_rows"], "reserve_rows": enc["reserve_rows"],
            "device_encode": dev_row, "pair": pair,
            "same_trajectory": pair["same_trajectory"],
            "seconds": {"inputs": inputs_s, "device_run": dev_row["run_task_wall_s"],
@@ -1526,15 +1556,76 @@ def phase_task_gaussian(torch, args, results: dict, smi: str) -> None:
     emit(row)
     results["task_gaussian"] = row
 
-    # gaussian_encode at the task's shape: G [q, r] (the plan's reserve slice) x A
+    # gaussian_encode at the task's shapes: G [q, r] (the whole plan; its
+    # reserve slice) x A
     dev = torch.device("cuda")
-    g = torch.as_tensor(np.ascontiguousarray(enc["plan"].coeffs), device=dev)
     a_t = torch.as_tensor(a, device=dev)
-    results.setdefault("gaussian_encode", {})["task"] = gaussian_row(
-        torch, g, a_t, "task reserve slice", 20)
+    for label, g_host in (("task", enc["plan"].coeffs),
+                          ("task reserve slice", enc["plan"].coeffs[enc["static_rows"]:])):
+        g = torch.as_tensor(np.ascontiguousarray(g_host), device=dev)
+        results.setdefault("gaussian_encode", {})[label] = gaussian_row(
+            torch, g, a_t, label, 20)
+        del g
     gaussian_encode_cuda.launches = 0
-    del g, a_t
+    del a_t
     torch.cuda.empty_cache()
+
+
+EC2_ARGS = ["--scale", "40", "--trials", "2"]
+EC2_BUDGET_S = 60.0   # the EC2 example phase's share of the smoke's 1,200 s
+
+
+def phase_ec2_example(torch, args, results: dict, smi: str) -> None:
+    """The paper's EC2 experiments 1 and 2 (Figs 8, 10) through the port's
+    entry point ``examples/ec2_repro_torch.py`` at r/40, two trials a cell,
+    the master's encode on the card: every task decodes, each coded task
+    (hcmm, bpcc) launches lt_encode once and encodes every row it assigns,
+    an uncoded one none; then lt_encode at the last coded task's shape, held
+    to its plain version and timed.  The phase's seconds are held to a
+    budget."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from repro_torch.kernels.lt_encode import lt_encode_cuda
+
+    spec = importlib.util.spec_from_file_location(
+        "ec2_repro_torch", os.path.join(HERE, "examples", "ec2_repro_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    _reset_launches()
+    with contextlib.redirect_stdout(out):
+        records = example.main(EC2_ARGS)
+    launches = _launches()
+    run_s = time.perf_counter() - t0
+    coded = [rec for rec in records if rec["scheme"] in ("hcmm", "bpcc")]
+    plan = coded[-1]["encode"]["plan"]
+    a = torch.randn(*coded[-1]["a_shape"], device="cuda")
+    lt_check(torch, a, plan.indices, plan.coeffs, "ec2 example", results, True)
+    lt_encode_cuda.launches = 0
+    del a, plan
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    row = {"phase": "ec2 example", "args": EC2_ARGS, "tables": out.getvalue().splitlines(),
+           "tasks": len(records), "coded_tasks": len(coded),
+           "all_ok": all(rec["ok"] for rec in records), "launches": launches,
+           "encoded_rows": sum(rec["encode"]["rows"] for rec in coded),
+           "encode_s": {k: sum(rec["encode"][k] for rec in coded)
+                        for k in ("h2d_s", "encode_s", "d2h_s")},
+           "run_s": run_s, "seconds": seconds, "budget_s": EC2_BUDGET_S,
+           "within_budget": seconds <= EC2_BUDGET_S, "card": smi}
+    emit(row)
+    results["ec2 example"] = row
+    check(row["all_ok"], "ec2 example: a task did not decode")
+    check(launches["lt_encode"] == len(coded),
+          f"ec2 example: {launches['lt_encode']} lt_encode launches for {len(coded)} coded tasks")
+    check(all(rec["encode"]["rows"] == rec["rows_assigned"] for rec in coded),
+          "ec2 example: a coded task's encode did not make every row it assigned")
+    check(all(rec["encode"] is None for rec in records if rec["scheme"] not in ("hcmm", "bpcc")),
+          "ec2 example: an uncoded task ran an encode")
+    check(row["within_budget"], f"ec2 example: {seconds} s over its {EC2_BUDGET_S} s")
 
 
 def phase_head(torch, params, cfg, gen) -> None:
@@ -3969,22 +4060,13 @@ def sweep_lt(torch, args, smi: str) -> None:
     bits; one JSON line.  The table is the task's own (scenario 1, this
     seed): the task runs in model time, so its trajectory does not depend
     on m and a run at m = 8 on the CPU gives it."""
-    from repro_torch.cluster import ClusterEmulator, TaskSpec, ec2_scenario
-    from repro_torch.core.adaptive import ReallocationPolicy
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import autotune, ref
     from repro_torch.kernels.lt_encode import _lt_csr
 
     t0 = time.perf_counter()
     variants = _lt_variants(sorted({(quads, rows) for quads, rows, _ in LT_SWEEP}))
     build_s = time.perf_counter() - t0
-    r, workers = ec2_scenario(1)
-    rng = np.random.default_rng(args.seed)
-    em = ClusterEmulator(workers, time_scale=1e-3, seed=args.seed, device="cpu")
-    em.run_task(rng.standard_normal((r, 8)).astype(np.float32),
-                rng.standard_normal(8).astype(np.float32),
-                TaskSpec(scheme="bpcc", code="lt", adaptive=ReallocationPolicy(),
-                         churn=_churn(r), encode_mode="device"))
-    plan = em.last_encode["plan"]
+    r, plan = autotune.lt_task_table(args.seed)
     dev = torch.device("cuda")
     a = torch.randn(r, PAPER_M, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(args.seed))
@@ -4643,8 +4725,8 @@ def main() -> int:
     if args.sweep_lt:
         kernel_gaussian(torch, gen, results)
         gaussian_row(torch, torch.randn(26, 500, device="cuda", generator=gen),
-                     torch.randn(500, GAUSSIAN_TASK_M, device="cuda", generator=gen),
-                     "task shape, random G", 20)
+                     torch.randn(500, PAPER_M, device="cuda", generator=gen),
+                     "task reserve slice shape, random G", 20)
         sweep_lt(torch, args, smi)
         return 0
     if args.sweep_ssd:
@@ -4679,6 +4761,7 @@ def main() -> int:
     timed("kernels", phase_kernels, torch, gen, results)
     timed("task lt", phase_task_lt, torch, args, results, smi)
     timed("task gaussian", phase_task_gaussian, torch, args, results, smi)
+    timed("ec2 example", phase_ec2_example, torch, args, results, smi)
     serve = timed("serve glm4-9b", phase_serve, torch, args, results, smi)
     mesh = _head_mesh(torch)
     timed("mesh head", phase_mesh_head, torch, serve, mesh,
@@ -4716,6 +4799,9 @@ def main() -> int:
         ("gaussian_encode", "src/repro_torch/kernels/csrc/gaussian_encode.cu",
          "src/repro/kernels/lt_encode.py:107", "task gaussian", results["task_gaussian"],
          "task"),
+        ("lt_encode", "src/repro_torch/kernels/csrc/lt_encode.cu",
+         "src/repro/kernels/lt_encode.py:61", "ec2 example", results["ec2 example"],
+         "ec2 example"),
         ("coded_matvec", "src/repro_torch/kernels/csrc/coded_matvec.cu",
          "src/repro/kernels/coded_matvec.py:47", "mesh head", results["mesh_head"],
          "glm4-9b block decode"),
@@ -4769,7 +4855,7 @@ def main() -> int:
               ("gaussian_encode", "src/repro_torch/kernels/csrc/gaussian_encode.cu",
                "src/repro/kernels/lt_encode.py:107", "glm4-9b raise"),
               ("lt_encode", "src/repro_torch/kernels/csrc/lt_encode.cu",
-               "src/repro/kernels/lt_encode.py:61", "task"))),
+               "src/repro/kernels/lt_encode.py:61", "task reserve slice"))),
         *((name, src, replaces, f"{arch} macro serve (graphs)",
            {"launches": results[f"macro {arch}"]["launches"][1]}, shape)
           for arch in ("mamba2-130m", "zamba2-1.2b")

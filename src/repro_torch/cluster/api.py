@@ -13,9 +13,10 @@ shim (``res["t_complete"]``, ``dict(res)``).
 Copied from ``repro.cluster.api``, imports pointed at ``repro_torch``:
 the port never imports ``repro``, whose package import pulls in jax.  The
 one change is ``encode_mode``: it adds 'cuda' and 'device', defaults to
-'device' (the reserve slice encoded on the emulator's device, so on the card
-unless the CPU is named) and keeps None as the explicit host encode; 'auto'
-is the per-shape dispatch of ``repro_torch.kernels.dispatch``.
+'device' (all of Â, static rows and reserve, encoded on the emulator's
+device, so on the card unless the CPU is named; the reference's device modes
+encode only the reserve slice there) and keeps None as the explicit host
+encode; 'auto' is the per-shape dispatch of ``repro_torch.kernels.dispatch``.
 """
 from __future__ import annotations
 
@@ -54,10 +55,11 @@ class TaskSpec:
                   False keeps the one-shot terminal decode.
     adaptive    — ReallocationPolicy for epoch-boundary top-ups (§8).
     churn       — ChurnSchedule of mid-task disturbances (§8).
-    encode_mode — encode of the reserve slice (§9): 'device' (default:
-                  on the emulator's device, the hand-written kernels on the
-                  card and their plain versions on a named CPU) | None (host
-                  numpy, as the static rows) | 'off' (the plain PyTorch
+    encode_mode — encode of the coded rows Â, static and reserve (§9):
+                  'device' (default: all of Â in one encode on the
+                  emulator's device, the hand-written kernels on the card
+                  and their plain versions on a named CPU) | None (host
+                  numpy, the reference's default) | 'off' (the plain PyTorch
                   versions) | 'cuda' (the kernels; raises off the card) —
                   'interpret' means 'off' and 'compile' means 'cuda';
                   'auto' (per-shape dispatch: the kernel on the card,

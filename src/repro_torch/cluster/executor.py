@@ -53,11 +53,17 @@ Copied from ``repro.cluster.executor``, imports pointed at ``repro_torch``:
 the port never imports ``repro``, whose package import pulls in jax.  With
 ``encode_mode=None`` a task never touches torch, and the tests hold its
 payload bit-equal to the reference's on the same seed.  By default
-(``encode_mode='device'``) and in the other device modes the reserve slice
-goes through ``repro_torch.kernels.ops.encode_rows`` on the emulator's
+(``encode_mode='device'``) and in the other device modes the whole of Â —
+the static rows and, under adaptive top-ups, the reserve slice — is encoded
+in one ``repro_torch.kernels.ops.encode_rows`` call on the emulator's
 ``device`` (the card unless the CPU is named; without a card and with no
-device named it raises), and the static and reserve rows are written into
-one buffer; ``last_encode`` records that encode's size and times.
+device named it raises, and nothing falls back to the host).  Its fp32 rows
+are copied straight into the host buffer Â, whose dtype stays
+``np.result_type(a.dtype, np.float32)``.  The reference's device modes
+encode only the reserve slice there and the static rows on the host; the
+trajectory (arrivals, reallocations, rows assigned, ``t_complete``) does not
+depend on the mode.  ``last_encode`` records that encode's plan, size and
+times.
 """
 from __future__ import annotations
 
@@ -149,9 +155,11 @@ class ClusterEmulator:
         # repro_torch.default_device only when one is asked for — the card
         # unless the caller names another device, as the tests name the CPU
         self.device = device
-        # the last task's device encode: its plan slice, rows, nonzeros, the
-        # seconds of its copy in, encode and copy out, and of the host encode
-        # of the static rows; None when the last task ran none
+        # the last task's device encode: its plan (all of Â), rows, the
+        # static and reserve rows among them, nonzeros, and the seconds of
+        # its copy in, encode and copy out; None when the last task ran none
+        # (uncoded schemes, encode_mode=None).  The reserve slice is
+        # plan.slice_rows(static_rows, rows)
         self.last_encode: dict | None = None
         self._task_counter = 0
 
@@ -260,25 +268,12 @@ class ClusterEmulator:
                 indices=plan.indices[perm], coeffs=plan.coeffs[perm],
                 r=plan.r, q=plan.q, kind=plan.kind,
             )
-            static_rows = int(alloc.total_rows)
-            if spec.encode_mode is not None and capacity > static_rows:
-                # the pre-distributed static assignment is encoded offline
-                # (host, as before); the reserve slice — what top-up epochs
-                # actually hand out — goes through the device encode kernel.
-                # Both are written into one buffer (the reference
-                # concatenates two), so the host holds Â once.
-                a_hat = np.empty(
-                    (capacity, m), dtype=np.result_type(a.dtype, np.float32)
+            if spec.encode_mode is not None:
+                # all of Â, the pre-distributed static rows and the reserve
+                # that top-up epochs hand out, in one encode on the device
+                a_hat = self._encode_device(
+                    a, plan, int(alloc.total_rows), spec.encode_mode
                 )
-                t0 = time.perf_counter()
-                a_hat[:static_rows] = encode_matrix(
-                    a, plan.slice_rows(0, static_rows)
-                )
-                static_s = time.perf_counter() - t0
-                a_hat[static_rows:] = self._encode_reserve(
-                    a, plan, static_rows, capacity, spec.encode_mode
-                )
-                self.last_encode["static_host_s"] = static_s
             else:
                 a_hat = encode_matrix(a, plan)
         else:
@@ -296,13 +291,15 @@ class ClusterEmulator:
             reallocations=reallocations,
         )
 
-    def _encode_reserve(
-        self, a: np.ndarray, plan: EncodePlan, start: int, stop: int, mode: str
+    def _encode_device(
+        self, a: np.ndarray, plan: EncodePlan, static_rows: int, mode: str
     ) -> np.ndarray:
-        """Plan rows [start, stop) through ``repro_torch.kernels.ops.encode_rows``
-        on the emulator's device ('device' mode: by that device, the kernel on
-        the card and the plain version on the CPU), returned to the host as
-        fp32; the copies and the encode are timed apart (each ends in a
+        """Every plan row through ``repro_torch.kernels.ops.encode_rows`` on
+        the emulator's device ('device' mode: by that device, the kernel on
+        the card and the plain version on the CPU): A goes to the device
+        once, one encode, and the fp32 rows come back straight into the host
+        buffer Â (``np.result_type(a.dtype, np.float32)``, as the host encode
+        makes it).  The copies and the encode are timed apart (each ends in a
         device sync) and recorded in ``last_encode``."""
         import torch
 
@@ -315,24 +312,27 @@ class ClusterEmulator:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
 
+        a_hat = np.empty((plan.q, a.shape[1]), dtype=np.result_type(a.dtype, np.float32))
         t0 = time.perf_counter()
         a_dev = torch.as_tensor(a, dtype=torch.float32, device=dev)
         sync()
         t1 = time.perf_counter()
         kernel_mode = None if mode == "device" else mode  # None: by device
-        rows = encode_rows(a_dev, plan, start, stop, mode=kernel_mode)
+        rows = encode_rows(a_dev, plan, 0, plan.q, mode=kernel_mode)
         sync()
         t2 = time.perf_counter()
         del a_dev
-        out = rows.cpu().numpy()
+        torch.from_numpy(a_hat).copy_(rows)
+        del rows
         t3 = time.perf_counter()
-        sl = plan.slice_rows(start, stop)
         self.last_encode = {
-            "mode": mode, "device": str(dev), "kind": plan.kind, "plan": sl,
-            "rows": stop - start, "nonzeros": int(np.count_nonzero(sl.coeffs)),
+            "mode": mode, "device": str(dev), "kind": plan.kind, "plan": plan,
+            "rows": plan.q, "static_rows": static_rows,
+            "reserve_rows": plan.q - static_rows,
+            "nonzeros": int(np.count_nonzero(plan.coeffs)),
             "h2d_s": t1 - t0, "encode_s": t2 - t1, "d2h_s": t3 - t2,
         }
-        return out
+        return a_hat
 
     # -- master merge + decode loop (backend-agnostic) --------------------
     def _drain(

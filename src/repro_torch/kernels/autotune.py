@@ -180,7 +180,8 @@ def lt_task_table(seed: int = 0):
                 rng.standard_normal(8).astype(np.float32),
                 TaskSpec(scheme="bpcc", code="lt", adaptive=ReallocationPolicy(),
                          churn=churn, encode_mode="device"))
-    return r, em.last_encode["plan"]
+    enc = em.last_encode  # all of Â was encoded; the reserve is its tail
+    return r, enc["plan"].slice_rows(enc["static_rows"], enc["rows"])
 
 
 def _candidates(op: str, geom: dict, gen) -> tuple[dict, dict, object, str]:

@@ -6,8 +6,9 @@
 // re-encodes the coded LM head with one more parity block
 // (encode_blocks_device): G = B [nb, n_data], A = the head's data blocks
 // flattened to [n_data, br*in] (glm4-9b after a (13, 3) re-split: [16, 13] x
-// [13, 47,751,168]).  On the task path it encodes a Gaussian plan's reserve
-// rows (encode_rows: [26, 500] x [500, 200,000] in chip_smoke.py).
+// [13, 47,751,168]).  On the task path it encodes all of a Gaussian plan's
+// rows, static and reserve, in one launch (encode_rows: [564, 500] x
+// [500, 500,000] in chip_smoke.py).
 //
 // What bounds it on an H100: memory.  Each element of A feeds q
 // multiply-adds and each output element r of them, so the least time is
@@ -43,10 +44,12 @@
 // The wrapper (kernels/lt_encode.py::gaussian_plan) computes the launch
 // geometry; gaussian_encode() checks it and refuses what it does not take.
 // On an H100 (700 W) the glm4-9b raise takes 1.955 ms (85 % of its bound;
-// torch.matmul 3.178 ms) and the task's reserve slice 0.194 ms (65 %;
-// torch.matmul 0.247 ms), where the first port took 3.33 and 0.331 ms
-// (chip_smoke.py).  ptxas reports up to 255 registers (the widest q-tiles)
-// and no spills.
+// torch.matmul 3.178 ms) and a 26-row reserve slice at m = 200,000
+// 0.194 ms (65 %; torch.matmul 0.247 ms), where the first port took 3.33
+// and 0.331 ms (chip_smoke.py).  The Gaussian task's whole plan (q = 564:
+// 18 q-tiles, so A is read 18 times) takes 9.98 ms against torch.matmul's
+// 6.14 and a bound of 4.21 ms by operations: this design is for small q.
+// ptxas reports up to 255 registers (the widest q-tiles) and no spills.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -177,7 +177,8 @@ def masked_pinv(mask, gen, mode: str | None = None):
 
 
 def encode_rows(a, plan, start: int, stop: int, mode: str | None = None, device=None):
-    """Encode plan rows [start, stop) on a device — the reserve top-up path.
+    """Encode plan rows [start, stop) on a device — the task master's encode
+    (``run_task`` hands it the whole plan).
 
     Dense (Gaussian) plans go through ``gaussian_encode`` with the generator
     slice ``plan.coeffs[start:stop]``; LT plans through ``lt_encode`` on the

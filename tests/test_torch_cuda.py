@@ -258,8 +258,9 @@ def test_cuda_encode_rows_both_plan_kinds(code):
 @pytest.mark.gpu
 def test_cuda_task_reserve_encoded_by_the_kernel():
     """run_task with encode_mode='cuda', and with the default mode, on an
-    emulator whose device defaults to the card: one lt_encode launch each,
-    and the trajectory of the host-encode run."""
+    emulator whose device defaults to the card, for the adaptive task and
+    the static one: one lt_encode launch each (all of Â), none with
+    encode_mode=None, and the trajectory of the host-encode run."""
     from repro_torch.cluster import ClusterEmulator, TaskSpec, ec2_scenario
     from repro_torch.core.adaptive import ChurnEvent, ChurnSchedule, ReallocationPolicy
 
@@ -270,19 +271,26 @@ def test_cuda_task_reserve_encoded_by_the_kernel():
     _, workers = ec2_scenario(1)
     churn = ChurnSchedule((ChurnEvent(t=0.01, worker=0, kind="death"),
                            ChurnEvent(t=0.008, worker=1, kind="rate", factor=5.0)))
-    runs = {}
-    for mode in ("cuda", "default", None):
-        before = lt_encode_cuda.launches
-        em = ClusterEmulator(workers, time_scale=0.02, seed=9)
-        kw = {} if mode == "default" else {"encode_mode": mode}
-        runs[mode] = em.run_task(a, x, TaskSpec(code="lt", churn=churn,
-                                                adaptive=ReallocationPolicy(), **kw))
-        assert lt_encode_cuda.launches - before == (1 if mode else 0)
     ref = a.astype(np.float64) @ x
-    for mode in ("cuda", "default"):
-        assert runs[mode].ok and runs[mode].arrivals == runs[None].arrivals
-        assert runs[mode].reallocations == runs[None].reallocations
-        assert np.abs(runs[mode].y - ref).max() / np.abs(ref).max() < 2e-3
+    for task in ({"churn": churn, "adaptive": ReallocationPolicy()}, {}):
+        runs = {}
+        for mode in ("cuda", "default", None):
+            before = lt_encode_cuda.launches
+            em = ClusterEmulator(workers, time_scale=0.02, seed=9)
+            kw = {} if mode == "default" else {"encode_mode": mode}
+            runs[mode] = em.run_task(a, x, TaskSpec(code="lt", **task, **kw))
+            assert lt_encode_cuda.launches - before == (1 if mode else 0)
+            if mode:
+                enc = em.last_encode
+                assert enc["device"].startswith("cuda")
+                assert enc["rows"] == runs[mode].rows_assigned
+                assert enc["static_rows"] + enc["reserve_rows"] == enc["rows"]
+                assert (enc["reserve_rows"] > 0) == bool(task)
+        for mode in ("cuda", "default"):
+            assert runs[mode].ok and runs[mode].arrivals == runs[None].arrivals
+            assert runs[mode].t_complete == runs[None].t_complete
+            assert runs[mode].reallocations == runs[None].reallocations
+            assert np.abs(runs[mode].y - ref).max() / np.abs(ref).max() < 2e-3
 
 
 @pytest.mark.gpu

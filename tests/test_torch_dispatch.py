@@ -560,7 +560,7 @@ def test_task_auto_encode_equals_device_encode(code):
                         encode_mode=mode)
         runs.append((em.run_task(a, x, spec), em.last_encode))
     (got, enc), (want, _) = runs
-    assert enc is not None and enc["rows"] > 0   # a reserve slice went through 'auto'
+    assert enc is not None and enc["rows"] > 0   # all of Â went through 'auto'
     for name in got.PAYLOAD_FIELDS:
         g, w = getattr(got, name), getattr(want, name)
         assert np.array_equal(g, w) if isinstance(w, np.ndarray) else g == w, name

@@ -4,10 +4,12 @@ With ``encode_mode=None`` the task is all numpy in both packages, so every
 payload field — ``y``, the masks and row counts, the arrival order, the
 reallocation records — must be bit-equal on the same seed, for every scheme,
 both codes, adaptive top-ups under churn, and a real-process backend.  With a
-device encode the port runs its kernels' plain PyTorch versions on the CPU
-(``encode_mode="off"``, ``device="cpu"``) against the reference's Pallas
-kernels in interpret mode: the reserve rows then come from other summation
-orders, so the trajectory must be equal and ``y`` within the reference's
+device encode the port encodes all of Â, static rows and reserve, through
+its kernels' plain PyTorch versions on the CPU (``encode_mode="off"`` or
+``"device"``, ``device="cpu"``), against the reference's device mode (its
+static rows on the host, its reserve through the Pallas kernels in interpret
+mode): the coded rows then come from other summation orders, so the
+trajectory and ``t_complete`` must be equal and ``y`` within the reference's
 own bound.
 """
 import numpy as np
@@ -51,7 +53,7 @@ def _pair(a, x, seed=9, *, backend=None, **spec):
                                                   ref_adaptive.ReallocationPolicy())
     if spec.get("churn"):
         spec["churn"], ref_spec["churn"] = _churn(adaptive), _churn(ref_adaptive)
-    if ref_spec.get("encode_mode") == "off":
+    if ref_spec.get("encode_mode") in ("off", "device"):
         ref_spec["encode_mode"] = "interpret"  # the Pallas kernels, run on the CPU
     em = ClusterEmulator(workers, time_scale=TS, seed=seed, device="cpu")
     got = em.run_task(a, x, TaskSpec(**spec), backend=backend)
@@ -99,9 +101,10 @@ def test_adaptive_churn_payload_bit_equal(small_task, code):
 
 @pytest.mark.parametrize("code", ["lt", "gaussian"])
 def test_device_encode_off_vs_reference_interpret(small_task, code):
-    """The reserve slice through the port's plain kernels (CPU) and the
-    reference's Pallas kernels (interpret): same trajectory, y within the
-    reference's bound of its own device-encode test."""
+    """All of Â through the port's plain kernels (CPU), against the
+    reference's static rows on the host and reserve through its Pallas
+    kernels (interpret): same trajectory, y within the reference's bound of
+    its own device-encode test."""
     a, x = small_task
     got, want, em = _pair(a, x, code=code, adaptive=True, churn=True, encode_mode="off")
     assert got.ok and want.ok
@@ -113,11 +116,49 @@ def test_device_encode_off_vs_reference_interpret(small_task, code):
     assert np.abs(got.y - want.y).max() / np.abs(ref).max() < 2e-3
     enc = em.last_encode
     assert enc["device"] == "cpu" and enc["mode"] == "off"
-    assert enc["rows"] == enc["plan"].q > 0
+    assert enc["rows"] == enc["plan"].q == got.rows_assigned
+    assert enc["static_rows"] + enc["reserve_rows"] == enc["rows"]
+    assert enc["reserve_rows"] > 0 and enc["static_rows"] > 0
     assert enc["nonzeros"] == int(np.count_nonzero(enc["plan"].coeffs))
     # and the host-encode run of the same seed follows the same trajectory
     host, _, _ = _pair(a, x, code=code, adaptive=True, churn=True)
     assert host.arrivals == got.arrivals and host.reallocations == got.reallocations
+
+
+@pytest.mark.parametrize("mode", ["device", "off"])
+@pytest.mark.parametrize("scheme", ["hcmm", "bpcc"])
+@pytest.mark.parametrize("code", ["lt", "gaussian"])
+def test_static_task_encodes_all_rows_on_the_device(small_task, mode, scheme, code):
+    """The paper's static task (no adaptive policy) with a device encode:
+    every row of Â through the plain kernels on the named CPU, in one
+    encode; the reference's trajectory and t_complete bit for bit (its
+    device mode encodes a static task on the host), y within 2e-3 of A·x
+    and of the reference's y."""
+    a, x = small_task
+    got, want, em = _pair(a, x, scheme=scheme, code=code, encode_mode=mode)
+    assert got.ok and want.ok
+    assert got.arrivals == want.arrivals and got.t_complete == want.t_complete
+    assert got.reallocations == want.reallocations == []
+    assert np.array_equal(got.rows_mask, want.rows_mask)
+    assert got.rows_received == want.rows_received
+    enc = em.last_encode
+    assert enc["mode"] == mode and enc["device"] == "cpu" and enc["kind"].endswith(code)
+    assert enc["rows"] == enc["static_rows"] == got.rows_assigned == want.rows_assigned
+    assert enc["reserve_rows"] == 0 and enc["plan"].q == enc["rows"]
+    assert min(enc["h2d_s"], enc["encode_s"], enc["d2h_s"]) >= 0.0
+    ref = a.astype(np.float64) @ x
+    assert np.abs(got.y - ref).max() / np.abs(ref).max() < 2e-3
+    assert np.abs(got.y - want.y).max() / np.abs(ref).max() < 2e-3
+
+
+@pytest.mark.parametrize("scheme", ["uniform", "load_balanced"])
+def test_uncoded_task_encodes_nothing(small_task, scheme):
+    """An uncoded scheme sends A itself: no encode in any mode, and the
+    payload stays the reference's bit for bit."""
+    a, x = small_task
+    got, want, em = _pair(a, x, scheme=scheme, encode_mode="device")
+    assert em.last_encode is None
+    assert_payload_equal(got, want)
 
 
 def test_process_backend_payload_bit_equal(small_task):
@@ -150,10 +191,11 @@ def test_device_encode_without_cuda_needs_a_named_device(small_task, monkeypatch
     a, x = small_task
     _, workers = ec2_scenario(1)
     for mode in ("device", "off"):
-        spec = TaskSpec(code="lt", adaptive=adaptive.ReallocationPolicy(),
-                        churn=_churn(adaptive), encode_mode=mode)
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            ClusterEmulator(workers, time_scale=TS, seed=9).run_task(a, x, spec)
+        for spec in (TaskSpec(code="lt", adaptive=adaptive.ReallocationPolicy(),
+                              churn=_churn(adaptive), encode_mode=mode),
+                     TaskSpec(code="lt", encode_mode=mode)):  # static: all of Â
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                ClusterEmulator(workers, time_scale=TS, seed=9).run_task(a, x, spec)
     with pytest.raises(ValueError, match="CUDA"):
         ClusterEmulator(workers, time_scale=TS, seed=9, device="cpu").run_task(
             a, x, TaskSpec(code="lt", adaptive=adaptive.ReallocationPolicy(),
@@ -162,21 +204,28 @@ def test_device_encode_without_cuda_needs_a_named_device(small_task, monkeypatch
 
 @pytest.mark.parametrize("code", ["lt", "gaussian"])
 def test_default_encode_runs_on_the_named_device(small_task, code):
-    """The default spec encodes the reserve on the emulator's device (here
-    the named CPU, so the plain versions): the host run's trajectory, y
-    within the reference's bound; a later task with no device encode on the
-    same emulator reports none."""
+    """The default spec encodes all of Â on the emulator's device (here the
+    named CPU, so the plain versions): the host run's trajectory, y within
+    the reference's bound; a later static task on the same emulator encodes
+    all of its Â there too, and an uncoded one reports no encode."""
     a, x = small_task
     _, workers = ec2_scenario(1)
     em = ClusterEmulator(workers, time_scale=TS, seed=9, device="cpu")
     got = em.run_task(a, x, TaskSpec(code=code, adaptive=adaptive.ReallocationPolicy(),
                                      churn=_churn(adaptive)))
     enc = em.last_encode
-    assert enc["mode"] == "device" and enc["device"] == "cpu" and enc["rows"] > 0
+    assert enc["mode"] == "device" and enc["device"] == "cpu"
+    assert enc["rows"] == got.rows_assigned and enc["reserve_rows"] > 0
+    assert enc["static_rows"] + enc["reserve_rows"] == enc["rows"]
     host, _, _ = _pair(a, x, code=code, adaptive=True, churn=True)
     assert got.ok and got.arrivals == host.arrivals
     assert got.reallocations == host.reallocations
     ref = a.astype(np.float64) @ x
     assert np.abs(got.y - ref).max() / np.abs(ref).max() < 2e-3
-    em.run_task(a, x, TaskSpec(code=code))  # static: nothing for the device
+    static = em.run_task(a, x, TaskSpec(code=code))  # static: all of Â on the device
+    enc = em.last_encode
+    assert enc["mode"] == "device" and enc["device"] == "cpu"
+    assert enc["rows"] == enc["static_rows"] == static.rows_assigned > 0
+    assert enc["reserve_rows"] == 0
+    em.run_task(a, x, TaskSpec(scheme="uniform", code=code))  # uncoded: no encode
     assert em.last_encode is None
