@@ -4,8 +4,15 @@
     python3 chip_smoke.py              # as run on the card; needs one GPU
     python3 chip_smoke.py --profile    # also a torch.profiler window over engine steps
     python3 chip_smoke.py --sweep-lt   # only: build, the encode kernels' checks, and
-                                       # lt_encode's span sweep at the LT task's shape
-                                       # (variants of lt_encode.cu built under build/)
+                                       # lt_encode's two engines: the L2 engine's spans
+                                       # at the whole LT plan, the slab engine's widths
+                                       # at the EC2 example's shape (variants of
+                                       # lt_encode.cu built under build/lt_sweep)
+    python3 chip_smoke.py --sweep-gauss
+                                       # only: build, the encode kernels' checks, and
+                                       # gaussian_encode's register and tensor-core
+                                       # engines at q = 16 to 564 (r 500, m 500,000) in
+                                       # turns with torch.matmul (GAUSSIAN_WIDE_MIN_Q)
     python3 chip_smoke.py --sweep-ssd  # only: build, the SSD kernels' checks, and
                                        # ssd_scan.cu's tensor-core settings at the
                                        # 4096- and 1000-token Mamba-2 cells, in turns
@@ -61,21 +68,29 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    then a pair of runs at a narrower m (50,000, printed as a cut), one with
    the device encode and one with the host encode, on the same seed: the
    same trajectory and ``t_complete``, and the host encode's y held to A·x;
-   then ``lt_encode`` against its plain version, bit for bit, at the full
-   run's shapes (the whole plan, and its reserve slice) and at ragged ones:
-   at the task's shapes the kernel alone on the CSR that ``torch.sparse.mm``
-   also gets (``kernel_ms``, in turns with it), the call as ``run_task``
-   makes it (``ms``) and its compaction (``compaction_ms``).  m is cut only
-   if host memory is short, and the cut is printed; the seconds of the
-   inputs, the full run and the pair are printed;
+   then ``lt_encode`` against its plain version, bit for bit (the wrapper,
+   ``encode_rows``' host CSR and each engine that takes the table), at the
+   full run's shapes (the whole plan, and its reserve slice: both on the L2
+   engine, their tables too large for a slab) and at ragged ones (on the
+   slab engine): at the task's shapes each engine's kernel alone on the CSR
+   that ``torch.sparse.mm`` also gets (``kernel_ms``, device time in turns
+   with it), the call as ``run_task`` makes it (``ms``), the host CSR's
+   build and copy (``host_csr_ms``) and the compaction on the card
+   (``compaction_ms``).  m is cut only if host memory is short, and the cut
+   is printed; the seconds of the inputs, the full run and the pair are
+   printed;
 4. task, Gaussian: the same at r = 500 (scenario 2's r/20, ten workers,
    printed as a cut) and the paper's m = 500,000, ``code="gaussian"``, all
-   of Â encoded by one ``gaussian_encode``, its trajectory pair at m =
-   20,000; then the paper's EC2 experiments 1 and 2 (Figs 8, 10) through
-   the port's entry point ``examples/ec2_repro_torch.py`` at r/40 and two
-   trials a cell, the master's encode on the card: every task decodes, one
-   ``lt_encode`` launch a coded task (its tables printed), within a budget
-   of 60 s;
+   of Â encoded by one ``gaussian_encode`` (q = 564: the tensor-core
+   engine), its trajectory pair at m = 20,000; ``gaussian_encode`` at the
+   whole plan and its reserve slice on both engines, each timed in turns
+   with torch.matmul and held to float64; then the paper's EC2 experiments
+   1 and 2 (Figs 8, 10) through the port's entry point
+   ``examples/ec2_repro_torch.py`` at r/40 and two trials a cell, the
+   master's encode on the card: every task decodes, one ``lt_encode``
+   launch a coded task, each on the slab engine (its tables printed), every
+   coded task's table held to the plain version's bits, the last timed on
+   both engines; within a budget of 60 s;
 5. head and serve: glm4-9b's coded head at full width under 0 and 2
    erasures; glm4-9b at full width and depth (seeded init on the card),
    4 slots, 6 requests of 16 prompt tokens and 8 new tokens, 3 persistent
@@ -228,10 +243,12 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
    beside the memory reckoned beforehand), one profiled (device busy
    share); the loss must go down, and none of the six kernels may launch;
 22. a ``kernels`` line with every kernel on every path it runs (launch
-   counts read around that path's run; ``lt_encode``'s ``ms`` is the
-   call with its compaction, its ``kernel_ms`` the kernel alone, which its
-   ``library_ms`` is held to), then the device line.  The seconds of each
-   phase are printed before it.
+   counts read around that path's run; ``engine`` the engine of the timed
+   row, ``wide_launches`` and ``slab_launches`` the second engine's
+   launches: every engine of the six kernels appears; ``lt_encode``'s
+   ``ms`` is the call with its host CSR, its ``kernel_ms`` the kernel
+   alone, which its ``library_ms`` is held to), then the device line.  The
+   seconds of each phase are printed before it.
 
 It imports nothing of JAX, and exits non-zero without CUDA or without the
 repository's ``src/repro_torch`` beside it.
@@ -605,40 +622,75 @@ def kernel_coded_decode(torch, gen, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def gaussian_row(torch, g, a, label: str, timed_iters: int = 0) -> dict:
+def gaussian_row(torch, g, a, label: str, timed_iters: int = 0, engine: str | None = None,
+                 f64: bool = False) -> dict:
     """gaussian_encode on (G, A) against ref_gaussian_encode, to 1e-4 x
-    max(1, max|plain|) (fp32, another sum order); with ``timed_iters``, also
-    timed in turns with torch.matmul(G, A), beside its plain version and bound."""
-    from repro_torch.kernels import ops, ref
+    max(1, max|plain|) (fp32, another sum order), on the engine the wrapper
+    picks (``engine`` forces one); with ``f64`` also against G·A in float64
+    (in column pieces), where the tensor-core engine must be within
+    WIDE_ERR_VS_MATMUL x fp32 torch.matmul's error; with ``timed_iters``,
+    also timed in turns with torch.matmul(G, A), beside its plain version
+    and bound (the tensor-core engine's: six bf16 products an fp32 one at
+    989 TFLOP/s, or the bytes; the register engine's: fp32 at 67 TFLOP/s,
+    or the bytes)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lt_encode import gaussian_encode_cuda, gaussian_engine
 
     (q, r), m = g.shape, a.shape[1]
-    got = ops.gaussian_encode(g, a, mode="cuda")
+    eng = engine or gaussian_engine(q)
+    call = lambda: gaussian_encode_cuda(g, a, engine=eng)  # noqa: E731
+    before = (gaussian_encode_cuda.launches, gaussian_encode_cuda.wide_launches)
+    got = call()
+    launched = (gaussian_encode_cuda.launches - before[0],
+                gaussian_encode_cuda.wide_launches - before[1])
     want = ref.ref_gaussian_encode(g, a)
     torch.cuda.synchronize()
     err, scale = max_err(torch, got, want)
     tol = 1e-4 * max(1.0, scale)
-    row = {"phase": "kernel", "kernel": "gaussian_encode", "shape": label,
-           "g": [q, r], "a": [r, m], "max_abs_err": err, "tol": tol}
+    row = {"phase": "kernel", "kernel": "gaussian_encode", "engine": eng, "shape": label,
+           "g": [q, r], "a": [r, m], "max_abs_err": err, "tol": tol,
+           "launches_a_call": launched[0], "wide_launches_a_call": launched[1]}
+    if f64:  # column pieces of G·A in float64 on the card
+        g64, num, num32, den = g.double(), 0.0, 0.0, 0.0
+        step = max(1, (1 << 28) // (8 * max(q, r)))
+        for c0 in range(0, m, step):
+            w64 = g64 @ a[:, c0:c0 + step].double()
+            num = max(num, float((got[:, c0:c0 + step].double() - w64).abs().max()))
+            num32 = max(num32, float((want[:, c0:c0 + step].double() - w64).abs().max()))
+            den = max(den, float(w64.abs().max()))
+            del w64
+        row["rel_err_f64"], row["rel_err_f64_plain"] = num / den, num32 / den
     del got, want
     if timed_iters:
         row["ms"], row["library_ms"], row["turns_ms"] = time_turns(
-            torch, lambda: ops.gaussian_encode(g, a, mode="cuda"), lambda: torch.matmul(g, a),
-            timed_iters)
+            torch, call, lambda: torch.matmul(g, a), timed_iters)
         row["library_call"] = "torch.matmul(G, A)"
         row["plain_ms"] = time_ms(torch, lambda: ref.ref_gaussian_encode(g, a), timed_iters)
-        row["bound_ms"], row["bound_by"] = bound(4 * (q * r + r * m + q * m), 2 * q * r * m)
+        n_bytes = 4 * (q * r + r * m + q * m)
+        if eng == "wide":
+            _wide_bounds(row, n_bytes, q, r, m, False)
+        else:
+            row["bound_ms"], row["bound_by"] = bound(n_bytes, 2 * q * r * m)
         against_library(row)
     emit(row)
     check(err <= tol, f"gaussian_encode {label}: {err} > {tol}")
+    check(launched == (1, int(eng == "wide")),
+          f"gaussian_encode {label}: {launched} launches (all, wide) for one {eng} call")
+    if f64 and eng == "wide":
+        check(row["rel_err_f64"] <= WIDE_ERR_VS_MATMUL * row["rel_err_f64_plain"],
+              f"gaussian_encode {label}: error {row['rel_err_f64']} against float64 over "
+              f"{WIDE_ERR_VS_MATMUL} x fp32 torch.matmul's {row['rel_err_f64_plain']}")
     return row
 
 
 def kernel_gaussian(torch, gen, results: dict) -> None:
     """gaussian_encode at the (13, 3) parity re-encodes of the glm4-9b,
     mamba2-130m, zamba2-1.2b, llama-3.2-vision-11b and dbrx-132b heads, G [16, 13] x A [13, br * d_model],
-    timed; then ragged shapes: every q-tile edge, an r across G's
-    shared-memory panel, M = 1, M % 4 != 0 and a misaligned view of A
-    (scalar loads)."""
+    timed (the register engine); then ragged shapes on both engines: every
+    q-tile edge, an r across G's shared-memory panel, M = 1, M % 4 != 0, a
+    misaligned view of A (scalar loads; the tensor-core engine's producer
+    loads A itself), r not a multiple of 16, q over two column tiles, and
+    the Gaussian task's q = 564 at a ragged M, held to float64 too."""
     dev = torch.device("cuda")
     enc_shapes = [("glm4-9b raise", 16, 13, 11658 * 4096),
                   ("mamba2-130m raise", 16, 13, 3868 * 768),
@@ -648,7 +700,10 @@ def kernel_gaussian(torch, gen, results: dict) -> None:
                   ("ragged", 33, 40, 257), ("ragged", 5, 3, 1001), ("ragged", 16, 14, 1),
                   *(("ragged q-tile edge", q, 13, 100_003) for q in (1, 8, 9, 17, 26, 32, 33, 70)),
                   ("ragged r across panels", 32, 1500, 20_000),
-                  ("misaligned view", 26, 500, 20_000)]
+                  ("misaligned view", 26, 500, 20_000), ("misaligned view", 40, 500, 20_000),
+                  ("ragged r % 16 != 0", 100, 77, 1001), ("ragged M % 4 != 0", 300, 1000, 4097),
+                  ("ragged two column tiles", 257, 100, 3000),
+                  ("ragged Gaussian task rows", 564, 500, 100_003)]
     for label, q, r, m in enc_shapes:
         g = torch.randn(q, r, device=dev, generator=gen)
         if label.startswith("misaligned"):
@@ -657,9 +712,12 @@ def kernel_gaussian(torch, gen, results: dict) -> None:
         else:
             a = torch.randn(r, m, device=dev, generator=gen)
         timed = label.endswith("raise")
-        row = gaussian_row(torch, g, a, label, 10 if timed else 0)
+        row = gaussian_row(torch, g, a, label, 10 if timed else 0, f64=not timed and r >= 500)
         if timed:
             results.setdefault("gaussian_encode", {})[label] = row
+        else:  # the engine the wrapper did not pick, and float64 where K is the task's
+            other = "register" if row["engine"] == "wide" else "wide"
+            gaussian_row(torch, g, a, f"{label} ({other})", engine=other, f64=r >= 500)
         del g, a
     torch.cuda.empty_cache()
 
@@ -1230,7 +1288,11 @@ def phase_auto_glm(torch, args, serve: dict, mesh, results: dict, smi: str) -> N
     results["auto glm4-9b"] = {"launches": path, "heads": heads, "seconds": seconds}
 
 
-WIDE_HEADS = ("coded_matvec", "coded_matvec_decode")  # the kernels with a wide engine
+# each kernel's second engine, counted apart (``<engine>_launches``): the
+# tensor-core engine of the head kernels and of gaussian_encode, lt_encode's
+# shared-memory slab engine
+ENGINES = {"coded_matvec": "wide", "coded_matvec_decode": "wide", "gaussian_encode": "wide",
+           "lt_encode": "slab"}
 
 
 def _reset_launches() -> None:
@@ -1238,18 +1300,19 @@ def _reset_launches() -> None:
 
     for name, fn in kernel_wrappers().items():
         fn.launches = 0
-        if name in WIDE_HEADS:
-            fn.wide_launches = 0
+        if name in ENGINES:
+            setattr(fn, f"{ENGINES[name]}_launches", 0)
 
 
 def _launches() -> dict:
-    """Each kernel's launches, and the head kernels' launches on the wide
-    engine (``<name>_wide``, a part of ``<name>``'s)."""
+    """Each kernel's launches, and those of its second engine
+    (``<name>_wide``, ``lt_encode_slab``: a part of ``<name>``'s)."""
     from repro_torch.kernels import kernel_wrappers
 
     wrappers = kernel_wrappers()
     return {**{name: fn.launches for name, fn in wrappers.items()},
-            **{f"{name}_wide": wrappers[name].wide_launches for name in WIDE_HEADS}}
+            **{f"{name}_{eng}": getattr(wrappers[name], f"{eng}_launches")
+               for name, eng in ENGINES.items()}}
 
 
 def _host_peak_gb() -> float:
@@ -1392,7 +1455,9 @@ def phase_task_lt(torch, args, results: dict, smi: str) -> None:
     check(enc["rows"] == dev_row["rows_assigned"],
           f"the encode made {enc['rows']} rows of {dev_row['rows_assigned']} assigned")
     check(enc["reserve_rows"] > 0, "top-ups drew no reserve rows")
-    check(dev_row["launches"]["lt_encode"] == 1, f"lt_encode launches {dev_row['launches']}")
+    slab = int(_slab_fits(plan.indices, plan.coeffs, r, m))
+    check(dev_row["launches"]["lt_encode"] == 1 and dev_row["launches"]["lt_encode_slab"] == slab,
+          f"lt_encode launches {dev_row['launches']} ({slab} expected on the slab engine)")
     del dev_res
     gc.collect()
     t1 = time.perf_counter()
@@ -1415,59 +1480,127 @@ def phase_task_lt(torch, args, results: dict, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+def _slab_fits(idx: np.ndarray, cof: np.ndarray, r: int, m: int) -> bool:
+    """Whether lt_encode takes the table on its slab engine on this card."""
+    import torch
+
+    from repro_torch.kernels.lt_encode import _sm_count, lt_csr_host, lt_slab_plan
+
+    csr = lt_csr_host(idx, cof, r)
+    return csr.used is not None and lt_slab_plan(
+        csr.order.numel(), csr.n_used, csr.cols.numel(), m,
+        _sm_count(torch.cuda.current_device())) is not None
+
+
+def device_ms(torch, fn, iters: int) -> float:
+    """fn's device time a call: CUDA events around ``iters`` calls, or, for
+    a call under a millisecond (whose host time may exceed it), replays of
+    a CUDA graph of 20 calls, so the host is out of the reading."""
+    if time_ms(torch, fn, 2, warmup=1) >= 1.0:
+        return time_ms(torch, fn, iters, warmup=1)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(20):
+                fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    return time_ms(torch, graph.replay, max(2, iters // 4), warmup=1) / 20
+
+
 def lt_check(torch, a, idx: np.ndarray, cof: np.ndarray, label: str, results: dict,
              timed: bool) -> dict:
     """lt_encode on A (on the card) and the table (idx, cof) against
-    ref_lt_encode, bit for bit.  With ``timed`` (a task's shape), also the
-    kernel alone, on the CSR that torch.sparse.mm also gets, in turns with
-    it; the call as run_task makes it (compaction and kernel), the
-    compaction alone and the plain version beside them; the bound; the row
-    is kept in ``results['lt_encode'][label]``.  Each output is freed before
-    the next (a task's Â is up to 17.5 GB)."""
+    ref_lt_encode, bit for bit: the wrapper on the table on the card (its
+    compaction there), ``encode_rows``' path (the CSR built on the host) and
+    each engine that takes the table (the slab engine where the table and a
+    slab fit, the L2 engine always).  With ``timed`` (a task's shape), also
+    each engine's kernel alone on the CSR that torch.sparse.mm also gets,
+    device time in turns with it (``engines``; the row's ``kernel_ms`` and
+    ``library_ms`` are the picked engine's); the call as ``encode_rows``
+    makes it (``ms``: the host CSR, its copy, the kernel), the host CSR's
+    build and copy (``host_csr_ms``), the compaction on the card that
+    ``lt_encode_cuda`` runs (``compaction_ms``) and the plain version
+    beside them; the bound; the row is kept in
+    ``results['lt_encode'][label]``.  Each output is freed before the next
+    (a task's Â is up to 17.5 GB)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.lt_encode import _lt_csr, _lt_launch, lt_encode_cuda
+    from repro_torch.kernels.lt_encode import (_lt_csr, _lt_launch, _sm_count, lt_csr_host,
+                                               lt_encode_csr_cuda, lt_encode_cuda, lt_slab_plan)
 
     dev = torch.device("cuda")
+    (r, m), (q, d_max) = a.shape, idx.shape
     i_t = torch.as_tensor(np.ascontiguousarray(idx), device=dev)
     c_t = torch.as_tensor(np.ascontiguousarray(cof), device=dev)
-    got = lt_encode_cuda(a, i_t, c_t)
+    csr = _lt_csr(i_t, c_t, r)
+    nnz = int(csr.cols.numel())
+    plan = None if csr.used is None else lt_slab_plan(q, csr.n_used, nnz, m,
+                                                      _sm_count(dev.index or 0))
+    picked = "l2" if plan is None else "slab"
     want = ref.ref_lt_encode(a, i_t, c_t)
-    torch.cuda.synchronize()
-    err, _ = max_err(torch, got, want)
-    del got, want
-    (r, m), (q, d_max) = a.shape, idx.shape
-    nnz = int(np.count_nonzero(cof))
-    row = {"phase": "kernel", "kernel": "lt_encode", "shape": label,
+    errs = {}
+    for name, call in (("wrapper", lambda: lt_encode_cuda(a, i_t, c_t)),
+                       ("host csr", lambda: lt_encode_csr_cuda(a, lt_csr_host(idx, cof, r).to(dev))),
+                       *((eng, lambda eng=eng: _lt_launch(a, csr, engine=eng))
+                         for eng in (("slab", "l2") if plan else ("l2",)))):
+        got = call()
+        torch.cuda.synchronize()
+        errs[name] = max_err(torch, got, want)[0]
+        del got
+    del want
+    row = {"phase": "kernel", "kernel": "lt_encode", "shape": label, "engine": picked,
            "a": [r, m], "q": q, "d_max": d_max, "nonzeros": nnz,
-           "max_degree": int((cof != 0).sum(1).max()),
-           "max_abs_err": err, "tol": 0.0}  # the plain version's bits
+           "max_degree": int((cof != 0).sum(1).max()), "a_rows_used": csr.n_used,
+           "slab_plan": None if plan is None else dataclasses.asdict(plan),
+           "max_abs_err": max(errs.values()), "max_abs_err_by_call": errs,
+           "tol": 0.0}  # the plain version's bits
     if timed:
-        csr = _lt_csr(i_t, c_t, r)
         sparse = torch.sparse_csr_tensor(csr.row_ptr, csr.cols.long(), csr.vals,
                                          size=(q, r), check_invariants=False)
-        row["kernel_ms"], row["library_ms"], row["turns_ms"] = time_turns(
-            torch, lambda: _lt_launch(a, csr), lambda: torch.sparse.mm(sparse, a), 3,
-            warmup=1)
+        library = lambda: torch.sparse.mm(sparse, a)  # noqa: E731
+        iters = 3 if q * m > 1e9 else 20
+        row["engines"] = {}
+        for eng in (("slab", "l2") if plan else ("l2",)):
+            kernel = lambda eng=eng: _lt_launch(a, csr, engine=eng)  # noqa: E731
+            turns = [device_ms(torch, fn, iters) for fn in (kernel, library, library, kernel)]
+            row["engines"][eng] = {"kernel_ms": (turns[0] + turns[3]) / 2,
+                                   "library_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns}
+            row["engines"][eng]["ratio"] = (row["engines"][eng]["kernel_ms"]
+                                            / row["engines"][eng]["library_ms"])
+        row["kernel_ms"] = row["engines"][picked]["kernel_ms"]
+        row["library_ms"] = row["engines"][picked]["library_ms"]
         row["library_call"] = "torch.sparse.mm(CSR generator [q, r], A), the same CSR"
-        row["ms"] = time_ms(torch, lambda: lt_encode_cuda(a, i_t, c_t), 3, warmup=1)
-        row["compaction_ms"] = time_ms(torch, lambda: _lt_csr(i_t, c_t, r), 3, warmup=1)
-        row["compaction_share"] = row["compaction_ms"] / row["ms"]
+        row["ms"] = time_ms(torch, lambda: lt_encode_csr_cuda(
+            a, lt_csr_host(idx, cof, r).to(dev)), iters, warmup=1)
+
+        def host_csr():
+            lt_csr_host(idx, cof, r).to(dev)
+            torch.cuda.synchronize()
+
+        host_csr()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            host_csr()
+        row["host_csr_ms"] = (time.perf_counter() - t0) * 1e3 / iters
+        row["compaction_ms"] = time_ms(torch, lambda: _lt_csr(i_t, c_t, r), iters, warmup=1)
         row["plain_ms"] = time_ms(torch, lambda: ref.ref_lt_encode(a, i_t, c_t), 2, warmup=1)
         # each input read once: the rows of A the table references, the
         # padded table; the output written once
-        used_rows = int(torch.unique(csr.cols).numel())
-        n_bytes = 4 * used_rows * m + 8 * q * d_max + 4 * q * m
+        n_bytes = 4 * row["a_rows_used"] * m + 8 * q * d_max + 4 * q * m
         row["bound_ms"], row["bound_by"] = bound(n_bytes, 2 * nnz * m)
-        row["a_rows_used"] = used_rows
         row["heavy_rows"] = csr.n_heavy
         # the same, had every nonzero entry to stream its row of A anew
-        row["bound_no_reuse_ms"] = bound(n_bytes + 4 * (nnz - used_rows) * m, 0)[0]
+        row["bound_no_reuse_ms"] = bound(n_bytes + 4 * (nnz - row["a_rows_used"]) * m, 0)[0]
         against_library(row, "kernel_ms")
         results.setdefault("lt_encode", {})[label] = row
-        del csr, sparse
+        del sparse
     emit(row)
-    check(err == 0.0, f"lt_encode {label}: {err} != 0 (the plain version's bits)")
-    del i_t, c_t
+    check(row["max_abs_err"] == 0.0,
+          f"lt_encode {label}: {errs} (not the plain version's bits)")
+    del i_t, c_t, csr
     torch.cuda.empty_cache()
     return row
 
@@ -1500,6 +1633,8 @@ def kernel_lt_encode(torch, a_host, plan, static_rows: int, results: dict) -> No
     cof[5] = 0.0
     lt_check(torch, torch.randn(200, 1030, device=dev), idx, cof, "ragged zeros mid-row",
              results, False)
+    lt_check(torch, torch.randn(1 + 200 * 1032, device=dev)[1:].view(200, 1032), idx, cof,
+             "ragged misaligned view", results, False)
     lt_check(torch, torch.randn(3, 4100, device=dev), np.array([[2]], np.int32),
              np.array([[0.5]], np.float32), "ragged q = 1, d_max = 1", results, False)
     idx = gen.integers(0, 500, (90, 200)).astype(np.int32)
@@ -1517,7 +1652,7 @@ def phase_task_gaussian(torch, args, results: dict, smi: str) -> None:
     gaussian_encode at the full run's shapes (the whole plan and its reserve
     slice)."""
     from repro_torch.cluster import ec2_scenario
-    from repro_torch.kernels.lt_encode import gaussian_encode_cuda
+    from repro_torch.kernels.lt_encode import gaussian_encode_cuda, gaussian_engine
 
     r_full, workers = ec2_scenario(2)
     r, m = r_full // 20, PAPER_M
@@ -1538,8 +1673,10 @@ def phase_task_gaussian(torch, args, results: dict, smi: str) -> None:
           f"Gaussian task rel err {dev_row['max_rel_err']}")
     check(enc["rows"] == dev_row["rows_assigned"],
           f"the encode made {enc['rows']} rows of {dev_row['rows_assigned']} assigned")
-    check(dev_row["launches"]["gaussian_encode"] == 1,
-          f"gaussian_encode launches {dev_row['launches']}")
+    q_all = enc["rows"]
+    check(dev_row["launches"]["gaussian_encode"] == 1
+          and dev_row["launches"]["gaussian_encode_wide"] == int(gaussian_engine(q_all) == "wide"),
+          f"gaussian_encode launches {dev_row['launches']} for q = {q_all}")
     del dev_res
     t1 = time.perf_counter()
     pair = _trajectory_pair(torch, r, GAUSSIAN_PAIR_M, workers, "gaussian", args.seed,
@@ -1557,14 +1694,18 @@ def phase_task_gaussian(torch, args, results: dict, smi: str) -> None:
     results["task_gaussian"] = row
 
     # gaussian_encode at the task's shapes: G [q, r] (the whole plan; its
-    # reserve slice) x A
+    # reserve slice) x A, on the engine the wrapper picks and on the other
+    # one, each timed in turns with torch.matmul and held to float64
     dev = torch.device("cuda")
     a_t = torch.as_tensor(a, device=dev)
     for label, g_host in (("task", enc["plan"].coeffs),
                           ("task reserve slice", enc["plan"].coeffs[enc["static_rows"]:])):
         g = torch.as_tensor(np.ascontiguousarray(g_host), device=dev)
-        results.setdefault("gaussian_encode", {})[label] = gaussian_row(
-            torch, g, a_t, label, 20)
+        row = gaussian_row(torch, g, a_t, label, 20, f64=True)
+        other = "register" if row["engine"] == "wide" else "wide"
+        results.setdefault("gaussian_encode", {})[label] = row
+        results["gaussian_encode"][f"{label} ({other})"] = gaussian_row(
+            torch, g, a_t, f"{label} ({other})", 20, engine=other, f64=True)
         del g
     gaussian_encode_cuda.launches = 0
     del a_t
@@ -1601,9 +1742,16 @@ def phase_ec2_example(torch, args, results: dict, smi: str) -> None:
     launches = _launches()
     run_s = time.perf_counter() - t0
     coded = [rec for rec in records if rec["scheme"] in ("hcmm", "bpcc")]
-    plan = coded[-1]["encode"]["plan"]
-    a = torch.randn(*coded[-1]["a_shape"], device="cuda")
-    lt_check(torch, a, plan.indices, plan.coeffs, "ec2 example", results, True)
+    slab = sum(_slab_fits(rec["encode"]["plan"].indices, rec["encode"]["plan"].coeffs,
+                          *rec["a_shape"]) for rec in coded)
+    # every coded task's table on A of its shape, bit for bit; the last timed
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    for i, rec in enumerate(coded):
+        plan = rec["encode"]["plan"]
+        a = torch.randn(*rec["a_shape"], device="cuda", generator=gen)
+        last = i == len(coded) - 1
+        lt_check(torch, a, plan.indices, plan.coeffs,
+                 "ec2 example" if last else f"ec2 example task {i}", results, last)
     lt_encode_cuda.launches = 0
     del a, plan
     torch.cuda.empty_cache()
@@ -1619,8 +1767,9 @@ def phase_ec2_example(torch, args, results: dict, smi: str) -> None:
     emit(row)
     results["ec2 example"] = row
     check(row["all_ok"], "ec2 example: a task did not decode")
-    check(launches["lt_encode"] == len(coded),
-          f"ec2 example: {launches['lt_encode']} lt_encode launches for {len(coded)} coded tasks")
+    check(launches["lt_encode"] == len(coded) and launches["lt_encode_slab"] == slab,
+          f"ec2 example: {launches['lt_encode']} lt_encode launches "
+          f"({launches['lt_encode_slab']} slab, {slab} expected) for {len(coded)} coded tasks")
     check(all(rec["encode"]["rows"] == rec["rows_assigned"] for rec in coded),
           "ec2 example: a coded task's encode did not make every row it assigned")
     check(all(rec["encode"] is None for rec in records if rec["scheme"] not in ("hcmm", "bpcc")),
@@ -4012,12 +4161,16 @@ def _leaves(tree):
 
 LT_SWEEP = [(quads, rows, heavy) for quads in (1, 2, 4, 8)
             for rows, heavy in ((8, True), (16, True), (32, True), (16, False))]
+# the slab engine at the EC2 example's tables: kLaneCols (a copy built for
+# each) and the span width
+LT_SLAB_SWEEP = [(lane_cols, width) for lane_cols in (1, 2, 4) for width in (16, 32, 64)]
 
 
-def _lt_variants(settings) -> dict:
-    """lt_encode.cu rebuilt with other span and chunk constants (kSpanQuads
-    column quads a lane, kRowsPerChunk light rows a unit), one nvcc each,
-    started together, under build/lt_sweep; {(quads, rows): its C entry}."""
+def _lt_variants(settings: list[dict]) -> dict:
+    """lt_encode.cu rebuilt with other constants (each setting a {name:
+    value} of constexpr ints: kSpanQuads, kRowsPerChunk, kLaneCols), one
+    nvcc each, started together, under build/lt_sweep; {the setting's
+    values: the loaded library}."""
     import ctypes
     import re
 
@@ -4027,84 +4180,262 @@ def _lt_variants(settings) -> dict:
     out_dir = _build.BUILD_DIR.parent / "lt_sweep"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for quads, rows in settings:
+    for setting in settings:
         text = src
-        for name, value in (("kSpanQuads", quads), ("kRowsPerChunk", rows)):
+        for name, value in setting.items():
             text, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};",
                               text)
             check(n == 1, f"lt_encode.cu defines {name} {n} times, not once")
-        cu = out_dir / f"lt_encode_q{quads}_r{rows}.cu"
+        key = tuple(setting.values())
+        cu = out_dir / ("lt_encode_" + "_".join(f"{k}{v}" for k, v in setting.items()) + ".cu")
         cu.write_text(text)
         lib = cu.with_suffix(".so")
-        procs[(quads, rows)] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
+        procs[key] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    fns = {}
-    p = ctypes.c_void_p
+    libs = {}
     for key, (lib, proc) in procs.items():
         log, _ = proc.communicate()
         check(proc.returncode == 0, f"nvcc of the lt_encode variant {key}:\n{log}")
-        fn = ctypes.CDLL(str(lib)).lt_encode
-        fn.argtypes = [p, p, p, p, p, p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, p, p]
-        fn.restype = ctypes.c_int
-        fns[key] = fn
-    return fns
+        libs[key] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def _lt_table(which: str, seed: int):
+    """(r, m, indices, coeffs) of the LT table the task path hands lt_encode:
+    'whole plan', all of Â at scenario 1 (a run at m = 8 on the CPU: the
+    task runs in model time, so the table does not depend on m), or 'ec2'
+    ('ec2 first'), the EC2 example's last (first) coded task (``--scale 40
+    --trials 2`` with the CPU encode: the tables do not depend on where Â
+    is encoded)."""
+    if which == "whole plan":
+        from repro_torch.kernels import autotune
+
+        r, plan = autotune.lt_task_table(seed, reserve=False)
+        return r, PAPER_M, plan.indices, plan.coeffs
+    import contextlib
+    import importlib.util
+    import io
+
+    spec = importlib.util.spec_from_file_location(
+        "ec2_repro_torch", os.path.join(HERE, "examples", "ec2_repro_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    with contextlib.redirect_stdout(io.StringIO()):
+        records = example.main([*EC2_ARGS, "--device", "cpu"])
+    rec = [rec for rec in records if rec["scheme"] in ("hcmm", "bpcc")][
+        0 if which == "ec2 first" else -1]
+    (r, m), plan = rec["a_shape"], rec["encode"]["plan"]
+    return r, m, plan.indices, plan.coeffs
+
+
+def _lt_l2_breakdown(torch, a, csr, iters: int) -> dict:
+    """Where the shipped L2 engine's time goes on a table (device time,
+    ``device_ms``): the whole launch; a launch whose unit counter is already
+    spent (the launch, the persistent grid's start and one atomic: the
+    floor); the heavy units alone (order cut to the heavy rows) and the
+    light ones alone; the CSR with no row marked heavy; and the host time
+    of a call through the wrapper and through the bare C entry."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.lt_encode import _lt_launch
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = _build.c_function("lt_encode", "lt_encode",
+                           [p, p, p, p, p, p, i, ctypes.c_longlong, i, p, p])
+    q, m = csr.order.numel(), a.shape[1]
+    out = torch.empty(q, m, device=a.device)
+    counter = torch.zeros(1, dtype=torch.int64, device=a.device)
+    spent = torch.full((1,), 1 << 60, dtype=torch.int64, device=a.device)
+
+    def launch(order=csr.order, rows=q, n_heavy=csr.n_heavy, ctr=counter, zero=True):
+        if zero:
+            ctr.zero_()
+        err = fn(a.data_ptr(), csr.row_ptr.data_ptr(), csr.cols.data_ptr(), csr.vals.data_ptr(),
+                 order.data_ptr(), out.data_ptr(), rows, m, n_heavy, ctr.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"lt_encode breakdown: cudaError {err}")
+
+    light = csr.order[csr.n_heavy:].contiguous()
+    row = {"kernel_ms": device_ms(torch, launch, iters),
+           "spent_counter_ms": device_ms(torch, lambda: launch(ctr=spent, zero=False), iters),
+           "no_heavy_split_ms": device_ms(torch, lambda: launch(n_heavy=0), iters),
+           "light_units_alone_ms": device_ms(torch, lambda: launch(light, q - csr.n_heavy, 0),
+                                             iters),
+           "host_ms_wrapper": host_ms(torch, lambda: _lt_launch(a, csr, engine="l2"), 50),
+           "host_ms_direct": host_ms(torch, launch, 50)}
+    if csr.n_heavy:
+        row["heavy_units_alone_ms"] = device_ms(
+            torch, lambda: launch(rows=csr.n_heavy), iters)
+    return row
 
 
 def sweep_lt(torch, args, smi: str) -> None:
-    """lt_encode alone at the LT task's reserve slice (A [5,000, 500,000])
-    for each span width (128 x 1, 2, 4, 8 columns), light rows per unit (8,
-    16, 32) and with and without the heavy-row split (a CSR that marks no
-    row heavy), each a variant of lt_encode.cu built here, timed in turns
-    with torch.sparse.mm on the same CSR and held to the plain version's
-    bits; one JSON line.  The table is the task's own (scenario 1, this
-    seed): the task runs in model time, so its trajectory does not depend
-    on m and a run at m = 8 on the CPU gives it."""
-    from repro_torch.kernels import autotune, ref
-    from repro_torch.kernels.lt_encode import _lt_csr
+    """lt_encode's two engines at the task path's two table shapes, each
+    setting a variant of lt_encode.cu built here, held to the plain
+    version's bits and timed (device time) in turns with torch.sparse.mm on
+    the same CSR; one JSON line a shape.  At the whole LT plan (A [5,000,
+    500,000], too large a table for a slab) the L2 engine for each span
+    width (128 x 1, 2, 4, 8 columns), light rows per unit (8, 16, 32) and
+    with and without the heavy-row split (a CSR that marks no row heavy);
+    at the EC2 example's last and first coded tasks (A [500, 10,000] and
+    [125, 10,000]) the slab engine for each kLaneCols (1, 2, 4) and span
+    width (16, 32, 64) that fits, beside the shipped L2 engine; at each
+    table where the shipped L2 engine's time goes (``_lt_l2_breakdown``)."""
+    import ctypes
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lt_encode import (LT_SLAB_LANE_COLS, LT_SLAB_SMEM, _lt_csr,
+                                               _sm_count, lt_slab_plan, lt_slab_smem)
 
     t0 = time.perf_counter()
-    variants = _lt_variants(sorted({(quads, rows) for quads, rows, _ in LT_SWEEP}))
+    libs = _lt_variants(
+        [{"kSpanQuads": quads, "kRowsPerChunk": rows}
+         for quads, rows in sorted({(quads, rows) for quads, rows, _ in LT_SWEEP})]
+        + [{"kLaneCols": lc} for lc in sorted({lc for lc, _ in LT_SLAB_SWEEP})])
     build_s = time.perf_counter() - t0
-    r, plan = autotune.lt_task_table(args.seed)
     dev = torch.device("cuda")
-    a = torch.randn(r, PAPER_M, device=dev,
-                    generator=torch.Generator(device=dev).manual_seed(args.seed))
-    i_t = torch.as_tensor(plan.indices, device=dev)
-    c_t = torch.as_tensor(plan.coeffs, device=dev)
-    q, m = i_t.shape[0], PAPER_M
-    want = ref.ref_lt_encode(a, i_t, c_t)
-    csr = _lt_csr(i_t, c_t, r)
-    sparse = torch.sparse_csr_tensor(csr.row_ptr, csr.cols.long(), csr.vals, size=(q, r),
-                                     check_invariants=False)
-    stream = torch.cuda.current_stream().cuda_stream
-    runs = []
-    for quads, rows, heavy in LT_SWEEP:
-        fn, c = variants[(quads, rows)], csr if heavy else csr._replace(n_heavy=0)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for which in ("whole plan", "ec2", "ec2 first"):
+        r, m, idx, cof = _lt_table(which, args.seed)
+        a = torch.randn(r, m, device=dev, generator=gen)
+        i_t = torch.as_tensor(idx, device=dev)
+        c_t = torch.as_tensor(cof, device=dev)
+        q = i_t.shape[0]
+        want = ref.ref_lt_encode(a, i_t, c_t)
+        csr = _lt_csr(i_t, c_t, r)
+        u, nnz = csr.n_used, csr.cols.numel()
+        sparse = torch.sparse_csr_tensor(csr.row_ptr, csr.cols.long(), csr.vals, size=(q, r),
+                                         check_invariants=False)
+        library = lambda: torch.sparse.mm(sparse, a)  # noqa: E731
+        iters = 3 if which == "whole plan" else 20
         out = torch.empty(q, m, device=dev)
         counter = torch.zeros(1, dtype=torch.int64, device=dev)
+        runs = []
 
-        def launch():
-            counter.zero_()
-            err = fn(a.data_ptr(), c.row_ptr.data_ptr(), c.cols.data_ptr(), c.vals.data_ptr(),
-                     c.order.data_ptr(), out.data_ptr(), q, m, c.n_heavy, counter.data_ptr(),
-                     stream)
-            check(err == 0, f"lt_encode variant ({quads}, {rows}): cudaError {err}")
+        def timed(launch, entry: dict) -> None:
+            out.zero_()
+            launch()
+            torch.cuda.synchronize()
+            exact = torch.equal(out, want)
+            turns = [device_ms(torch, fn, iters) for fn in (launch, library, library, launch)]
+            entry.update(kernel_ms=(turns[0] + turns[3]) / 2, library_ms=(turns[1] + turns[2]) / 2,
+                         turns_ms=turns, bit_equal=exact)
+            entry["ratio"] = entry["kernel_ms"] / entry["library_ms"]
+            runs.append(entry)
+            check(exact, f"lt_encode {which} {entry}: not the plain version's bits")
 
-        launch()
-        torch.cuda.synchronize()
-        exact = torch.equal(out, want)
-        kernel_ms, library_ms, turns = time_turns(
-            torch, launch, lambda: torch.sparse.mm(sparse, a), 3, warmup=1)
-        runs.append({"span": 128 * quads, "rows_per_chunk": rows, "heavy_split": heavy,
-                     "kernel_ms": kernel_ms, "library_ms": library_ms,
-                     "ratio": kernel_ms / library_ms, "turns_ms": turns, "bit_equal": exact})
-        check(exact, f"lt_encode span {128 * quads}, {rows} rows, heavy {heavy}: "
-                     "not the plain version's bits")
-        del out
-    emit({"phase": "sweep lt", "q": q, "r": r, "m": m, "nonzeros": int(csr.cols.numel()),
-          "heavy_rows": csr.n_heavy, "max_degree": int((c_t != 0).sum(1).max()),
-          "variant_build_s": build_s, "card": smi, "runs": runs})
+        sweeps = LT_SWEEP if which == "whole plan" else [(1, 16, True)]
+        for quads, rows, heavy in sweeps:
+            fn = libs[(quads, rows)].lt_encode
+            fn.argtypes = [p, p, p, p, p, p, i, ctypes.c_longlong, i, p, p]
+            fn.restype = ctypes.c_int
+            c = csr if heavy else csr._replace(n_heavy=0)
+
+            def launch(fn=fn, c=c):
+                counter.zero_()
+                err = fn(a.data_ptr(), c.row_ptr.data_ptr(), c.cols.data_ptr(), c.vals.data_ptr(),
+                         c.order.data_ptr(), out.data_ptr(), q, m, c.n_heavy, counter.data_ptr(),
+                         stream())
+                check(err == 0, f"lt_encode variant ({quads}, {rows}): cudaError {err}")
+
+            timed(launch, {"engine": "l2", "span": 128 * quads, "rows_per_chunk": rows,
+                           "heavy_split": heavy})
+        if which != "whole plan":
+            for lane_cols, width in LT_SLAB_SWEEP:
+                smem = lt_slab_smem(q, u, nnz, width)
+                if smem > LT_SLAB_SMEM:
+                    continue
+                fn = libs[(lane_cols,)].lt_encode_slab
+                fn.argtypes = [p, p, p, p, p, p, i, i, i, ctypes.c_longlong, i, p]
+                fn.restype = ctypes.c_int
+
+                def launch(fn=fn, width=width):
+                    err = fn(a.data_ptr(), csr.slab_ptr.data_ptr(), csr.slab_ent.data_ptr(),
+                             csr.order.data_ptr(), csr.used.data_ptr(), out.data_ptr(), q, u, nnz,
+                             m, width, stream())
+                    check(err == 0, f"lt_encode slab variant ({lane_cols}, {width}): "
+                                    f"cudaError {err}")
+
+                timed(launch, {"engine": "slab", "lane_cols": lane_cols, "width": width,
+                               "smem_bytes": smem})
+        breakdown = _lt_l2_breakdown(torch, a, csr, iters)
+        shipped = None if csr.used is None else lt_slab_plan(q, u, nnz, m,
+                                                             _sm_count(dev.index or 0))
+        emit({"phase": "sweep lt", "table": which, "q": q, "r": r, "m": m, "nonzeros": nnz,
+              "shipped": {"engine": "l2"} if shipped is None else
+              {"engine": "slab", "lane_cols": LT_SLAB_LANE_COLS, "width": shipped.width},
+              "a_rows_used": u, "heavy_rows": csr.n_heavy,
+              "max_degree": int((c_t != 0).sum(1).max()), "variant_build_s": build_s,
+              "card": smi, "l2_breakdown": breakdown, "runs": runs,
+              "best": min(runs, key=lambda e: e["kernel_ms"])})
+        del a, i_t, c_t, want, csr, sparse, out
+        torch.cuda.empty_cache()
+
+
+GAUSS_SWEEP_Q = (16, 26, 32, 33, 48, 64, 96, 128, 256, 564)
+GAUSS_SWEEP_R = 500
+# the parity raises' shape on the serve paths, G [16, 13] x A [13, br d]
+GAUSS_SWEEP_RAISES = (("glm4-9b raise", 16, 13, 11658 * 4096),
+                      ("mamba2-130m raise", 16, 13, 3868 * 768))
+
+
+def sweep_gauss(torch, args, smi: str) -> None:
+    """gaussian_encode's two engines at G [q, 500] x A [500, 500,000], the
+    Gaussian task's r and m, for each q of GAUSS_SWEEP_Q, and at the parity
+    raises' G [16, 13] (GAUSS_SWEEP_RAISES): each held to the plain version
+    (1e-4 x max(1, max|plain|)) and timed in turns with torch.matmul
+    (register, wide, matmul, matmul, wide, register); one JSON line a
+    shape, then the threshold the sweep finds at r = 500: the largest q at
+    which the register engine is the faster (the measurement behind
+    GAUSSIAN_WIDE_MIN_Q)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lt_encode import GAUSSIAN_WIDE_MIN_Q, gaussian_encode_cuda
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    lines = []
+    shapes = [(f"q {q}", q, GAUSS_SWEEP_R, PAPER_M) for q in GAUSS_SWEEP_Q]
+    for label, q, r, m in [*shapes, *GAUSS_SWEEP_RAISES]:
+        if not lines or (r, m) != (lines[-1]["r"], lines[-1]["m"]):
+            a = None
+            torch.cuda.empty_cache()
+            a = torch.randn(r, m, device=dev, generator=gen)
+        g = torch.randn(q, r, device=dev, generator=gen) / r ** 0.5
+        want = ref.ref_gaussian_encode(g, a)
+        tol = 1e-4 * max(1.0, float(want.abs().max()))
+        calls = {eng: (lambda eng=eng: gaussian_encode_cuda(g, a, engine=eng))
+                 for eng in ("register", "wide")}
+        errs = {}
+        for eng, call in calls.items():
+            got = call()
+            torch.cuda.synchronize()
+            errs[eng] = max_err(torch, got, want)[0]
+            del got
+        del want
+        order = ("register", "wide", "matmul", "matmul", "wide", "register")
+        fns = {**calls, "matmul": lambda: torch.matmul(g, a)}
+        turns = [time_ms(torch, fns[k], 10) for k in order]
+        ms = {k: sum(t for o, t in zip(order, turns) if o == k) / 2 for k in fns}
+        line = {"phase": "sweep gauss", "shape": label, "q": q, "r": r, "m": m,
+                "register_ms": ms["register"],
+                "wide_ms": ms["wide"], "library_ms": ms["matmul"],
+                "ratio_register": ms["register"] / ms["matmul"],
+                "ratio_wide": ms["wide"] / ms["matmul"], "turns_ms": turns,
+                "max_abs_err": errs, "tol": tol, "card": smi}
+        emit(line)
+        lines.append(line)
+        check(all(e <= tol for e in errs.values()), f"sweep gauss q = {q}: {errs} > {tol}")
+        del g
+    register_wins = [ln["shape"] for ln in lines if ln["register_ms"] <= ln["wide_ms"]]
+    emit({"phase": "sweep gauss",
+          "threshold_found": max((ln["q"] for ln in lines if ln["r"] == GAUSS_SWEEP_R
+                                  and ln["shape"] in register_wins), default=0),
+          "register_wins_at": register_wins, "GAUSSIAN_WIDE_MIN_Q": GAUSSIAN_WIDE_MIN_Q,
+          "card": smi})
 
 
 # (warps, rows a warp, 16-byte words of a row in flight a lane):
@@ -4682,9 +5013,15 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler window over 3 engine steps")
     ap.add_argument("--sweep-lt", action="store_true",
-                    help="only build, check the encode kernels and sweep lt_encode's "
-                         "span width, light rows a unit and heavy split at the LT task's "
-                         "shape (no serve, no device line)")
+                    help="only build, check the encode kernels and sweep lt_encode's two "
+                         "engines: the L2 engine's span width, light rows a unit and heavy "
+                         "split at the whole LT plan, the slab engine's lane columns and "
+                         "span width at the EC2 example's tables (no serve, no device line)")
+    ap.add_argument("--sweep-gauss", action="store_true",
+                    help="only build, check the encode kernels and time gaussian_encode's "
+                         "register and tensor-core engines at q = 16 to 564, r = 500, "
+                         "m = 500,000 in turns with torch.matmul (GAUSSIAN_WIDE_MIN_Q; no "
+                         "serve, no device line)")
     ap.add_argument("--sweep-ssd", action="store_true",
                     help="only build, check the SSD kernels and sweep ssd_scan.cu's "
                          "tensor-core settings at the 4096- and 1000-token Mamba-2 cells, "
@@ -4724,10 +5061,11 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     if args.sweep_lt:
         kernel_gaussian(torch, gen, results)
-        gaussian_row(torch, torch.randn(26, 500, device="cuda", generator=gen),
-                     torch.randn(500, PAPER_M, device="cuda", generator=gen),
-                     "task reserve slice shape, random G", 20)
         sweep_lt(torch, args, smi)
+        return 0
+    if args.sweep_gauss:
+        kernel_gaussian(torch, gen, results)
+        sweep_gauss(torch, args, smi)
         return 0
     if args.sweep_ssd:
         kernel_ssd(torch, results)
@@ -4920,9 +5258,13 @@ def main() -> int:
         launches = phase.get("device_encode", phase)["launches"]
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": launches[name], "max_abs_err": r["max_abs_err"],
-                 # of those, the wide engine's (the head kernels; None where
-                 # the kernel has one engine)
+                 # the engine the timed row ran (gaussian_encode: register or
+                 # wide; lt_encode: slab or l2), and of the launches the
+                 # second engine's (wide or slab; None where the kernel has
+                 # one engine)
+                 "engine": r.get("engine"),
                  "wide_launches": launches.get(f"{name}_wide"),
+                 "slab_launches": launches.get(f"{name}_slab"),
                  "ms": r["ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                  "library_ms": r["library_ms"], "path": path, "shape": r["shape"]}

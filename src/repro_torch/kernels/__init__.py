@@ -6,15 +6,15 @@ import re
 import tempfile
 import warnings
 
-# a substring of each kernel's symbol, by kernel name: what names the
-# kernel's nodes in a captured CUDA graph
-_SYMBOLS = {"coded_matvec": "MatvecTask",
-            "coded_matvec_decode": "DecodeTask",
-            "gaussian_encode": "gaussian_encode_kernel",
-            "lt_encode": "lt_encode_kernel",
-            "masked_pinv": "masked_pinv_kernel",
-            "ssd_chunk": "ssd_chunk_",
-            "ssd_combine": "ssd_combine_"}
+# substrings of each kernel's symbols (one an engine), by kernel name: what
+# names the kernel's nodes in a captured CUDA graph
+_SYMBOLS = {"coded_matvec": ("MatvecTask",),
+            "coded_matvec_decode": ("DecodeTask",),
+            "gaussian_encode": ("gaussian_encode_kernel", "WideGaussianTask"),
+            "lt_encode": ("lt_encode_kernel", "lt_slab_kernel"),
+            "masked_pinv": ("masked_pinv_kernel",),
+            "ssd_chunk": ("ssd_chunk_",),
+            "ssd_combine": ("ssd_combine_",)}
 # what names the wide engine's kernel (csrc/wide_rows.cuh), beside the
 # head kernels' own symbols above
 _WIDE_SYMBOL = "wide_rows_kernel"
@@ -57,25 +57,23 @@ def refuse_grad(wrapper, *tensors) -> None:
             f"autograd Function")
 
 
-def count_launch(wrapper, wide: bool = False) -> None:
+def count_launch(wrapper, engine: str | None = None) -> None:
     """Count one call of ``wrapper``'s C entry on the current stream.  While
     that stream captures a CUDA graph nothing launches: the kernel is
     recorded into the graph and goes to ``wrapper.captured``; it runs, and
-    is counted, at each replay.  ``wide``: the call launched the wide
-    engine (the head kernels' x of ``WIDE_MIN_B`` columns and more), also
-    counted in ``wrapper.wide_launches`` (``wide_captured``)."""
+    is counted, at each replay.  ``engine``: the call launched a second
+    engine of the kernel, also counted in ``wrapper.<engine>_launches``
+    (``<engine>_captured``): ``'wide'``, the tensor-core engine of the head
+    kernels (x of ``WIDE_MIN_B`` columns and more) and of
+    ``gaussian_encode`` (q over ``GAUSSIAN_WIDE_MIN_Q`` rows); ``'slab'``,
+    ``lt_encode``'s shared-memory slab engine."""
     import torch
 
-    capturing = torch.cuda.is_current_stream_capturing()
-    if capturing:
-        wrapper.captured += 1
-    else:
-        wrapper.launches += 1
-    if wide:
-        if capturing:
-            wrapper.wide_captured += 1
-        else:
-            wrapper.wide_launches += 1
+    kind = "captured" if torch.cuda.is_current_stream_capturing() else "launches"
+    setattr(wrapper, kind, getattr(wrapper, kind) + 1)
+    if engine is not None:
+        name = f"{engine}_{kind}"
+        setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def graph_kernel_nodes(graph) -> dict[str, int]:
@@ -111,12 +109,13 @@ def count_kernel_nodes(dot: str) -> dict[str, int]:
     kernel's symbol; a node is counted once however often its label names
     it (mangled and demangled)."""
     nodes = _dot_nodes(dot)
-    return {name: sum(sym in node for node in nodes) for name, sym in _SYMBOLS.items()}
+    return {name: sum(any(sym in node for sym in syms) for node in nodes)
+            for name, syms in _SYMBOLS.items()}
 
 
 def count_wide_nodes(dot: str) -> dict[str, int]:
     """Count, in a CUDA graph's DOT text, each head kernel's nodes that are
     the wide engine's (their label names both symbols)."""
     nodes = _dot_nodes(dot)
-    return {name: sum(_SYMBOLS[name] in node and _WIDE_SYMBOL in node for node in nodes)
+    return {name: sum(_SYMBOLS[name][0] in node and _WIDE_SYMBOL in node for node in nodes)
             for name in _WIDE_KERNELS}

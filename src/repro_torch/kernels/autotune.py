@@ -29,10 +29,14 @@ small eager op, one ``svd_recovery``: a ``masked_pinv`` launch).
 Cells: the five coded heads (glm4-9b, mamba2-130m, zamba2-1.2b,
 llama-3.2-vision-11b, dbrx-132b at (14, 2)) at B = 1 and 4, a glm4-9b code
 block at B = 1 and 4, the five (13, 3) parity raises, the Gaussian task's
-reserve G [26, 500] x A [500, 200000] and the LT task's (paper §5.1
-scenario 1, its reserve table from a run at m = 8 on the CPU: the task runs
-in model time, so the table does not depend on m).  ``--quick``: the
-glm4-9b head, block and raise at B = 4.  Needs one CUDA device.
+whole plan G [564, 500] x A [500, 500000] and the LT task's reserve slice
+(paper §5.1 scenario 1, its table from a run at m = 8 on the CPU: the task
+runs in model time, so the table does not depend on m).  ``--quick``: the
+glm4-9b head, block and raise at B = 4.  ``--ops gaussian_encode,lt_encode
+--merge PATH`` measures only those ops' cells and writes them over the
+same cells of the table at PATH, keeping its other entries and their
+measurement's meta (``meta.remeasured`` records the merge).  Needs one
+CUDA device.
 """
 from __future__ import annotations
 
@@ -55,7 +59,7 @@ HEAD_ARCHS = ("glm4-9b", "mamba2-130m", "zamba2-1.2b", "llama-3.2-vision-11b", "
 HEAD_GEOM = (14, 2)      # the served heads' (n_data, n_parity)
 RAISE_GEOM = (13, 3)     # after one parity raise
 BATCHES = (1, 4)
-GAUSSIAN_TASK = (26, 500, 200_000)
+GAUSSIAN_TASK = (564, 500, 500_000)   # the Gaussian task's whole plan (all of Â)
 LT_TASK_M = 500_000
 ERASED = (3, 11)         # the two erased shards of every coded-head cell
 TIE = 0.01               # a candidate must beat the default's by more than this share
@@ -163,10 +167,12 @@ def measure_host(reps: int) -> dict:
             "svd_us_per_unit": svd / ((nd + npar) * nd * nd)}
 
 
-def lt_task_table(seed: int = 0):
-    """The LT task's reserve slice (paper §5.1 scenario 1, worker 0 dying and
-    worker 1 slowing 5x as in the reference's executor test, times scaled
-    by r / 400) from a run at m = 8 on the CPU: (r, its EncodePlan)."""
+def lt_task_table(seed: int = 0, reserve: bool = True):
+    """The LT task's reserve slice, or with ``reserve=False`` its whole plan
+    (all of Â: the static rows and the reserve), at paper §5.1 scenario 1
+    (worker 0 dying and worker 1 slowing 5x as in the reference's executor
+    test, times scaled by r / 400) from a run at m = 8 on the CPU: (r, its
+    EncodePlan)."""
     from repro_torch.cluster import ClusterEmulator, TaskSpec, ec2_scenario
     from repro_torch.core.adaptive import ChurnEvent, ChurnSchedule, ReallocationPolicy
 
@@ -181,6 +187,8 @@ def lt_task_table(seed: int = 0):
                 TaskSpec(scheme="bpcc", code="lt", adaptive=ReallocationPolicy(),
                          churn=churn, encode_mode="device"))
     enc = em.last_encode  # all of Â was encoded; the reserve is its tail
+    if not reserve:
+        return r, enc["plan"]
     return r, enc["plan"].slice_rows(enc["static_rows"], enc["rows"])
 
 
@@ -309,8 +317,10 @@ def card_meta() -> dict:
             "torch": torch.__version__, "cuda": torch.version.cuda}
 
 
-def tune(quick: bool = False, reps: int = 25, seed: int = 0) -> dict:
-    """Measure the grid of cells on the card and return the table."""
+def tune(quick: bool = False, reps: int = 25, seed: int = 0,
+         ops: tuple[str, ...] | None = None) -> dict:
+    """Measure the grid of cells (of ``ops`` only, if given) on the card and
+    return the table."""
     import torch
 
     if not torch.cuda.is_available():
@@ -321,7 +331,22 @@ def tune(quick: bool = False, reps: int = 25, seed: int = 0) -> dict:
     meta.update(quick=quick, reps=reps, seed=seed, measured_host=measure_host(reps))
     print(f"# autotune on {meta['card']} (torch {meta['torch']}, CUDA {meta['cuda']}): "
           f"quick={quick} reps={reps}; host {meta['measured_host']}", flush=True)
-    return build_table(measure(cells(quick), reps, seed), meta)
+    grid = [(op, g) for op, g in cells(quick) if ops is None or op in ops]
+    return build_table(measure(grid, reps, seed), meta)
+
+
+def merge_table(base: dict, new: dict) -> dict:
+    """``base`` with each of ``new``'s entries in place of base's entry of the
+    same (op, shape, dtype, backend), the rest kept; ``meta.remeasured``
+    records what ``new`` measured, on which card."""
+    key = lambda e: (e["op"], e["shape"], e["dtype"], e["backend"])  # noqa: E731
+    fresh = {key(e): e for e in new["entries"]}
+    ops = sorted({e["op"] for e in new["entries"]})
+    entries = [e for e in base["entries"] if key(e) not in fresh and e["op"] not in ops]
+    doc = dict(base, entries=entries + list(fresh.values()))
+    doc["flagged_cells"] = int(sum(e["flagged"] for e in doc["entries"]))
+    doc["meta"] = dict(base["meta"], remeasured={"ops": ops, **new["meta"]})
+    return doc
 
 
 def write_table(doc: dict, out: str | os.PathLike) -> Path:
@@ -340,8 +365,16 @@ def main(argv: list[str] | None = None) -> int:
                     help="the glm4-9b head, code block and raise at B = 4 only")
     ap.add_argument("--reps", type=int, default=25, help="interleaved turns per cell")
     ap.add_argument("--out", default=str(DEFAULT_OUT), help="table path (default: %(default)s)")
+    ap.add_argument("--ops", default=None,
+                    help="comma-separated ops whose cells alone are measured")
+    ap.add_argument("--merge", default=None,
+                    help="a table whose other entries the result keeps (with --ops)")
     args = ap.parse_args(argv)
-    doc = tune(args.quick, args.reps)
+    ops = tuple(args.ops.split(",")) if args.ops else None
+    doc = tune(args.quick, args.reps, ops=ops)
+    if args.merge:
+        with open(args.merge) as f:
+            doc = merge_table(json.load(f), doc)
     out = write_table(doc, args.out)
     for e in doc["entries"]:
         print(f"  {e['op']} {e['shape']}: {e['impl']} {e['us']:.1f}us "

@@ -101,7 +101,7 @@ def _launch_wide(w_coded: torch.Tensor, x: torch.Tensor, rec: torch.Tensor,
     err = thin_rows.call_on(w_coded.device, _wide_entry(), w_coded.data_ptr(), x.data_ptr(),
                             xp.data_ptr(), rec.data_ptr(), out.data_ptr(), br, m, b, nb, n_data,
                             plan.grid, plan.cols, plan.stages, plan.smem_bytes)
-    count_launch(coded_matvec_decode_cuda, wide=True)
+    count_launch(coded_matvec_decode_cuda, "wide")
     if err != 0:
         raise RuntimeError(f"coded_matvec_decode (wide) launch failed: cudaError {err}")
     return out

@@ -95,7 +95,7 @@ def _launch_wide(a: torch.Tensor, x: torch.Tensor, b: int) -> torch.Tensor:
     err = thin_rows.call_on(a.device, _wide_entry(), a.data_ptr(), x.data_ptr(), xp.data_ptr(),
                             out.data_ptr(), r, m, b, int(half), plan.grid, plan.cols,
                             plan.stages, plan.smem_bytes)
-    count_launch(coded_matvec_cuda, wide=True)
+    count_launch(coded_matvec_cuda, "wide")
     if err != 0:
         raise RuntimeError(f"coded_matvec (wide) launch failed: cudaError {err}")
     return out

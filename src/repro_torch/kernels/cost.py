@@ -44,6 +44,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
+from repro_torch.kernels.wide_rows import GAUSSIAN_WIDE_MIN_Q as _GAUSSIAN_WIDE_MIN_Q
 from repro_torch.kernels.wide_rows import MAX_TILE_COLS as _WIDE_COLS
 from repro_torch.kernels.wide_rows import WIDE_MIN_B as _WIDE_MIN_B
 
@@ -276,16 +277,27 @@ def encode_costs(
 ) -> dict[str, KernelCost]:
     """Candidates for the encode kernels (dense gaussian / sparse LT).
 
-    On the card ``gaussian_encode`` reads A once a q-tile of at most 32 rows;
-    ``lt_encode`` reads each row of A it needs once (at most r of them: the
-    slabs stay in the L2) for ``nnz`` nonzero entries (default q * d_max).
+    On the card ``gaussian_encode`` up to ``GAUSSIAN_WIDE_MIN_Q`` rows runs
+    on its register engine, which reads A once a q-tile of at most 32 rows;
+    above it on the tensor-core engine, which reads A once a column tile of
+    up to 256 rows of G, takes six bf16 products an fp32 one and splits G
+    in one more node (its pieces, 6 bytes an element, written and read
+    once).  ``lt_encode`` reads each row of A it needs once (at most r of
+    them: the slab engine stages a span's slab of them in shared memory
+    once, the L2 engine keeps it in the L2) for ``nnz`` nonzero entries
+    (default q * d_max).
     """
     if kind == "gaussian":
         gemm = 2.0 * q * r * m
         if backend == "cuda":
-            reads = -(-q // 32)
+            if q <= _GAUSSIAN_WIDE_MIN_Q:
+                reads = -(-q // 32)
+                return {"cuda": KernelCost(
+                    flops=gemm, bytes=_F32 * (q * r + reads * r * m + q * m), nodes=0)}
+            reads, extra, extra_b, scale = _head_call(q, _F32 * q * r)
             return {"cuda": KernelCost(
-                flops=gemm, bytes=_F32 * (q * r + reads * r * m + q * m), nodes=0)}
+                flops=scale * gemm,
+                bytes=_F32 * (q * r + reads * r * m + q * m) + extra_b, nodes=extra)}
         io = _F32 * (q * r + r * m + q * m)
         return {"ref": KernelCost(flops=gemm, bytes=io, nodes=3)}
     if kind == "lt":

@@ -59,6 +59,14 @@
 //  * The decode's epilogue contracts a tile's [nb, bt, 32] coded sums with
 //    R in shared memory, 32 columns at a time, and writes only [n_data, bt,
 //    32]; R's zero columns keep an erased block's finite garbage out.
+//  * A Task may declare kTransposedW: W is then the transpose of a
+//    row-major source S [K, rows] (gaussian_encode.cu's dense encode, W =
+//    A^T).  A stage's W tile arrives as four TMA boxes [32 K][32 rows] of S
+//    (128-byte swizzle), the consumers read each fragment element by
+//    element in that layout (no bank conflicts: Frags<float>::load), the producer's
+//    own loads fill the same layout, and the items run column-tile-minor,
+//    so the column tiles that share a W tile are in flight together and
+//    the L2 serves all but the first of its reads.
 // Offsets are 64-bit.  The launch geometry is computed by the wrapper
 // (kernels/wide_rows.py::wide_plan); geometry() below computes it again and
 // the C entries refuse a mismatch.
@@ -71,6 +79,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace wide_rows {
 
@@ -89,6 +98,15 @@ constexpr int kAlign = 1024;         // the ring's alignment (128-byte swizzle a
 constexpr int kBarrierBytes = 16 * kMaxStages;  // full[] and empty[] mbarriers
 constexpr int kSmemLimit = 227 * 1024;          // dynamic shared memory a block may use
 constexpr int kMaxBlocks = 32;       // code blocks of the decode at most
+constexpr int kTBoxRows = 32;        // a transposed W tile: boxes of [32 K][32 rows] fp32
+constexpr int kTBoxBytes = kTBoxRows * kWRowBytes;
+
+// Whether a Task's W is the transpose of its row-major source (Task::kTransposedW)
+template <class Task, class = void>
+struct transposed_w : std::false_type {};
+template <class Task>
+struct transposed_w<Task, std::void_t<decltype(Task::kTransposedW)>>
+    : std::integral_constant<bool, Task::kTransposedW> {};
 
 // A launch's geometry; see geometry().
 struct Geometry {
@@ -230,6 +248,14 @@ __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uin
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "l"(policy)
       : "memory");
 }
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
+                                       int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
 __device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
                                        int c0, int c1, int c2, uint64_t policy) {
   asm volatile(
@@ -325,6 +351,13 @@ __host__ __device__ __forceinline__ int swz128(int r, int k, int elt) {
   return r * 128 + ((((byte >> 4) ^ r) & 7) << 4) + (byte & 15);
 }
 
+// byte offset of W element (row, k) in a transposed stage: box row >> 5
+// holds rows 32 (row >> 5) .. + 31, a 128-byte line of 32 of them for each
+// k, swizzled as the TMA lays it
+__host__ __device__ __forceinline__ int swz128_t(int row, int k) {
+  return (row >> 5) * kTBoxBytes + swz128(k, row & 31, 4);
+}
+
 // ---- the consumers' products
 //
 // The A fragments of a stage for rows row0 and row0 + 8 (a warp's m16 slab
@@ -336,14 +369,29 @@ template <>
 struct Frags<float> {
   static constexpr int kSteps = 2;   // k16 steps of a stage (32 fp32)
   uint32_t a[kSteps][3][4];          // [step][piece][register]
+  // TW: the transposed layout (swz128_t), read a float at a time.  A warp's
+  // lanes read rows row0 .. row0 + 7 (one 32-row box, 8 apart in lane / 4)
+  // at k of one parity (4 values of k & 7 in lane % 4): the swizzled 16-byte
+  // chunks (row & 31) / 4 ^ (k & 7) are 8 distinct ones, so the 32 loads
+  // hit 32 distinct banks.
+  template <bool TW = false>
   __device__ __forceinline__ void load(const unsigned char* w, int row0, int t) {
 #pragma unroll
     for (int s = 0; s < kSteps; ++s) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int k = s * 16 + h * 8 + 2 * t;
-        const float2 va = *reinterpret_cast<const float2*>(w + swz128(row0, k, 4));
-        const float2 vb = *reinterpret_cast<const float2*>(w + swz128(row0 + 8, k, 4));
+        float2 va, vb;
+        if constexpr (TW) {
+          auto at = [&](int row, int kk) {
+            return *reinterpret_cast<const float*>(w + swz128_t(row, kk));
+          };
+          va = make_float2(at(row0, k), at(row0, k + 1));
+          vb = make_float2(at(row0 + 8, k), at(row0 + 8, k + 1));
+        } else {
+          va = *reinterpret_cast<const float2*>(w + swz128(row0, k, 4));
+          vb = *reinterpret_cast<const float2*>(w + swz128(row0 + 8, k, 4));
+        }
         split3(va.x, va.y, a[s][0][2 * h], a[s][1][2 * h], a[s][2][2 * h]);
         split3(vb.x, vb.y, a[s][0][2 * h + 1], a[s][1][2 * h + 1], a[s][2][2 * h + 1]);
       }
@@ -372,7 +420,9 @@ template <>
 struct Frags<__half> {
   static constexpr int kSteps = 4;   // k16 steps of a stage (64 fp16)
   uint32_t a[kSteps][4];
+  template <bool TW = false>
   __device__ __forceinline__ void load(const unsigned char* w, int row0, int t) {
+    static_assert(!TW, "a transposed W is fp32 only");
 #pragma unroll
     for (int s = 0; s < kSteps; ++s) {
 #pragma unroll
@@ -417,7 +467,7 @@ __device__ __forceinline__ void promote(float (&acc)[16], float (&d)[16]) {
 // tensor cores busy meanwhile.  Measured on an H100, neither independent
 // accumulators a group (interleaved), nor two stages a group, nor the next
 // stage split while a group runs, nor a deeper ring was faster.
-template <typename T, int NT>
+template <typename T, int NT, bool TW>
 struct Consumer {
   static constexpr int KS = Frags<T>::kSteps;
   static constexpr int KP = Frags<T>::kProducts;
@@ -449,7 +499,7 @@ struct Consumer {
       const unsigned char* st = smem + stage * geo.stage_bytes;
       const uint64_t desc = b_desc(smem_u32(st + geo.w_bytes), geo.x_row_bytes);
       Frags<T> f;
-      f.load(st, row0, t);
+      f.template load<TW>(st, row0, t);
       f.keep_all();  // the split is done before the first fence
 #pragma unroll
       for (int c = 0; c < NT; ++c) {
@@ -476,13 +526,15 @@ struct Consumer {
 
 // ---- the engine
 //
-// Task (see coded_matvec.cu, coded_decode.cu) provides:
+// Task (see coded_matvec.cu, coded_decode.cu, gaussian_encode.cu) provides:
 //   using Elem;                                  float or __half (W's type)
 //   void prologue(smem, geo, tid, n)             block set-up by the n consumer threads
 //   void tma_w(dst, map, bar, rt, kt, geo, pol)  W's tile by TMA
 //   const Elem* w_row(rr, rt, geo)               W's row that tile row rr of row
 //                                                tile rt is, or nullptr (no row)
 //   void epilogue(acc, smem, rt, ct, geo, row0, t, ctid)   the tile's sums
+// or, with kTransposedW = true (fp32), in place of w_row: a, the source S
+// [K, rows], and pitch, its row length in elements (load_w_t).
 
 template <typename T>
 __device__ __forceinline__ T zero_elem() {
@@ -522,6 +574,47 @@ __device__ __forceinline__ void load_w(const Task& task, unsigned char* st, int 
         *reinterpret_cast<T*>(st + swz128(r0 + i, lane + 32 * e, sizeof(T))) = v[i][e];
   }
 }
+// The same for a transposed W (Task::kTransposedW): S [K, rows] row-major
+// (task.a, row pitch task.pitch); stage kt is S's rows kt * bk .. + bk - 1
+// over the tile's 128 columns, each lane a column of each 32-column box,
+// kInFlight loads in flight, zero past S's edges.
+template <class Task>
+__device__ __forceinline__ void load_w_t(const Task& task, unsigned char* st, int rt, int kt,
+                                         const Geometry& g, int lane) {
+  constexpr int kInFlight = 8;
+  constexpr int kLoads = kTBoxRows * (kTileRows / kTBoxRows);  // (k, box) pairs of a stage
+  static_assert(kLoads % kInFlight == 0, "the loads fill the stage");
+  const int64_t col0 = static_cast<int64_t>(rt) * kTileRows + lane;
+  const int64_t k0 = static_cast<int64_t>(kt) * g.bk;
+  for (int i0 = 0; i0 < kLoads; i0 += kInFlight) {
+    float v[kInFlight];
+#pragma unroll
+    for (int i = 0; i < kInFlight; ++i) {
+      const int k = (i0 + i) >> 2, box = (i0 + i) & 3;
+      const int64_t col = col0 + kTBoxRows * box;
+      v[i] = k0 + k < g.m && col < g.rows ? task.a[(k0 + k) * task.pitch + col] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kInFlight; ++i) {
+      const int k = (i0 + i) >> 2, box = (i0 + i) & 3;
+      *reinterpret_cast<float*>(st + swz128_t(kTBoxRows * box + lane, k)) = v[i];
+    }
+  }
+}
+
+// The (row tile, column tile) of an item: row-tile-minor, or for a
+// transposed W column-tile-minor (the column tiles of a W tile together)
+template <class Task>
+__device__ __forceinline__ void item_tiles(int item, const Geometry& g, int& rt, int& ct) {
+  if constexpr (transposed_w<Task>::value) {
+    rt = item / g.n_col_tiles;
+    ct = item % g.n_col_tiles;
+  } else {
+    rt = item % g.n_row_tiles;
+    ct = item / g.n_row_tiles;
+  }
+}
+
 template <class Task, int NT>
 __global__ void __launch_bounds__(kThreads, 1)
     wide_rows_kernel(const __grid_constant__ CUtensorMap w_map,
@@ -565,12 +658,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     int stage = 0;
     uint32_t phase = 0;
     for (int item = blockIdx.x; item < geo.items; item += gridDim.x) {
-      const int rt = item % geo.n_row_tiles, ct = item / geo.n_row_tiles;
+      int rt, ct;
+      item_tiles<Task>(item, geo, rt, ct);
       for (int kt = 0; kt < geo.k_tiles; ++kt) {
         bar_wait(&empty[stage], phase ^ 1);
         unsigned char* st = smem + stage * geo.stage_bytes;
         if (!geo.tma_w) {
-          load_w(task, st, rt, kt, geo, lane);
+          if constexpr (transposed_w<Task>::value) load_w_t(task, st, rt, kt, geo, lane);
+          else load_w(task, st, rt, kt, geo, lane);
           __syncwarp();
         }
         if (lane == 0) {
@@ -590,9 +685,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // ---- the consumer warpgroups
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
-  Consumer<T, NT> con(smem, geo, full, empty, warp, lane);
+  Consumer<T, NT, transposed_w<Task>::value> con(smem, geo, full, empty, warp, lane);
   for (int item = blockIdx.x; item < geo.items; item += gridDim.x) {
-    const int rt = item % geo.n_row_tiles, ct = item / geo.n_row_tiles;
+    int rt, ct;
+    item_tiles<Task>(item, geo, rt, ct);
     con.tile();
     task.epilogue(con.acc, smem, rt, ct, geo, con.row0, con.t, tid);
   }

@@ -182,11 +182,13 @@ def encode_rows(a, plan, start: int, stop: int, mode: str | None = None, device=
 
     Dense (Gaussian) plans go through ``gaussian_encode`` with the generator
     slice ``plan.coeffs[start:stop]``; LT plans through ``lt_encode`` on the
-    degree-table slice.  ``a`` (numpy or a tensor) is cast to fp32, as the
-    reference's ``jnp.asarray`` does with x64 off.  It runs on ``device``,
-    else on ``a``'s device if ``a`` is a tensor, else on the card
-    (``repro_torch.default_device``).  Returns the [stop - start, M] fp32
-    coded rows on that device.
+    degree-table slice, whose CSR the kernel path builds here on the host
+    (``lt_csr_host``: numpy on the plan's own table) and copies to the card
+    once, so nothing compacts it there or syncs the host to size it.  ``a``
+    (numpy or a tensor) is cast to fp32, as the reference's ``jnp.asarray``
+    does with x64 off.  It runs on ``device``, else on ``a``'s device if
+    ``a`` is a tensor, else on the card (``repro_torch.default_device``).
+    Returns the [stop - start, M] fp32 coded rows on that device.
     """
     if not 0 <= start <= stop <= plan.q:
         raise ValueError(f"bad plan row range [{start}, {stop}) for q={plan.q}")
@@ -202,7 +204,18 @@ def encode_rows(a, plan, start: int, stop: int, mode: str | None = None, device=
     if plan.kind == "gaussian":
         # a dense plan's coeffs ARE the generator (indices = arange(r))
         return gaussian_encode(table(plan.coeffs), a, mode)
-    return lt_encode(a, table(plan.indices), table(plan.coeffs), mode)
+    if mode == "auto":
+        from repro_torch.kernels.dispatch import backend_of, choose_encode, dtype_of
+
+        mode = choose_encode("lt", stop - start, a.shape[0], a.shape[1],
+                             d_max=plan.indices.shape[1], dtype=dtype_of(a),
+                             backend=backend_of(a)).mode
+    if resolve_mode(mode, a) == "off":
+        return _ref.ref_lt_encode(a, table(plan.indices), table(plan.coeffs))
+    from repro_torch.kernels.lt_encode import lt_csr_host, lt_encode_csr_cuda
+
+    csr = lt_csr_host(plan.indices[start:stop], plan.coeffs[start:stop], a.shape[0])
+    return lt_encode_csr_cuda(a.contiguous(), csr.to(dev))
 
 
 def encode_blocks_device(w, n_data: int, n_parity: int, mode: str | None = None):

@@ -5,7 +5,8 @@
 columns and more: tiles of 128 rows of the weight by up to 256 columns of
 x on the tensor cores, fp32 split into three bf16 pieces, the weight read
 once a column tile.  Narrower x goes to the thin-row engine
-(``kernels/thin_rows.py``).  :func:`wide_plan` gives one launch's
+(``kernels/thin_rows.py``).  ``gaussian_encode.cu`` runs on it too, above
+``GAUSSIAN_WIDE_MIN_Q`` rows of G.  :func:`wide_plan` gives one launch's
 geometry: the row and column tiles, the shared-memory ring's stages and
 bytes and the persistent grid.  The C entries compute it again
 (``wide_rows::geometry``) and refuse a mismatch.  Pure Python, so the CPU
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-__all__ = ["WIDE_MIN_B", "WidePlan", "wide_plan"]
+__all__ = ["GAUSSIAN_WIDE_MIN_Q", "WIDE_MIN_B", "WidePlan", "wide_plan"]
 
 # the smallest width of x the wide engine takes; narrower goes to the
 # thin-row engine.  Measured on an H100 (PERF.md §6, chip_smoke.py
@@ -23,6 +24,13 @@ __all__ = ["WIDE_MIN_B", "WidePlan", "wide_plan"]
 # kernel beats the thin-row one at the glm4-9b code block, the glm4-9b W_c
 # and the mamba2-130m W_c alike
 WIDE_MIN_B = 8
+
+# the most rows of G gaussian_encode runs on its register engine
+# (gaussian_encode.cu); above it the dense encode runs on this engine as
+# out^T = A^T G^T.  Measured on an H100 (PERF.md §6, chip_smoke.py
+# --sweep-gauss at r = 500, m = 500,000): the register engine reads A once
+# up to 32 rows and wins there
+GAUSSIAN_WIDE_MIN_Q = 32
 
 # wide_rows.cuh's fixed geometry
 TILE_ROWS = 128              # rows of the weight a tile (two warpgroups of 64)

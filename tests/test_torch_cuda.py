@@ -24,10 +24,14 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.coded_decode import coded_matvec_decode_cuda
 from repro_torch.kernels.coded_matvec import coded_matvec_cuda
 from repro_torch.kernels.lt_encode import (
+    GAUSSIAN_WIDE_MIN_Q,
     LT_HEAVY_DEGREE,
     _lt_csr,
     _lt_launch,
     gaussian_encode_cuda,
+    gaussian_engine,
+    lt_csr_host,
+    lt_encode_csr_cuda,
     lt_encode_cuda,
 )
 from repro_torch.kernels.masked_pinv import masked_pinv_cuda
@@ -48,11 +52,17 @@ DECODE_SHAPES = [
 # (q, r, m): the encode's skinny K, ragged q / r / M; then every q-tile
 # edge (QT is q rounded up to 4, tiles of at most 32 rows); an r that
 # crosses G's 64 KB shared-memory panel (QT 32: 512 rows); and M spanning
-# many grid-stride steps of the persistent grid (M % 4 == 0 and != 0)
+# many grid-stride steps of the persistent grid (M % 4 == 0 and != 0); then
+# for the tensor-core engine q at GAUSSIAN_WIDE_MIN_Q and either side of
+# it, the Gaussian task's q = 564 at r = 500 with a ragged M, an r not a
+# multiple of 16 and q over two column tiles of 256
 ENCODE_SHAPES = [(16, 13, 700), (16, 14, 1), (5, 3, 129), (33, 40, 257), (1, 1, 4),
                  *((q, 13, 1031) for q in (1, 8, 9, 16, 17, 26, 32, 33, 70)),
                  (26, 500, 2048), (32, 1500, 517), (70, 2000, 260),
-                 (16, 13, 4_000_000), (26, 50, 1_000_003)]
+                 (16, 13, 4_000_000), (26, 50, 1_000_003),
+                 *((q, 500, 4099) for q in (GAUSSIAN_WIDE_MIN_Q - 1, GAUSSIAN_WIDE_MIN_Q,
+                                            GAUSSIAN_WIDE_MIN_Q + 1)),
+                 (564, 500, 100_003), (100, 77, 1001), (257, 100, 3000)]
 # (q, d_max, r, m, zero_frac): LT degree tables with zeros anywhere in a row
 # and a degree-0 row; M % 4 != 0 (scalar loads), M over several 128-column
 # spans, q = 1 with d_max = 1, rows of degree over 64 (the heavy path) and
@@ -106,15 +116,57 @@ def test_cuda_coded_matvec_decode_matches_plain(n_data, n_parity, out, inner, b)
 @pytest.mark.gpu
 @pytest.mark.parametrize("q,r,m", ENCODE_SHAPES)
 def test_cuda_gaussian_encode_matches_plain(q, r, m):
+    """The engine the wrapper picks (one launch, the tensor-core engine's
+    counted apart above GAUSSIAN_WIDE_MIN_Q rows), and the other one asked
+    for by name, each within the file's tolerance."""
     dev = _cuda()
     rng = np.random.default_rng(q * 1000 + r * 10 + m)
     g = torch.as_tensor(rng.standard_normal((q, r)).astype(np.float32), device=dev)
     a = torch.as_tensor(rng.standard_normal((r, m)).astype(np.float32), device=dev)
+    before = (gaussian_encode_cuda.launches, gaussian_encode_cuda.wide_launches)
     got = ops.gaussian_encode(g, a)
+    wide = gaussian_engine(q) == "wide"
+    assert (gaussian_encode_cuda.launches, gaussian_encode_cuda.wide_launches) == (
+        before[0] + 1, before[1] + int(wide))
+    other = gaussian_encode_cuda(g, a, engine="register" if wide else "wide")
     want = ops.gaussian_encode(g, a, mode="off")
     torch.cuda.synchronize()
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
-                               atol=1e-4 * max(1.0, want.abs().max().item()))
+    for out in (got, other):
+        np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-4 * max(1.0, want.abs().max().item()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,r,m", [(564, 500, 100_003), (48, 500, 20_000)])
+def test_cuda_gaussian_wide_engine_within_twice_fp32_error_of_float64(q, r, m):
+    """The tensor-core engine's six bf16 products against G A in float64, at
+    the Gaussian task's K: within twice fp32 torch.matmul's error."""
+    dev = _cuda()
+    rng = np.random.default_rng(q + m)
+    g = torch.as_tensor((rng.standard_normal((q, r)) / np.sqrt(r)).astype(np.float32), device=dev)
+    a = torch.as_tensor(rng.standard_normal((r, m)).astype(np.float32), device=dev)
+    want = g.double() @ a.double()
+    scale = want.abs().max().item()
+    wide = (gaussian_encode_cuda(g, a, engine="wide").double() - want).abs().max().item()
+    fp32 = (torch.matmul(g, a).double() - want).abs().max().item()
+    assert wide / scale <= 2 * fp32 / scale, (wide, fp32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 3])
+def test_cuda_gaussian_wide_engine_on_misaligned_views(offset):
+    """A view off a 16-byte boundary, and M % 4 != 0: the tensor-core
+    engine's producer warp loads A itself, into the TMA's layout."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(offset)
+    for r, m in ((500, 20_000), (77, 4097)):
+        a = torch.randn(offset + r * m, device=dev, generator=gen)[offset:].view(r, m)
+        g = torch.randn(40, r, device=dev, generator=gen)
+        got = gaussian_encode_cuda(g, a, engine="wide")
+        want = ops.gaussian_encode(g, a, mode="off")
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-4 * max(1.0, want.abs().max().item()))
 
 
 def _lt_table(q, d_max, r, zero_frac, seed):
@@ -172,9 +224,10 @@ def test_cuda_lt_encode_full_chunks_heavy_rows_and_empty_rows_bit_equal(m):
     csr = _lt_csr(i_t, c_t, 200)
     assert csr.n_heavy == 2 and LT_HEAVY_DEGREE < 70
     for c in (csr, csr._replace(n_heavy=0)):
-        got = _lt_launch(a, c)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), c.n_heavy
+        for engine in ("l2", "slab"):
+            got = _lt_launch(a, c, engine=engine)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (c.n_heavy, engine)
     assert not want[[3, 20, 21, 65]].any()
 
 
@@ -199,6 +252,76 @@ def test_cuda_encode_kernels_on_misaligned_views(offset):
     got = lt_encode_cuda(a, i_t, c_t)
     torch.cuda.synchronize()
     assert torch.equal(got, ops.lt_encode(a, i_t, c_t, mode="off"))
+
+
+def _ec2_tables():
+    """Every coded task's LT table of the EC2 example (``--scale 40 --trials
+    2``; the tables do not depend on m or on where Â is encoded): (r, idx, cof)."""
+    import contextlib
+    import importlib.util
+    import io
+    import os
+
+    path = os.path.join(os.path.dirname(__file__), "..", "examples", "ec2_repro_torch.py")
+    spec = importlib.util.spec_from_file_location("ec2_repro_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    with contextlib.redirect_stdout(io.StringIO()):
+        records = example.main(["--scale", "40", "--trials", "2", "--m", "64",
+                                "--device", "cpu"])
+    return [(rec["a_shape"][0], rec["encode"]["plan"].indices, rec["encode"]["plan"].coeffs)
+            for rec in records if rec["scheme"] in ("hcmm", "bpcc")]
+
+
+def _lt_engines_bit_equal(a, idx, cof, slab: bool):
+    """lt_encode on a and (idx, cof) through encode_rows' host CSR, the
+    wrapper's own compaction and each engine that takes the table: all the
+    plain version's bits; the slab engine launched (and counted) iff
+    ``slab``."""
+    dev = a.device
+    r = a.shape[0]
+    i_t, c_t = torch.as_tensor(idx, device=dev), torch.as_tensor(cof, device=dev)
+    want = ops.lt_encode(a, i_t, c_t, mode="off")
+    before = (lt_encode_cuda.launches, lt_encode_cuda.slab_launches)
+    got = lt_encode_csr_cuda(a, lt_csr_host(idx, cof, r).to(dev))
+    assert (lt_encode_cuda.launches, lt_encode_cuda.slab_launches) == (
+        before[0] + 1, before[1] + int(slab))
+    outs = [got, lt_encode_cuda(a, i_t, c_t), _lt_launch(a, _lt_csr(i_t, c_t, r), engine="l2")]
+    if slab:
+        outs.append(_lt_launch(a, _lt_csr(i_t, c_t, r), engine="slab"))
+    else:
+        with pytest.raises(ValueError, match="fit no slab"):
+            _lt_launch(a, _lt_csr(i_t, c_t, r), engine="slab")
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        assert torch.equal(out, want), i
+
+
+@pytest.mark.gpu
+def test_cuda_lt_encode_ec2_tables_bit_equal():
+    """The EC2 example's coded tasks' tables (r 125 to 500, q up to 598) at
+    its m = 10,000: the slab engine takes each; bit-equal on every engine."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tables = _ec2_tables()
+    assert len(tables) == 32
+    for r, idx, cof in tables[::5] + tables[-1:]:
+        _lt_engines_bit_equal(torch.randn(r, 10_000, device=dev, generator=gen), idx, cof, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,m", [(150, 3001), (None, 2000)])
+def test_cuda_lt_encode_scenario_1_tables_bit_equal(rows, m):
+    """Scenario 1's whole plan (q 8,739 over all 5,000 rows of A: a table
+    too large for a slab, so the L2 engine) and its first 150 rows (a
+    scenario-1-like table that fits one) at a small m; bit-equal."""
+    from repro_torch.kernels.autotune import lt_task_table
+
+    dev = _cuda()
+    r, plan = lt_task_table(0, reserve=False)
+    idx, cof = plan.indices[:rows], plan.coeffs[:rows]
+    a = torch.randn(r, m, device=dev, generator=torch.Generator(device=dev).manual_seed(6))
+    _lt_engines_bit_equal(a, idx, cof, rows is not None)
 
 
 @pytest.mark.gpu
