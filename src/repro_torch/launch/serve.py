@@ -24,7 +24,10 @@ over latencies seen through a ``runtime.HealthMonitor``, and with
 ``--deadline-parity`` also the trace's SLO slack.  ``--macro-steps K``
 decodes up to K steps a block at batch-full steady state, one CUDA graph a
 block on the card.  Params come from a seeded init on the device.
-``--dry-run`` prints the resolved configuration and exits.
+``--dry-run`` prints the resolved configuration and exits.  Trace mode
+runs the engine with a tracer (``utils.trace``) and prints why each
+``macro_step()`` ran scalar or fused, the share of the KV cache in use, and
+the engine's and the model's spans with their attributes.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --coded --device cpu \\
         --straggler-prob 0.25 --adaptive-parity --trace poisson --rate 4 \\
@@ -235,6 +238,7 @@ def trace_mode(args, cfg, model, params, rng, device, mask_fn, latency_fn, contr
         bursty_trace,
         poisson_trace,
     )
+    from repro_torch.utils.trace import Tracer, report_lines
 
     classes = None
     if args.tenants > 1:
@@ -266,12 +270,13 @@ def trace_mode(args, cfg, model, params, rng, device, mask_fn, latency_fn, contr
                   else DeadlineAwareParity(controller))
     t0 = time.monotonic()
     clock = lambda: time.monotonic() - t0  # noqa: E731
+    tracer = Tracer()
     eng = ServeEngine(model, params, n_slots=args.slots, s_max=args.s_max,
                       mask_fn=mask_fn, latency_fn=latency_fn,
                       parity_controller=controller, parity_policy=policy,
                       scheduler=sched, clock=clock,
                       prefill_budget=args.prefill_budget,
-                      macro_steps=args.macro_steps, device=device)
+                      macro_steps=args.macro_steps, device=device, tracer=tracer)
     del params
     while not sched.finished:
         if eng.macro_step() == 0:
@@ -291,6 +296,16 @@ def trace_mode(args, cfg, model, params, rng, device, mask_fn, latency_fn, contr
           f"deadline_parity={policy is not None}")
     print(f"  macro_steps={args.macro_steps}  fused_blocks={eng.macro_blocks}  "
           f"host_syncs/token={syncs_per_tok:.3f}")
+    # why each macro_step() ran scalar or fused, and the share of the KV
+    # cache's bytes its live positions held, averaged over decoded steps
+    c = eng.counters
+    why = " ".join(f"{k[len('choose_k.'):]}={n}" for k, n in c.items()
+                   if k.startswith("choose_k.") and n)
+    in_use = c["kv.live_bytes"] / max(c["kv.steps"] * c["kv.reserved_bytes"], 1)
+    print(f"  choose_k: {why}  kv_in_use={in_use:.1%}")
+    # where the engine's host time went: its spans, set-up's included
+    for line in report_lines(tracer.spans):
+        print("  " + line)
     if args.tenants > 1:
         for c, cls in enumerate(trace.classes):
             sel = res["tenant"] == c

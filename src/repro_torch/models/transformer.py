@@ -33,6 +33,13 @@ one code block per device.  The head mesh and kernel mode are explicit
 arguments; where they are None the reference's contexts
 (``repro_torch.sharding.ctx``) supply them.
 
+Serving's ``lm_prefill`` and ``lm_decode_step`` record spans on the tracer
+the serving engine attached (``utils.trace.current_tracer``; none without
+one): ``model.embed``, then per layer ``model.attn`` and ``model.mlp`` (an
+attention family's layer, the hybrid's shared block) or ``model.mamba``,
+each with the layer's index, then ``model.head`` (the final norm and the
+head call, the coded head's decoder-cache gather included).
+
 Training: ``lm_forward`` (with the vlm image and the summed MoE aux loss)
 and ``lm_loss`` (chunked cross-entropy).  With ``cfg.remat`` every group
 (zamba2: every ``_hybrid_layer``) runs under ``torch.utils.checkpoint``,
@@ -70,6 +77,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.models.ssm import init_mamba_block, init_mamba_state, mamba_block_apply
+from repro_torch.utils.trace import NULL, current_tracer
 
 __all__ = [
     "init_lm",
@@ -253,28 +261,31 @@ def _ffn(gp: Params, j: int, h2: torch.Tensor, cfg: ModelConfig):
 
 
 def _group_full(gp: Params, x, positions, img, *, cfg: ModelConfig, kv: Params | None = None,
-                g: int = 0):
+                g: int = 0, tr=None):
     """One group over the full sequence: (x, its MoE aux loss).  The vlm
     cross-attention runs where an image is given.  With ``kv`` (the cache's
     blocks) each layer's roped K and V are written into group ``g`` of it,
-    as the prefill's cache."""
+    as the prefill's cache.  ``tr``: the tracer of a serving prefill."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     r = group_period(cfg)
     for j in range(r):
-        h = rmsnorm(x, gp[f"ln1_{j}"], cfg.norm_eps)
-        attn = gp[f"attn_{j}"]
-        if kv is not None:
-            s = h.shape[1]
-            k = torch.einsum("bsd,dhk->bshk", h, attn["w_k"].to(h.dtype))
-            v = torch.einsum("bsd,dhk->bshk", h, attn["w_v"].to(h.dtype))
-            kv[f"attn_{j}"]["k"][g, :, :s] = apply_rope(k, positions, cfg.rope_theta).to(KV_DTYPE)
-            kv[f"attn_{j}"]["v"][g, :, :s] = v.to(KV_DTYPE)
-        x = x + attention_full(attn, h, positions, cfg.rope_theta, n_real=_n_real(cfg))
-        if cfg.family == "vlm" and j == r - 1 and img is not None:
-            hx = rmsnorm(x, gp[f"lnx_{j}"], cfg.norm_eps)
-            x = x + cross_attention(gp[f"xattn_{j}"], hx, img)
-        y, a = _ffn(gp, j, rmsnorm(x, gp[f"ln2_{j}"], cfg.norm_eps), cfg)
-        x = x + y
+        with tr.span("model.attn", layer=g * r + j) if tr else NULL:
+            h = rmsnorm(x, gp[f"ln1_{j}"], cfg.norm_eps)
+            attn = gp[f"attn_{j}"]
+            if kv is not None:
+                s = h.shape[1]
+                k = torch.einsum("bsd,dhk->bshk", h, attn["w_k"].to(h.dtype))
+                v = torch.einsum("bsd,dhk->bshk", h, attn["w_v"].to(h.dtype))
+                kv[f"attn_{j}"]["k"][g, :, :s] = apply_rope(k, positions,
+                                                            cfg.rope_theta).to(KV_DTYPE)
+                kv[f"attn_{j}"]["v"][g, :, :s] = v.to(KV_DTYPE)
+            x = x + attention_full(attn, h, positions, cfg.rope_theta, n_real=_n_real(cfg))
+            if cfg.family == "vlm" and j == r - 1 and img is not None:
+                hx = rmsnorm(x, gp[f"lnx_{j}"], cfg.norm_eps)
+                x = x + cross_attention(gp[f"xattn_{j}"], hx, img)
+        with tr.span("model.mlp", layer=g * r + j) if tr else NULL:
+            y, a = _ffn(gp, j, rmsnorm(x, gp[f"ln2_{j}"], cfg.norm_eps), cfg)
+            x = x + y
         if a is not None:
             aux = aux + a
     return x, aux
@@ -460,19 +471,23 @@ def lm_prefill(
         raise ValueError(f"cache capacity {s_max} < prompt length {s}")
     if cfg.family == "vlm" and img is None:
         raise ValueError("a vlm prefill needs the request's image embeddings (img_embed)")
-    x = params["embed"][tokens].to(adt)
+    tr = current_tracer()
+    with tr.span("model.embed") if tr else NULL:
+        x = params["embed"][tokens].to(adt)
     positions = torch.arange(s, device=tokens.device)[None, :]
     cache = lm_init_cache(cfg, b, s_max, tokens.device)
     cache["pos"].fill_(s)
     if cfg.family in ("ssm", "hybrid"):
-        x = _prefill_mamba(params, cfg, x, positions, cache, ssd_kernel_mode)
+        x = _prefill_mamba(params, cfg, x, positions, cache, ssd_kernel_mode, tr)
     else:
-        x = _prefill_groups(params, cfg, x, positions, img, cache)
-    hidden = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return _last_logits(params, hidden, cfg, head_mask, head_kernel_mode, head_mesh), cache
+        x = _prefill_groups(params, cfg, x, positions, img, cache, tr)
+    with tr.span("model.head") if tr else NULL:
+        hidden = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        logits = _last_logits(params, hidden, cfg, head_mask, head_kernel_mode, head_mesh)
+    return logits, cache
 
 
-def _prefill_groups(params, cfg, x, positions, img, cache) -> torch.Tensor:
+def _prefill_groups(params, cfg, x, positions, img, cache, tr=None) -> torch.Tensor:
     """The attention families' groups, each writing its K/V into the cache;
     a vlm group also its image cross K/V (``precompute_cross_kv``)."""
     r, n_groups = group_period(cfg), cfg.n_layers // group_period(cfg)
@@ -484,7 +499,7 @@ def _prefill_groups(params, cfg, x, positions, img, cache) -> torch.Tensor:
                                     for n in ("ck", "cv")}
     for g in range(n_groups):
         gp = _layer(params["blocks"], g)
-        x, _ = _group_full(gp, x, positions, img, cfg=cfg, kv=blocks, g=g)
+        x, _ = _group_full(gp, x, positions, img, cfg=cfg, kv=blocks, g=g, tr=tr)
         if cfg.family == "vlm":
             xa = blocks[f"xattn_{r - 1}"]
             ck, cv = precompute_cross_kv(gp[f"xattn_{r - 1}"], img)
@@ -521,7 +536,7 @@ def _uses_shared_attn(cfg: ModelConfig, i: int) -> bool:
     return cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0
 
 
-def _prefill_mamba(params, cfg, x, positions, cache, ssd_kernel_mode) -> torch.Tensor:
+def _prefill_mamba(params, cfg, x, positions, cache, ssd_kernel_mode, tr=None) -> torch.Tensor:
     """The Mamba blocks (and, for hybrid, the shared block after every
     ``attn_every``-th, each application writing its own K/V slice).  Each
     block's final state and conv tail (which may be shorter than W-1 rows)
@@ -529,9 +544,10 @@ def _prefill_mamba(params, cfg, x, positions, cache, ssd_kernel_mode) -> torch.T
     adt, s = x.dtype, x.shape[1]
     states, app = [], 0
     for i, gp in enumerate(_mamba_layers(params, cfg)):
-        h, st = mamba_block_apply(gp["mamba"], cfg, rmsnorm(x, gp["ln1"], cfg.norm_eps),
-                                  ssd_kernel_mode=ssd_kernel_mode)
-        x = x + h
+        with tr.span("model.mamba", layer=i) if tr else NULL:
+            h, st = mamba_block_apply(gp["mamba"], cfg, rmsnorm(x, gp["ln1"], cfg.norm_eps),
+                                      ssd_kernel_mode=ssd_kernel_mode)
+            x = x + h
         states.append(st)
         if _uses_shared_attn(cfg, i):
             sp = params["shared_attn"]
@@ -541,17 +557,22 @@ def _prefill_mamba(params, cfg, x, positions, cache, ssd_kernel_mode) -> torch.T
             cache["shared_attn"]["k"][app, :, :s] = apply_rope(
                 k, positions, cfg.rope_theta).to(KV_DTYPE)
             cache["shared_attn"]["v"][app, :, :s] = v.to(KV_DTYPE)
-            x = _shared_attn_apply(sp, cfg, x, positions)
+            x = _shared_attn_apply(sp, cfg, x, positions, tr, i)
             app += 1
     cache["blocks"] = _mamba_cache(cfg, states)
     return x
 
 
-def _shared_attn_apply(sp: Params, cfg: ModelConfig, x, positions) -> torch.Tensor:
-    h = rmsnorm(x, sp["ln1"], cfg.norm_eps)
-    x = x + attention_full(sp["attn"], h, positions, cfg.rope_theta)
-    h2 = rmsnorm(x, sp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(sp["mlp"], h2, cfg.mlp)
+def _shared_attn_apply(sp: Params, cfg: ModelConfig, x, positions, tr=None,
+                       layer: int = 0) -> torch.Tensor:
+    """The zamba2 shared block over the full sequence; ``tr``: the tracer
+    of a serving prefill."""
+    with tr.span("model.attn", layer=layer) if tr else NULL:
+        h = rmsnorm(x, sp["ln1"], cfg.norm_eps)
+        x = x + attention_full(sp["attn"], h, positions, cfg.rope_theta)
+    with tr.span("model.mlp", layer=layer) if tr else NULL:
+        h2 = rmsnorm(x, sp["ln2"], cfg.norm_eps)
+        return x + mlp_apply(sp["mlp"], h2, cfg.mlp)
 
 
 def lm_decode_step(
@@ -568,19 +589,22 @@ def lm_decode_step(
     ``pos + 1`` and the new Mamba states."""
     adt = _dtype(cfg.dtype)
     pos = cache["pos"]
-    x = params["embed"][tokens][:, None].to(adt)  # [B,1,D]
+    tr = current_tracer()
+    with tr.span("model.embed") if tr else NULL:
+        x = params["embed"][tokens][:, None].to(adt)  # [B,1,D]
     new_cache = dict(cache, pos=pos + 1)
     if cfg.family in ("ssm", "hybrid"):
         old, states, app = _mamba_states(cfg, cache["blocks"]), [], 0
         for i, gp in enumerate(_mamba_layers(params, cfg)):
-            h, st = mamba_block_apply(gp["mamba"], cfg, rmsnorm(x, gp["ln1"], cfg.norm_eps),
-                                      state=old[i])
-            x = x + h
+            with tr.span("model.mamba", layer=i) if tr else NULL:
+                h, st = mamba_block_apply(gp["mamba"], cfg, rmsnorm(x, gp["ln1"], cfg.norm_eps),
+                                          state=old[i])
+                x = x + h
             states.append(st)
             if _uses_shared_attn(cfg, i):
                 kv = cache["shared_attn"]
                 x = _shared_attn_decode(params["shared_attn"], cfg, kv["k"][app], kv["v"][app],
-                                        x, pos)
+                                        x, pos, tr, i)
                 app += 1
         new_cache["blocks"] = _mamba_cache(cfg, states)
     else:
@@ -588,28 +612,35 @@ def lm_decode_step(
         for g in range(cfg.n_layers // r):
             gp = _layer(params["blocks"], g)
             for j in range(r):
-                h = rmsnorm(x, gp[f"ln1_{j}"], cfg.norm_eps)
-                kv = blocks[f"attn_{j}"]
-                x = x + attention_decode(gp[f"attn_{j}"], h, kv["k"][g], kv["v"][g], pos,
-                                         cfg.rope_theta, n_real=_n_real(cfg),
-                                         aligned=cfg.aligned_decode)
-                if cfg.family == "vlm" and j == r - 1:
-                    hx = rmsnorm(x, gp[f"lnx_{j}"], cfg.norm_eps)
-                    xa = blocks[f"xattn_{j}"]
-                    x = x + cross_attention_cached(gp[f"xattn_{j}"], hx, xa["ck"][g], xa["cv"][g])
-                x = x + _ffn(gp, j, rmsnorm(x, gp[f"ln2_{j}"], cfg.norm_eps), cfg)[0]
-    hidden = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return (_last_logits(params, hidden, cfg, head_mask, head_kernel_mode, head_mesh),
-            new_cache)
+                with tr.span("model.attn", layer=g * r + j) if tr else NULL:
+                    h = rmsnorm(x, gp[f"ln1_{j}"], cfg.norm_eps)
+                    kv = blocks[f"attn_{j}"]
+                    x = x + attention_decode(gp[f"attn_{j}"], h, kv["k"][g], kv["v"][g], pos,
+                                             cfg.rope_theta, n_real=_n_real(cfg),
+                                             aligned=cfg.aligned_decode)
+                    if cfg.family == "vlm" and j == r - 1:
+                        hx = rmsnorm(x, gp[f"lnx_{j}"], cfg.norm_eps)
+                        xa = blocks[f"xattn_{j}"]
+                        x = x + cross_attention_cached(gp[f"xattn_{j}"], hx, xa["ck"][g],
+                                                       xa["cv"][g])
+                with tr.span("model.mlp", layer=g * r + j) if tr else NULL:
+                    x = x + _ffn(gp, j, rmsnorm(x, gp[f"ln2_{j}"], cfg.norm_eps), cfg)[0]
+    with tr.span("model.head") if tr else NULL:
+        hidden = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        logits = _last_logits(params, hidden, cfg, head_mask, head_kernel_mode, head_mesh)
+    return logits, new_cache
 
 
-def _shared_attn_decode(sp: Params, cfg: ModelConfig, ck, cv, x, pos) -> torch.Tensor:
+def _shared_attn_decode(sp: Params, cfg: ModelConfig, ck, cv, x, pos, tr=None,
+                        layer: int = 0) -> torch.Tensor:
     """The zamba2 shared block at decode, on one application's K/V slice
     (views into the stacked cache, written in place)."""
-    h = rmsnorm(x, sp["ln1"], cfg.norm_eps)
-    x = x + attention_decode(sp["attn"], h, ck, cv, pos, cfg.rope_theta)
-    h2 = rmsnorm(x, sp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(sp["mlp"], h2, cfg.mlp)
+    with tr.span("model.attn", layer=layer) if tr else NULL:
+        h = rmsnorm(x, sp["ln1"], cfg.norm_eps)
+        x = x + attention_decode(sp["attn"], h, ck, cv, pos, cfg.rope_theta)
+    with tr.span("model.mlp", layer=layer) if tr else NULL:
+        h2 = rmsnorm(x, sp["ln2"], cfg.norm_eps)
+        return x + mlp_apply(sp["mlp"], h2, cfg.mlp)
 
 
 def _last_logits(

@@ -46,6 +46,19 @@ the token rows then replay through the scalar bookkeeping.  On the card the
 K steps are one CUDA graph per K bucket, captured at first use and
 replayed after that; elsewhere a loop of K steps.  Both routes decode the
 same cache as the scalar step, so they are bit-identical to it.
+
+Tracing: with a ``utils.trace.Tracer`` attached (``tracer=``) every
+``macro_step()`` records an ``engine.macro_step`` span and, inside it, spans
+of admission, each prefill, the splice, the control plane, the decode step
+or fused block, a capture, a raise and the bookkeeping, with the model's
+``model.*`` spans under them; a request's first token is an event
+``first_token`` at the clock read that follows its prefill's host copy.
+With none attached (the default) a span site costs one attribute test and
+nothing reads the clock for it.  ``counters`` are kept either way: why each
+``macro_step()`` ran scalar (``choose_k.<reason>``) or fused
+(``choose_k.fused.<k>``), and the KV cache's bytes that hold live positions
+at each decoded step (``kv.live_bytes`` over ``kv.steps`` steps, against
+``kv.reserved_bytes``).
 """
 from __future__ import annotations
 
@@ -62,10 +75,12 @@ from repro_torch import default_device
 from repro_torch.kernels import count_kernel_nodes, count_wide_nodes, graph_dot, kernel_wrappers
 from repro_torch.models.registry import Model, build_model
 from repro_torch.sharding.ctx import macro_step_k
+from repro_torch.utils.trace import NULL, tracing
 
 if TYPE_CHECKING:
     from repro_torch.core.adaptive import DeadlineAwareParity, ParityController
     from repro_torch.serve.scheduler import TraceScheduler
+    from repro_torch.utils.trace import Tracer
 
 __all__ = ["Request", "ServeEngine"]
 
@@ -79,7 +94,6 @@ class Request:
     out_tokens: list[int] = field(default_factory=list)
     deadline: float | None = None    # absolute SLO (scheduler-driven mode)
     sched_idx: int | None = None     # TraceScheduler request index
-    finish_step: int | None = None   # engine step count at retirement
 
     @property
     def done(self) -> bool:
@@ -129,6 +143,31 @@ def _commit(dst: Any, src: Any) -> None:
         dst.copy_(src)
 
 
+# why _choose_k returned 1, in the order its tests run; "k_max" is an engine
+# built with macro_steps=1 and "pending_ctrl" a macro_step() that bypassed
+# _choose_k to consume a truncated block's stashed control
+CHOOSE_K_REASONS = ("k_max", "pending_ctrl", "idle", "queue", "free_slot", "budget", "pending",
+                    "prefill_debt", "arrival", "slack", "raise_near")
+
+
+def _kv_geometry(cache: Any, n_slots: int, s_max: int, name: str = "") -> tuple[int, int, int]:
+    """(bytes a slot holds whatever its length, bytes a cache position of
+    one slot holds across every layer's K/V, all the cache's bytes) of an
+    engine cache: K/V leaves (``k``, ``v``) hold [..., n_slots, s_max, kv,
+    hd]; every other leaf (``pos``, the cross K/V, the Mamba states) is a
+    slot's fixed state."""
+    if isinstance(cache, dict):
+        parts = [_kv_geometry(v, n_slots, s_max, k) for k, v in cache.items()]
+    elif isinstance(cache, list):
+        parts = [_kv_geometry(v, n_slots, s_max, name) for v in cache]
+    else:
+        nbytes = cache.numel() * cache.element_size()
+        if name in ("k", "v"):
+            return 0, nbytes // (n_slots * s_max), nbytes
+        return nbytes // n_slots, 0, nbytes
+    return tuple(sum(p[i] for p in parts) for i in range(3))
+
+
 def _conv_leaves_to(cache: Any, dtype: torch.dtype, name: str = "") -> Any:
     """``cache`` with its Mamba conv leaves in ``dtype``."""
     if isinstance(cache, dict):
@@ -176,6 +215,7 @@ class ServeEngine:
         prefill_budget: int | None = None,
         macro_steps: int = 1,
         device=None,
+        tracer: "Tracer | None" = None,
     ):
         """``device`` (default CUDA) must hold ``params``.  ``encode_mode`` is
         the kernel mode of the parity re-encode, ``head_kernel_mode`` that
@@ -204,7 +244,14 @@ class ServeEngine:
         Two setups raise NotImplementedError here: a head mesh over more
         than one card, and the plain head (``head_kernel_mode`` 'off') on a
         geometry the DecoderCache refuses, whose ``torch.linalg.pinv``
-        syncs the host."""
+        syncs the host.
+
+        ``tracer`` (a ``utils.trace.Tracer``) records the engine's and the
+        model's spans on the engine's clock, unless it brings a clock of
+        its own.  Such a clock must read the engine clock's axis without
+        moving it (a ticking clock's reading without the tick): under a
+        scheduler a ``first_token`` event takes the engine clock's stamp,
+        in the queue path a read of the tracer's clock."""
         if parity_policy is not None:
             if parity_controller is None:
                 parity_controller = parity_policy.controller
@@ -219,15 +266,26 @@ class ServeEngine:
         if params["embed"].device != self.device:
             raise ValueError(
                 f"params live on {params['embed'].device}, the engine runs on {self.device}")
+        self._clock = time.monotonic if clock is None else clock
+        self.tracer = tracer
+        if tracer is not None and tracer.clock is None:
+            tracer.clock = self._clock
         self.model = model
-        self.params = model.prepare(params)
+        with tracer.span("engine.init") if tracer else NULL:
+            self.params = model.prepare(params)
+            # the engine's cache for its life.  A decode step's conv tail
+            # comes out in the activation dtype and is copied back into this
+            # cache, so its conv leaves hold that dtype (bf16 prefill tails
+            # widen exactly into float32: the same values the reference's
+            # cache carries)
+            self.cache = _conv_leaves_to(model.init_cache(n_slots, s_max, self.device),
+                                         getattr(torch, model.cfg.dtype))
         self.n_slots, self.s_max = n_slots, s_max
         self.mask_fn = mask_fn
         self.latency_fn = latency_fn
         self.parity_controller = parity_controller
         self.parity_policy = parity_policy
         self.scheduler = scheduler
-        self._clock = time.monotonic if clock is None else clock
         self.parity_topup = parity_topup
         self.topup_patience = topup_patience
         self.prefill_budget = prefill_budget
@@ -242,6 +300,11 @@ class ServeEngine:
         self.tokens_emitted = 0     # tokens appended to request outputs
         self.macro_blocks = 0       # fused blocks launched (K > 1)
         self.splice_rebuilds = 0    # splice passes over the batch cache (refill)
+        self._kv_slot, self._kv_pos, kv_reserved = _kv_geometry(self.cache, n_slots, s_max)
+        self._kv_live = 0           # cache bytes of the active slots' live positions
+        self.counters: dict[str, int] = {f"choose_k.{r}": 0 for r in CHOOSE_K_REASONS}
+        self.counters.update({"kv.live_bytes": 0, "kv.steps": 0,
+                              "kv.reserved_bytes": kv_reserved})
         self._pending_splice: list[tuple[int, Any]] = []
         # control decision computed for a step that has not decoded yet: set
         # when a mid-block parity raise truncates a fused block
@@ -249,12 +312,6 @@ class ServeEngine:
         self.eos_token = eos_token
         self.queue: deque[Request] = deque()
         self.slots: list[Request | None] = [None] * n_slots
-        # the engine's cache for its life.  A decode step's conv tail comes
-        # out in the activation dtype and is copied back into this cache, so
-        # its conv leaves hold that dtype (bf16 prefill tails widen exactly
-        # into float32: the same values the reference's cache carries)
-        self.cache = _conv_leaves_to(model.init_cache(n_slots, s_max, self.device),
-                                     getattr(torch, model.cfg.dtype))
         self._last_tok = torch.zeros(n_slots, dtype=torch.int32, device=self.device)
         self._active = np.zeros(n_slots, bool)
         if model.cfg.coded:
@@ -344,22 +401,25 @@ class ServeEngine:
         splice itself is deferred to ``_flush_splices``.  A vlm request
         brings its image embeddings; an encdec request gets zero source
         frames of its prompt's length, as the reference's engine gives."""
-        batch = {"tokens": torch.as_tensor(np.asarray(req.prompt)[None], dtype=torch.long,
-                                           device=self.device)}
-        if req.img_embed is not None:
-            batch["img_embed"] = torch.as_tensor(np.asarray(req.img_embed)[None],
-                                                 device=self.device)
-        if self.model.cfg.family == "encdec":
-            batch["frames"] = torch.zeros((1, len(req.prompt), self.model.cfg.d_model),
-                                          dtype=torch.float32, device=self.device)
-        tok1, cache1 = self._prefill1(batch)
-        self._pending_splice.append((slot, cache1))
-        self._last_tok[slot] = tok1[0]              # device-side
-        req.out_tokens.append(int(tok1.cpu()[0]))   # the ONE host transfer
-        self.sync_count += 1
-        self.tokens_emitted += 1
-        self.slots[slot] = req
-        self._active[slot] = True
+        tr = self.tracer
+        with tr.span("engine.prefill", uid=req.uid, prompt_len=len(req.prompt)) if tr else NULL:
+            batch = {"tokens": torch.as_tensor(np.asarray(req.prompt)[None], dtype=torch.long,
+                                               device=self.device)}
+            if req.img_embed is not None:
+                batch["img_embed"] = torch.as_tensor(np.asarray(req.img_embed)[None],
+                                                     device=self.device)
+            if self.model.cfg.family == "encdec":
+                batch["frames"] = torch.zeros((1, len(req.prompt), self.model.cfg.d_model),
+                                              dtype=torch.float32, device=self.device)
+            tok1, cache1 = self._prefill1(batch)
+            self._pending_splice.append((slot, cache1))
+            self._last_tok[slot] = tok1[0]              # device-side
+            req.out_tokens.append(int(tok1.cpu()[0]))   # the ONE host transfer
+            self.sync_count += 1
+            self.tokens_emitted += 1
+            self.slots[slot] = req
+            self._active[slot] = True
+        self._kv_live += self._kv_slot + self._kv_pos * len(req.prompt)
 
     def _flush_splices(self) -> None:
         """Copy every staged prefill cache into its slot of the batch cache,
@@ -378,15 +438,20 @@ class ServeEngine:
         for slot, cache1 in self._pending_splice:
             by_slot[slot] = cache1
         self._pending_splice = []
-        for slot in sorted(by_slot):
-            _splice(self.cache, by_slot[slot], slot, "")
+        tr = self.tracer
+        with tr.span("engine.splice", slots=len(by_slot)) if tr else NULL:
+            for slot in sorted(by_slot):
+                _splice(self.cache, by_slot[slot], slot, "")
         self.splice_rebuilds += 1
 
     def _finish_slot(self, slot: int, req: Request, now: float | None) -> None:
         """Retire a request and free its slot — the one completion path."""
         if self.scheduler is not None and req.sched_idx is not None:
             self.scheduler.on_finish(req.sched_idx, now)
-        req.finish_step = self._steps
+        # its cache held the prompt and every token but the last, which no
+        # step has read back yet
+        held = len(req.prompt) + len(req.out_tokens) - 1
+        self._kv_live -= self._kv_slot + self._kv_pos * held
         self.completed.append(req)
         self._active[slot] = False
         self.slots[slot] = None
@@ -402,12 +467,15 @@ class ServeEngine:
 
     def _refill(self, now: float | None = None) -> None:
         """One admission pass; all admitted caches land in one splice pass."""
+        tr = self.tracer
         try:
-            self._admit_refill(now)
+            with tr.span("engine.admit") if tr else NULL:
+                self._admit_refill(now)
         finally:
             self._flush_splices()
 
     def _admit_refill(self, now: float | None = None) -> None:
+        tr = self.tracer
         if self.scheduler is not None:
             prompt_spent = 0
             while True:
@@ -440,6 +508,8 @@ class ServeEngine:
                 # the prefill took real time, and a pre-prefill stamp would
                 # count deadline-expired requests as met
                 t_tok = self._clock()
+                if tr:
+                    tr.event("first_token", t_tok, uid=req.uid)
                 done = self.scheduler.on_token(sreq.idx, t_tok)
                 if done or self._prefill_done(req):
                     self._finish_slot(slot, req, t_tok)
@@ -452,6 +522,8 @@ class ServeEngine:
                 if not self._active[s] and self.queue:
                     req = self.queue.popleft()
                     self._insert_slot(s, req)
+                    if tr:
+                        tr.event("first_token", tr.clock(), uid=req.uid)
                     if self._prefill_done(req):
                         self._finish_slot(s, req, None)
 
@@ -460,40 +532,42 @@ class ServeEngine:
         a (n_data-1, n_parity+1) re-split from the fp32 head weight through
         the encode kernel, placed again on the engine's mesh if it has one.
         Every captured block is dropped (``_bind``)."""
-        from repro_torch.kernels.ops import encode_blocks_device
+        tr = self.tracer
+        with tr.span("engine.raise", n_parity=self.model.cfg.coded_parity + 1) if tr else NULL:
+            from repro_torch.kernels.ops import encode_blocks_device
 
-        cfg = self.model.cfg
-        new_parity = cfg.coded_parity + 1
-        head = (
-            self.params["lm_head"]
-            if "lm_head" in self.params
-            else self.params["embed"].T
-        )
-        placed = self.params["lm_head_coded"]
-        pdt = (placed if self._mesh is None else placed[0]).dtype
-        coded = encode_blocks_device(
-            head.T.to(torch.float32),
-            self._n_blocks - new_parity,
-            new_parity,
-            mode=self.encode_mode,
-        )
-        # a new dict, so a caller's params keep their original coded head
-        self.params = dict(self.params)
-        coded = coded.to(pdt)
-        if self._mesh is not None:
-            from repro_torch.sharding.policy import shard_coded_head
+            cfg = self.model.cfg
+            new_parity = cfg.coded_parity + 1
+            head = (
+                self.params["lm_head"]
+                if "lm_head" in self.params
+                else self.params["embed"].T
+            )
+            placed = self.params["lm_head_coded"]
+            pdt = (placed if self._mesh is None else placed[0]).dtype
+            coded = encode_blocks_device(
+                head.T.to(torch.float32),
+                self._n_blocks - new_parity,
+                new_parity,
+                mode=self.encode_mode,
+            )
+            # a new dict, so a caller's params keep their original coded head
+            self.params = dict(self.params)
+            coded = coded.to(pdt)
+            if self._mesh is not None:
+                from repro_torch.sharding.policy import shard_coded_head
 
-            coded = shard_coded_head(coded, self._mesh)
-        self.params["lm_head_coded"] = coded
-        self.model = build_model(dataclasses.replace(cfg, coded_parity=new_parity))
-        self._bind()
-        self.parity_topup -= 1
-        self._saturated_steps = 0
-        self.parity_events.append({
-            "step": self._steps,
-            "n_parity": new_parity,
-            "encode_mode": self.encode_mode,
-        })
+                coded = shard_coded_head(coded, self._mesh)
+            self.params["lm_head_coded"] = coded
+            self.model = build_model(dataclasses.replace(cfg, coded_parity=new_parity))
+            self._bind()
+            self.parity_topup -= 1
+            self._saturated_steps = 0
+            self.parity_events.append({
+                "step": self._steps,
+                "n_parity": new_parity,
+                "encode_mode": self.encode_mode,
+            })
 
     # ------------------------------------------------------------------
     def _control_step(self, now: float | None) -> np.ndarray | None:
@@ -502,76 +576,90 @@ class ServeEngine:
         parity level and commit this step's erasure mask (None when the
         head is uncoded or unmasked).  The fused path calls it once per
         fused step before the block launches, so controller state moves
-        exactly as in the scalar loop."""
-        if self.model.cfg.coded and self.latency_fn is not None:
-            from repro_torch.core.decoding import first_decodable_mask
+        exactly as in the scalar loop.  Its ``engine.control`` span records
+        the parity level chosen, where the latencies choose one."""
+        tr = self.tracer
+        with tr.span("engine.control") if tr else NULL as sp:
+            if self.model.cfg.coded and self.latency_fn is not None:
+                from repro_torch.core.decoding import first_decodable_mask
 
-            lat = np.asarray(self.latency_fn(), np.float64)
-            if self.mask_fn is not None:  # dead shards never count as fast
-                lat = np.where(np.asarray(self.mask_fn()) > 0.5, lat, np.inf)
-            n_blocks = self._n_blocks
-            n_par = self.model.cfg.coded_parity
-            if self.parity_controller is not None:
-                # the policy observes the same stream as its controller
-                if self.parity_policy is not None:
-                    self.parity_policy.observe(lat)
-                else:
-                    self.parity_controller.observe(lat)
-                believed = int((self.parity_controller.posterior > 0.5).sum())
-                if believed > n_par and self.parity_topup > 0:
-                    self._saturated_steps += 1
-                    if self._saturated_steps >= self.topup_patience:
-                        self._raise_parity()
-                        n_par = self.model.cfg.coded_parity
-                else:
-                    self._saturated_steps = 0
-                if self.parity_policy is not None:
-                    # deadline-aware level from the SLO slack in estimated
-                    # steps (+inf without a scheduler); a per-tenant policy
-                    # gets the per-class slack vector
-                    from repro_torch.core.adaptive import TenantDeadlineParity
-
-                    if self.scheduler is None:
-                        slack: Any = np.inf
-                    elif isinstance(self.parity_policy, TenantDeadlineParity):
-                        slack = self.scheduler.class_slack_steps(now)
+                lat = np.asarray(self.latency_fn(), np.float64)
+                if self.mask_fn is not None:  # dead shards never count as fast
+                    lat = np.where(np.asarray(self.mask_fn()) > 0.5, lat, np.inf)
+                n_blocks = self._n_blocks
+                n_par = self.model.cfg.coded_parity
+                if self.parity_controller is not None:
+                    # the policy observes the same stream as its controller
+                    if self.parity_policy is not None:
+                        self.parity_policy.observe(lat)
                     else:
-                        slack = self.scheduler.min_slack_steps(now)
-                    n_par = self.parity_policy.level(n_par, slack)
-                else:
-                    n_par = self.parity_controller.parity_level(n_par)
-            return np.asarray(
-                first_decodable_mask(lat, n_blocks - n_par, n_par), np.float32
-            )
-        if self.mask_fn is not None and self.model.cfg.coded:
-            return np.asarray(self.mask_fn(), np.float32)
-        return None
+                        self.parity_controller.observe(lat)
+                    believed = int((self.parity_controller.posterior > 0.5).sum())
+                    if believed > n_par and self.parity_topup > 0:
+                        self._saturated_steps += 1
+                        if self._saturated_steps >= self.topup_patience:
+                            self._raise_parity()
+                            n_par = self.model.cfg.coded_parity
+                    else:
+                        self._saturated_steps = 0
+                    if self.parity_policy is not None:
+                        # deadline-aware level from the SLO slack in estimated
+                        # steps (+inf without a scheduler); a per-tenant policy
+                        # gets the per-class slack vector
+                        from repro_torch.core.adaptive import TenantDeadlineParity
+
+                        if self.scheduler is None:
+                            slack: Any = np.inf
+                        elif isinstance(self.parity_policy, TenantDeadlineParity):
+                            slack = self.scheduler.class_slack_steps(now)
+                        else:
+                            slack = self.scheduler.min_slack_steps(now)
+                        n_par = self.parity_policy.level(n_par, slack)
+                    else:
+                        n_par = self.parity_controller.parity_level(n_par)
+                if sp:
+                    sp.attrs["n_parity"] = n_par
+                return np.asarray(
+                    first_decodable_mask(lat, n_blocks - n_par, n_par), np.float32
+                )
+            if self.mask_fn is not None and self.model.cfg.coded:
+                return np.asarray(self.mask_fn(), np.float32)
+            return None
 
     def _apply_step(self, toks: np.ndarray, t_done: float | None) -> None:
         """Post-decode bookkeeping for one step's [n_slots] token row:
-        outputs, EOS, scheduler completion, slot retirement."""
-        for s in range(self.n_slots):
-            if not self._active[s]:
-                continue
-            req = self.slots[s]
-            tok = int(toks[s])
-            req.out_tokens.append(tok)
-            self.tokens_emitted += 1
-            hit_eos = self.eos_token is not None and tok == self.eos_token
-            done_sched = False
-            if self.scheduler is not None and req.sched_idx is not None:
-                done_sched = self.scheduler.on_token(req.sched_idx, t_done)
-            if req.done or hit_eos or done_sched:
-                self._finish_slot(s, req, t_done)
+        outputs, EOS, scheduler completion, slot retirement.  Each active
+        slot's step wrote one more cache position."""
+        self._kv_live += self._kv_pos * int(self._active.sum())
+        c = self.counters
+        c["kv.live_bytes"] += self._kv_live
+        c["kv.steps"] += 1
+        tr = self.tracer
+        with tr.span("engine.apply") if tr else NULL:
+            for s in range(self.n_slots):
+                if not self._active[s]:
+                    continue
+                req = self.slots[s]
+                tok = int(toks[s])
+                req.out_tokens.append(tok)
+                self.tokens_emitted += 1
+                hit_eos = self.eos_token is not None and tok == self.eos_token
+                done_sched = False
+                if self.scheduler is not None and req.sched_idx is not None:
+                    done_sched = self.scheduler.on_token(req.sched_idx, t_done)
+                if req.done or hit_eos or done_sched:
+                    self._finish_slot(s, req, t_done)
 
     def _scalar_decode(self, m: np.ndarray | None, model=None, params=None) -> np.ndarray:
         """One decode step carried into the engine's cache; the [n_slots]
         tokens through the ONE host transfer of the step."""
-        mask = None if m is None else torch.as_tensor(m, device=self.device)
-        toks_dev, cache = self._decode(self.cache, self._last_tok, mask, model, params)
-        self._commit_step(cache, toks_dev)  # the next step reads them on device
-        self.sync_count += 1
-        return toks_dev.cpu().numpy()
+        tr = self.tracer
+        with tr.span("engine.decode", active=int(self._active.sum())) if tr else NULL:
+            mask = None if m is None else torch.as_tensor(m, device=self.device)
+            toks_dev, cache = self._decode(self.cache, self._last_tok, mask, model, params)
+            self._commit_step(cache, toks_dev)  # the next step reads them on device
+            self.sync_count += 1
+            return toks_dev.cpu().numpy()
 
     def step(self) -> int:
         """One batched decode step; returns the number of active sequences."""
@@ -625,17 +713,25 @@ class ServeEngine:
             pol._onset_rate, pol._spike, pol._calm_steps = pol_state
         self._saturated_steps = sat
 
-    def _choose_k(self) -> int:
-        """Fused block length for the next macro-step: 1 whenever a control
-        decision could differ mid-block (queued work, a free slot, prefill
-        debt, an imminent arrival, scarce slack, a controller near its
-        raise); at batch-full steady state up to ``macro_steps``, quantised
-        down to a power of two so the buckets stay few."""
-        if self.macro_steps <= 1 or not self._active.any():
-            return 1
-        if self.queue or not self._active.all():
-            return 1
+    def _choose_k(self) -> tuple[int, str | None]:
+        """Fused block length for the next macro-step, and why it is 1: 1
+        whenever a control decision could differ mid-block (queued work, a
+        free slot, prefill debt, an imminent arrival, scarce slack, a
+        controller near its raise), the reason the first in the order the
+        tests run (``CHOOSE_K_REASONS``; every test still runs, so the clock
+        is read as often as before); at batch-full steady state up to
+        ``macro_steps``, quantised down to a power of two so the buckets
+        stay few."""
+        if self.macro_steps <= 1:
+            return 1, "k_max"
+        if not self._active.any():
+            return 1, "idle"
+        if self.queue:
+            return 1, "queue"
+        if not self._active.all():
+            return 1, "free_slot"
         k = self.macro_steps
+        why = None
         # after the longest remaining budget the batch has drained (EOS can
         # empty it earlier; the replay rolls the extra control steps back)
         rem = max(
@@ -644,16 +740,22 @@ class ServeEngine:
             if self._active[s]
         )
         k = min(k, max(rem, 1))
+        if k < 2:
+            why = "budget"
         sched = self.scheduler
         if sched is not None:
             now = self._clock()
-            if sched.pending(now) > 0 or sched.has_prefill_debt:
-                return 1
+            if sched.pending(now) > 0:
+                return 1, why or "pending"
+            if sched.has_prefill_debt:
+                return 1, why or "prefill_debt"
             est = max(sched.est_step_time, 1e-12)
             nxt = sched.next_arrival()
             if nxt is not None:
                 # never decode past the next arrival's admission step
                 k = min(k, max(1, int((nxt - now) / est)))
+                if k < 2 and why is None:
+                    why = "arrival"
             if self.parity_policy is not None:
                 # never fuse past the point slack could force escalation
                 esc = max(
@@ -663,14 +765,16 @@ class ServeEngine:
                 slack = sched.min_slack_steps(now)
                 if np.isfinite(slack):
                     k = min(k, max(1, int(slack - esc)))
+                    if k < 2 and why is None:
+                        why = "slack"
         if self.parity_controller is not None and self.parity_topup > 0:
             believed = int((self.parity_controller.posterior > 0.5).sum())
             if self._saturated_steps > 0 or believed >= self.model.cfg.coded_parity:
-                return 1  # a top-up raise may be steps away
+                return 1, why or "raise_near"  # a top-up raise may be steps away
         p = 1
         while p * 2 <= k:
             p *= 2
-        return p
+        return p, why
 
     def _run_block(self, k: int, masks: torch.Tensor | None, toks: torch.Tensor) -> None:
         """K chained decode steps from the engine's cache: row t of ``toks``
@@ -697,60 +801,64 @@ class ServeEngine:
         nodes, and must be what the wrappers recorded into it.  Both run
         under ``macro_step_k(k)``, so an ``'auto'`` head's decision for the
         K-step block is the one the graph holds."""
-        dev = self.device
-        wrappers = kernel_wrappers()
-        stream = self._capture_stream
-        masks = self._mask_buf
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream), macro_step_k(k):
-            self._decode(self.cache, self._last_tok, None if masks is None else masks[0])
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        toks = torch.empty((k, self.n_slots), dtype=torch.int32, device=dev)
-        recorded = {name: fn.captured for name, fn in wrappers.items()}
-        wide0 = {name: wrappers[name].wide_captured for name in self._WIDE}
-        graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept, so its nodes can be counted
-        with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream):
-            self._run_block(k, masks, toks)
-        recorded = {name: fn.captured - recorded[name] for name, fn in wrappers.items()}
-        wide = {name: wrappers[name].wide_captured - wide0[name] for name in self._WIDE}
-        dot = graph_dot(graph)
-        nodes, wide_nodes = count_kernel_nodes(dot), count_wide_nodes(dot)
-        graph.instantiate()
-        if nodes != recorded or wide_nodes != wide:
-            raise RuntimeError(f"the K={k} graph holds kernel nodes {nodes} (wide "
-                               f"{wide_nodes}), but the wrappers recorded {recorded} "
-                               f"(wide {wide})")
-        self.graph_log.append({
-            "k": k, "n_parity": self.model.cfg.coded_parity if self.model.cfg.coded else 0,
-            "launches_per_replay": {name: n for name, n in nodes.items() if n},
-        })
-        blk = self._graphs[k] = _BlockGraph(graph, toks, nodes, wide_nodes)
-        return blk
+        tr = self.tracer
+        with tr.span("engine.capture", k=k) if tr else NULL:
+            dev = self.device
+            wrappers = kernel_wrappers()
+            stream = self._capture_stream
+            masks = self._mask_buf
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream), macro_step_k(k):
+                self._decode(self.cache, self._last_tok, None if masks is None else masks[0])
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            toks = torch.empty((k, self.n_slots), dtype=torch.int32, device=dev)
+            recorded = {name: fn.captured for name, fn in wrappers.items()}
+            wide0 = {name: wrappers[name].wide_captured for name in self._WIDE}
+            graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept, so its nodes can be counted
+            with torch.cuda.graph(graph, pool=self._graph_pool, stream=stream):
+                self._run_block(k, masks, toks)
+            recorded = {name: fn.captured - recorded[name] for name, fn in wrappers.items()}
+            wide = {name: wrappers[name].wide_captured - wide0[name] for name in self._WIDE}
+            dot = graph_dot(graph)
+            nodes, wide_nodes = count_kernel_nodes(dot), count_wide_nodes(dot)
+            graph.instantiate()
+            if nodes != recorded or wide_nodes != wide:
+                raise RuntimeError(f"the K={k} graph holds kernel nodes {nodes} (wide "
+                                   f"{wide_nodes}), but the wrappers recorded {recorded} "
+                                   f"(wide {wide})")
+            self.graph_log.append({
+                "k": k, "n_parity": self.model.cfg.coded_parity if self.model.cfg.coded else 0,
+                "launches_per_replay": {name: n for name, n in nodes.items() if n},
+            })
+            blk = self._graphs[k] = _BlockGraph(graph, toks, nodes, wide_nodes)
+            return blk
 
     def _launch_block(self, k: int, masks: list) -> np.ndarray:
         """Decode ``k`` steps with ONE host copy of the [k, n_slots] tokens:
         a replay of the bucket's graph on the card (the masks go in with one
         copy), a loop of k steps elsewhere."""
-        masked = masks[0] is not None
-        if not self._graphed:
-            mstack = torch.as_tensor(np.stack(masks), device=self.device) if masked else None
-            toks = torch.empty((k, self.n_slots), dtype=torch.int32, device=self.device)
-            self._run_block(k, mstack, toks)
-            return toks.cpu().numpy()
-        if masked != (self._mask_buf is not None):
-            raise RuntimeError("a fused block's masks do not match the engine's mask source")
-        if masked:
-            self._mask_buf[:k].copy_(torch.from_numpy(np.stack(masks)))
-        blk = self._graphs.get(k)
-        if blk is None:
-            blk = self._capture(k)
-        blk.graph.replay()
-        for name, fn in kernel_wrappers().items():
-            fn.launches += blk.launches[name]
-            if name in self._WIDE:
-                fn.wide_launches += blk.wide[name]
-        self.graph_replays += 1
-        return blk.toks.cpu().numpy()
+        tr = self.tracer
+        with tr.span("engine.block", k=k) if tr else NULL:
+            masked = masks[0] is not None
+            if not self._graphed:
+                mstack = torch.as_tensor(np.stack(masks), device=self.device) if masked else None
+                toks = torch.empty((k, self.n_slots), dtype=torch.int32, device=self.device)
+                self._run_block(k, mstack, toks)
+                return toks.cpu().numpy()
+            if masked != (self._mask_buf is not None):
+                raise RuntimeError("a fused block's masks do not match the engine's mask source")
+            if masked:
+                self._mask_buf[:k].copy_(torch.from_numpy(np.stack(masks)))
+            blk = self._graphs.get(k)
+            if blk is None:
+                blk = self._capture(k)
+            blk.graph.replay()
+            for name, fn in kernel_wrappers().items():
+                fn.launches += blk.launches[name]
+                if name in self._WIDE:
+                    fn.wide_launches += blk.wide[name]
+            self.graph_replays += 1
+            return blk.toks.cpu().numpy()
 
     def _fused_block(self, k: int) -> int:
         """Decode ``k`` steps in one block with ONE host sync.
@@ -843,13 +951,21 @@ class ServeEngine:
     def macro_step(self) -> int:
         """A fused block at batch-full steady state, a scalar ``step()``
         whenever the control plane needs per-step reactivity; with
-        ``macro_steps=1`` it IS ``step()``."""
-        if self.macro_steps <= 1 or self._pending_ctrl is not None:
-            return self.step()
-        k = self._choose_k()
-        if k <= 1:
-            return self.step()
-        return self._fused_block(k)
+        ``macro_steps=1`` it IS ``step()``.  Counts its choice in
+        ``counters`` (``choose_k.<reason>`` or ``choose_k.fused.<k>``)."""
+        tr = self.tracer
+        with tr.span("engine.macro_step") if tr else NULL as sp, tracing(tr) if tr else NULL:
+            if self._pending_ctrl is not None and self.macro_steps > 1:
+                k, why = 1, "pending_ctrl"
+            else:
+                k, why = self._choose_k()
+            if sp:
+                sp.attrs["k"] = k
+            key = f"choose_k.{why}" if k <= 1 else f"choose_k.fused.{k}"
+            self.counters[key] = self.counters.get(key, 0) + 1
+            if k <= 1:
+                return self.step()
+            return self._fused_block(k)
 
     def run(self, max_steps: int = 10_000) -> list[Request]:
         """Drain the queue (or, with a scheduler, the trace: the caller's

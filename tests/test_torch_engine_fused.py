@@ -272,19 +272,19 @@ def test_choose_k_gates(models):
     for i, max_new in enumerate((5, 20, 20)):  # the third admits beside the second
         eng.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab, 4).astype(np.int32),
                            max_new_tokens=max_new))
-    assert eng._choose_k() == 1           # nothing active yet
+    assert eng._choose_k() == (1, "idle")   # nothing active yet
     eng.step()                            # admits 2 of 3
-    assert eng.queue and eng._choose_k() == 1   # queue pressure
+    assert eng.queue and eng._choose_k() == (1, "queue")   # queue pressure
     while eng.queue or (eng._active.any() and not eng._active.all()):
         eng.step()
     assert eng._active.all()
-    k = eng._choose_k()
-    assert k & (k - 1) == 0 and 1 < k <= 16
+    k, why = eng._choose_k()
+    assert k & (k - 1) == 0 and 1 < k <= 16 and why is None
     # capped at the longest remaining budget, quantised down
     rem = max(r.max_new_tokens - len(r.out_tokens) for r in eng.slots)
     assert k <= rem < 2 * k or k == 16
     eng.run(max_steps=500)
-    assert eng._choose_k() == 1           # drained
+    assert eng._choose_k() == (1, "idle")   # drained
 
 
 # --------------------------------------------------------------------------
@@ -492,6 +492,8 @@ def test_launcher_trace_mode_with_macro_steps_on_cpu():
     assert "SLO attainment" in res.stdout and "rejected" in res.stdout
     assert "est_step" in res.stdout and "deadline_parity=True" in res.stdout
     assert "macro_steps=4" in res.stdout and "host_syncs/token=" in res.stdout
+    assert "choose_k: " in res.stdout and "kv_in_use=" in res.stdout
+    assert "span engine.macro_step: " in res.stdout and "attr engine.macro_step k: " in res.stdout
     dry = subprocess.run(cmd + ["--dry-run"], env=env, capture_output=True, text=True,
                          timeout=120)
     assert dry.returncode == 0, dry.stderr
