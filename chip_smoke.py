@@ -27,6 +27,11 @@
                                        # with kMaxB 16) against the wide engine at B = 4
                                        # to 17 on the glm4-9b block and W_c and the
                                        # mamba2-130m W_c (the threshold WIDE_MIN_B)
+    python3 chip_smoke.py --prefill-attn
+                                       # only: build, the prefill attention kernel's
+                                       # checks and timings at glm4-9b's heads, and a
+                                       # longprompt-shaped glm4-9b serve through the
+                                       # kernel and through the plain path
     python3 chip_smoke.py --sweep-head # only: build, the head kernels' checks, the
                                        # B = 1 heads in 30 pairs of turns with
                                        # torch.matmul, and thin_rows.cuh's settings at
@@ -415,8 +420,186 @@ def phase_kernels(torch, gen, results: dict) -> None:
     kernel_coded_matvec(torch, gen, results)
     kernel_ssd(torch, results)
     kernel_ssd_dryrun(torch, results)
+    kernel_prefill_attn(torch, results)
     # launches made for these comparisons are not the main path's
     _reset_launches()
+
+
+PREFILL_CHECKED = (1, 65, 1000, 4160)        # prompt lengths held to the plain version
+PREFILL_TIMED = (256, 1024, 2048, 4096)       # glm4-9b prompt lengths timed
+PREFILL_SERVE = (512, 1024, 2048, 4096, 700, 1500)  # a longprompt-shaped serve's prompts
+PREFILL_REPLACES = "none: the reference's attention is plain jnp (src/repro/models/attention.py)"
+
+
+def graph_ms(torch, fn, iters: int) -> float:
+    """Device time of one ``fn`` call: ``iters`` calls captured in one CUDA
+    graph, replayed between CUDA events, so the host's cost a call (a
+    wrapper's checks and allocations) is not in it."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def kernel_prefill_attn(torch, results: dict) -> None:
+    """The serving prefill's attention kernel (``prefill_attn_cuda``: the
+    prologue and the attention) against its plain version at glm4-9b's heads
+    (32 over 2 KV heads, Hd 128) and zamba2-1.2b's (32 over 32, Hd 64) at
+    ``PREFILL_CHECKED`` tokens: cache rows bit-equal, the output's error
+    against an fp32 SDPA of the same roped inputs within the plain bf16
+    SDPA's and one rounding of the output (tests/test_torch_cuda.py).  Then
+    timed at glm4-9b's heads at ``PREFILL_TIMED`` tokens, device time from
+    CUDA-graph replays in turns with torch's SDPA (``library_ms``; the port
+    never calls it), beside the eager chain the kernel replaced (the cache
+    K roped by ``apply_rope``, Q and K roped again, each rope rebuilding its
+    table, the cache writes and the plain bf16 SDPA: ``plain_ms``, the
+    projections left out of both), the wrapper's host time a call and the
+    bound (the causal QK^T and PV at 989 TFLOP/s, or Q, K, V and O once)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.prefill_attn import prefill_attn_cuda
+    from repro_torch.models.attention import _attention_prefill_plain, _causal_mask5, _sdpa
+    from repro_torch.models.layers import apply_rope, apply_rope_table, rope_table
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    theta = 5e5
+
+    def inputs(s, h, kvh, hd):
+        q, k, v = (torch.randn(1, s, n, hd, generator=gen, device=dev).to(torch.bfloat16)
+                   for n in (h, kvh, kvh))
+        return q, k, v, rope_table(torch.arange(s, device=dev)[None], hd, theta)
+
+    for h, kvh, hd in ((32, 2, 128), (32, 32, 64)):
+        for s in PREFILL_CHECKED:
+            q, k, v, rope = inputs(s, h, kvh, hd)
+            cache = torch.zeros((4, 1, s, kvh, hd), dtype=torch.bfloat16, device=dev)
+            with torch.no_grad():
+                got = prefill_attn_cuda(q, k, v, *rope, cache[0], cache[1])
+                plain = _attention_prefill_plain(q, k, v, rope, cache[2], cache[3])
+                ref = _sdpa(apply_rope_table(q, *rope).float(), apply_rope_table(k, *rope).float(),
+                            v.float(), _causal_mask5(s, s, dev))
+            torch.cuda.synchronize()
+            err, ref_max = max_err(torch, got.float(), ref)
+            plain_err, _ = max_err(torch, plain.float(), ref)
+            check(torch.equal(cache[0], cache[2]) and torch.equal(cache[1], cache[3]),
+                  f"prefill_attn's cache rows differ from the plain version's at S={s}, Hd {hd}")
+            check(err <= plain_err + 2.0 ** -9 * ref_max,
+                  f"prefill_attn's error {err} over the plain SDPA's {plain_err} at S={s}, Hd {hd}")
+            emit({"phase": "kernel check", "kernel": "prefill_attn", "s": s, "heads": h,
+                  "kv_heads": kvh, "head_dim": hd, "max_abs_err": err, "plain_err": plain_err,
+                  "ref_max": ref_max})
+    h, kvh, hd = 32, 2, 128
+    for s in PREFILL_TIMED:
+        q, k, v, rope = inputs(s, h, kvh, hd)
+        positions = torch.arange(s, device=dev)[None]
+        cache = torch.zeros((2, 1, s, kvh, hd), dtype=torch.bfloat16, device=dev)
+        qr, kr = apply_rope_table(q, *rope), apply_rope_table(k, *rope)
+        qt, kt, vt = qr.transpose(1, 2), kr.transpose(1, 2), v.transpose(1, 2)
+
+        def kernel():
+            return prefill_attn_cuda(q, k, v, *rope, cache[0], cache[1])
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        def eager():
+            cache[0].copy_(apply_rope(k, positions, theta))
+            cache[1].copy_(v)
+            return _sdpa(apply_rope(q, positions, theta), apply_rope(k, positions, theta), v,
+                         _causal_mask5(s, s, dev))
+
+        iters = 20 if s >= 2048 else 50
+        with torch.no_grad():
+            turns = [graph_ms(torch, fn, iters) for fn in (kernel, library, library, kernel)]
+            plain_ms = time_ms(torch, eager, 5)
+            host = host_ms(torch, kernel, 100)
+            err, _ = max_err(torch, kernel().float(), library().transpose(1, 2).float())
+        n_ops = 4 * hd * h * s * (s + 1) / 2
+        n_bytes = 2 * (2 * s * h * hd + 2 * s * kvh * hd)
+        bound_ms, bound_by = bound(n_bytes, n_ops, TC_BF16_FLOPS)
+        label = f"glm4-9b S={s}"
+        row = against_library({
+            "phase": "kernel", "kernel": "prefill_attn", "shape": label,
+            "ms": (turns[0] + turns[3]) / 2, "library_ms": (turns[1] + turns[2]) / 2,
+            "turns": turns, "plain_ms": plain_ms, "host_ms": host, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err})
+        emit(row)
+        results.setdefault("prefill_attn", {})[label] = row
+
+
+def phase_prefill_serve(torch, args, results: dict, smi: str) -> None:
+    """A longprompt-shaped glm4-9b serve (``PREFILL_SERVE`` prompts, 8 new
+    tokens each) at full width and ``args.layers`` layers, traced, through
+    the prefill kernel and then, on the same engine, through the plain path
+    (the route forced): launches a layer and prompt, equal tokens, and each
+    route's host milliseconds a ``model.attn`` span under ``engine.prefill``
+    by ``path``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, transformer
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.utils.trace import Tracer
+
+    dev = torch.device("cuda")
+    cfg = get_config("glm4-9b").scaled(coded=True, coded_parity=2, n_layers=args.layers)
+    model = build_model(cfg)
+    tracer = Tracer()
+    eng = ServeEngine(model, model.init(torch.Generator(device=dev).manual_seed(args.seed), dev),
+                      n_slots=4, s_max=4160, device=dev, tracer=tracer)
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in PREFILL_SERVE]
+    row = {"phase": "prefill serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "prompts": list(PREFILL_SERVE), "card": smi}
+    tokens = {}
+    real_path = attention.prefill_path
+    for r, route in enumerate(("kernel", "plain")):
+        # the route and the spans' path attribute, both forced on the plain route
+        attention.prefill_path = transformer.prefill_path = (
+            real_path if route == "kernel" else (lambda x, hd: "plain"))
+        try:
+            n_spans, n_done = len(tracer.spans), len(eng.completed)
+            for i, p in enumerate(prompts):
+                eng.submit(Request(uid=r * len(prompts) + i, prompt=p, max_new_tokens=8))
+            _reset_launches()
+            t0 = time.perf_counter()
+            done = eng.run()[n_done:]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launches()
+        finally:
+            attention.prefill_path = transformer.prefill_path = real_path
+        tokens[route] = [req.out_tokens for req in sorted(done, key=lambda q: q.uid)]
+        by_path: dict = {}
+        for sp in tracer.spans[n_spans:]:
+            if sp.name == "model.attn" and "path" in sp.attrs:
+                by_path.setdefault(sp.attrs["path"], []).append((sp.t1 - sp.t0) * 1e3)
+        row[route] = {"wall_s": wall, "launches": launches,
+                      "attn_ms_by_path": {k: {"count": len(v), "mean_ms": float(np.mean(v))}
+                                          for k, v in by_path.items()}}
+        want = cfg.n_layers * len(prompts) if route == "kernel" else 0
+        check(len(done) == len(prompts), f"{len(done)} of {len(prompts)} requests completed")
+        check(launches["prefill_attn"] == want,
+              f"prefill_attn launches {launches['prefill_attn']} != {want} ({route})")
+        check(set(by_path) == {route}, f"model.attn paths {sorted(by_path)} on the {route} route")
+    row["launches"] = row["kernel"]["launches"]
+    row["tokens_equal"] = tokens["kernel"] == tokens["plain"]
+    emit(row)
+    results["prefill serve"] = row
+    check(row["tokens_equal"], "the prefill kernel's serve gave other tokens than the plain path's")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _wide_direct(torch, w, x, rec=None):
@@ -1290,9 +1473,9 @@ def phase_auto_glm(torch, args, serve: dict, mesh, results: dict, smi: str) -> N
 
 # each kernel's second engine, counted apart (``<engine>_launches``): the
 # tensor-core engine of the head kernels and of gaussian_encode, lt_encode's
-# shared-memory slab engine
+# shared-memory slab engine, prefill_attn's prologue
 ENGINES = {"coded_matvec": "wide", "coded_matvec_decode": "wide", "gaussian_encode": "wide",
-           "lt_encode": "slab"}
+           "lt_encode": "slab", "prefill_attn": "prologue"}
 
 
 def _reset_launches() -> None:
@@ -3743,7 +3926,8 @@ def _refusals(torch) -> dict:
     x = torch.ones(4, 4, device=dev, requires_grad=True)
     one = torch.ones(4, 4, device=dev)
     n_args = {"coded_matvec": 2, "coded_matvec_decode": 3, "gaussian_encode": 2,
-              "lt_encode": 3, "masked_pinv": 2, "ssd_chunk": 4, "ssd_combine": 3}
+              "lt_encode": 3, "masked_pinv": 2, "prefill_attn": 7, "ssd_chunk": 4,
+              "ssd_combine": 3}
     out = {}
     for name, wrapper in kernel_wrappers().items():
         before = wrapper.launches
@@ -5034,6 +5218,10 @@ def main() -> int:
                     help="only build, check the head kernels and time the thin-row and the "
                          "wide engine at B = 4, 8, 12, 16 and 17 on the glm4-9b block, the "
                          "glm4-9b W_c and the mamba2-130m W_c (no serve, no device line)")
+    ap.add_argument("--prefill-attn", action="store_true",
+                    help="only build, check and time the prefill attention kernel at glm4-9b's "
+                         "heads and serve longprompt-shaped glm4-9b prompts through it and "
+                         "through the plain path (no device line)")
     ap.add_argument("--c2-order", action="store_true",
                     help="only the vlm, moe and encdec serves, then the glm4-9b train phase, "
                          "with the allocator's state (at an out-of-memory error, its "
@@ -5081,6 +5269,10 @@ def main() -> int:
         kernel_coded_matvec(torch, gen, results)
         sweep_wide(torch, args, smi)
         return 0
+    if args.prefill_attn:
+        kernel_prefill_attn(torch, results)
+        phase_prefill_serve(torch, args, results, smi)
+        return 0
     if args.c2_order:
         return c2_order(torch, args, smi)
     seconds: dict = {}
@@ -5100,6 +5292,7 @@ def main() -> int:
     timed("task lt", phase_task_lt, torch, args, results, smi)
     timed("task gaussian", phase_task_gaussian, torch, args, results, smi)
     timed("ec2 example", phase_ec2_example, torch, args, results, smi)
+    timed("prefill serve", phase_prefill_serve, torch, args, results, smi)
     serve = timed("serve glm4-9b", phase_serve, torch, args, results, smi)
     mesh = _head_mesh(torch)
     timed("mesh head", phase_mesh_head, torch, serve, mesh,
@@ -5253,6 +5446,8 @@ def main() -> int:
                                      "mamba2-130m train 8x4096 bfloat16"))
                 for name, replaces in (("ssd_chunk", "src/repro/kernels/ssd_scan.py:52"),
                                        ("ssd_combine", "src/repro/kernels/ssd_scan.py:99"))))),
+        ("prefill_attn", "src/repro_torch/kernels/csrc/prefill_attn.cu", PREFILL_REPLACES,
+         "prefill serve", results["prefill serve"], "glm4-9b S=1024"),
     ):
         r = results[name][shape]
         launches = phase.get("device_encode", phase)["launches"]

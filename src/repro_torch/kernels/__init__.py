@@ -13,6 +13,7 @@ _SYMBOLS = {"coded_matvec": ("MatvecTask",),
             "gaussian_encode": ("gaussian_encode_kernel", "WideGaussianTask"),
             "lt_encode": ("lt_encode_kernel", "lt_slab_kernel"),
             "masked_pinv": ("masked_pinv_kernel",),
+            "prefill_attn": ("prefill_attn_kernel",),
             "ssd_chunk": ("ssd_chunk_",),
             "ssd_combine": ("ssd_combine_",)}
 # what names the wide engine's kernel (csrc/wide_rows.cuh), beside the
@@ -31,6 +32,7 @@ def kernel_wrappers() -> dict:
     from repro_torch.kernels.coded_matvec import coded_matvec_cuda
     from repro_torch.kernels.lt_encode import gaussian_encode_cuda, lt_encode_cuda
     from repro_torch.kernels.masked_pinv import masked_pinv_cuda
+    from repro_torch.kernels.prefill_attn import prefill_attn_cuda
     from repro_torch.kernels.ssd_scan import ssd_chunk_cuda, ssd_combine_cuda
 
     return {"coded_matvec": coded_matvec_cuda,
@@ -38,6 +40,7 @@ def kernel_wrappers() -> dict:
             "gaussian_encode": gaussian_encode_cuda,
             "lt_encode": lt_encode_cuda,
             "masked_pinv": masked_pinv_cuda,
+            "prefill_attn": prefill_attn_cuda,
             "ssd_chunk": ssd_chunk_cuda,
             "ssd_combine": ssd_combine_cuda}
 
@@ -66,7 +69,8 @@ def count_launch(wrapper, engine: str | None = None) -> None:
     (``<engine>_captured``): ``'wide'``, the tensor-core engine of the head
     kernels (x of ``WIDE_MIN_B`` columns and more) and of
     ``gaussian_encode`` (q over ``GAUSSIAN_WIDE_MIN_Q`` rows); ``'slab'``,
-    ``lt_encode``'s shared-memory slab engine."""
+    ``lt_encode``'s shared-memory slab engine; ``'prologue'``, the rope and
+    cache-write launch that precedes each ``prefill_attn`` launch."""
     import torch
 
     kind = "captured" if torch.cuda.is_current_stream_capturing() else "launches"

@@ -29,7 +29,7 @@ __all__ = ["BUILD_DIR", "SOURCES", "build_all", "c_function", "load", "ptxas_rep
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("coded_decode", "coded_matvec", "gaussian_encode", "lt_encode", "masked_pinv",
-           "ssd_scan")
+           "prefill_attn", "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

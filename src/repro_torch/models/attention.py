@@ -1,4 +1,4 @@
-"""Grouped-query attention: full (prefill), decode (KV cache) and cross.
+"""Grouped-query attention: full, serving prefill, decode (KV cache) and cross.
 
 Layout: activations [B, S, D]; per-head tensors [B, S, H, Hd]; KV caches
 [B, S_max, KVH, Hd] in bf16.  Port of ``repro.models.attention``, rounding
@@ -7,12 +7,23 @@ then cast to fp32, the softmax runs in fp32, and the probabilities are cast
 back to the value dtype before PV.  From ``CHUNKED_ATTN_THRESHOLD`` tokens
 on, full and cross attention run ``_sdpa_chunked``, the reference's
 online-softmax SDPA in fp32, which never forms the [Sq, Sk] logits.
+
+A serving prefill's causal self-attention, which also writes the KV cache,
+is ``attention_prefill``: Q, K and V projected once, K roped once, from one
+rope table a forward.  On the card, at a head dimension of 64 or 128 below
+``CHUNKED_ATTN_THRESHOLD`` tokens with bf16 activations, it runs the
+hand-written kernel ``kernels.prefill_attn`` (``prefill_path`` says which
+route a prefill takes); elsewhere its plain version, which computes what
+``attention_full`` and the cache write did.  The kernel keeps QKᵀ in fp32
+where the plain version rounds it to bf16 first: more precise, not less.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import Params, apply_rope, dense_init
+from repro_torch.kernels.prefill_attn import HEAD_DIMS as PREFILL_KERNEL_HEAD_DIMS
+from repro_torch.kernels.prefill_attn import prefill_attn_cuda
+from repro_torch.models.layers import Params, apply_rope, apply_rope_table, dense_init
 
 NEG_INF = -1e30
 # the reference switches to a chunked online-softmax SDPA from here on
@@ -127,6 +138,58 @@ def attention_full(p: Params, x: torch.Tensor, positions: torch.Tensor, theta: f
         out = _sdpa(q, k, v, _causal_mask5(s, s, x.device) if causal else None)
     out = _mask_pad_heads(out, n_real)
     return torch.einsum("bshk,hkd->bsd", out, p["w_o"].to(x.dtype))
+
+
+def prefill_path(x: torch.Tensor, head_dim: int) -> str:
+    """The route ``attention_prefill`` takes over x [B, S, D]: ``'kernel'``,
+    or why not: ``'device'`` (not a CUDA tensor), ``'dtype'`` (activations
+    not bf16), ``'head_dim'`` (not in ``PREFILL_KERNEL_HEAD_DIMS``),
+    ``'long'`` (S from ``CHUNKED_ATTN_THRESHOLD`` on: the fp32
+    ``_sdpa_chunked``, whose precision the kernel's bf16 P would lower)."""
+    if not x.is_cuda:
+        return "device"
+    if x.dtype != torch.bfloat16:
+        return "dtype"
+    if head_dim not in PREFILL_KERNEL_HEAD_DIMS:
+        return "head_dim"
+    if x.shape[1] >= CHUNKED_ATTN_THRESHOLD:
+        return "long"
+    return "kernel"
+
+
+def attention_prefill(p: Params, x: torch.Tensor, rope: tuple[torch.Tensor, torch.Tensor],
+                      cache_k_rows: torch.Tensor, cache_v_rows: torch.Tensor,
+                      n_real: int | None = None) -> torch.Tensor:
+    """Causal self-attention of a serving prefill over x [B, S, D], which
+    also writes the layer's cache rows: ``cache_k_rows`` and
+    ``cache_v_rows`` [B, S, KVH, Hd] (views of the cache's rows [:S],
+    written in place) get the roped K and the V.  ``rope``: the forward's
+    ``layers.rope_table`` (cos, sin) at the prompt's positions.  ``n_real``
+    masks the padding heads' outputs.  Returns out [B, S, D]; the route is
+    ``prefill_path``'s."""
+    q, k, v = _qkv(p, x)
+    if prefill_path(x, q.shape[-1]) == "kernel":
+        out = prefill_attn_cuda(q.contiguous(), k.contiguous(), v.contiguous(), *rope,
+                                cache_k_rows, cache_v_rows)
+    else:
+        out = _attention_prefill_plain(q, k, v, rope, cache_k_rows, cache_v_rows)
+    out = _mask_pad_heads(out, n_real)
+    return torch.einsum("bshk,hkd->bsd", out, p["w_o"].to(x.dtype))
+
+
+def _attention_prefill_plain(q, k, v, rope, cache_k_rows, cache_v_rows) -> torch.Tensor:
+    """The prefill kernel's plain version: ``attention_full``'s rope and
+    SDPA on the projected q, k, v [B, S, *, Hd], the cache rows written as
+    the reference's prefill writes them (the roped K and the V, cast to
+    the cache's dtype)."""
+    s = q.shape[1]
+    q = apply_rope_table(q, *rope)
+    k = apply_rope_table(k, *rope)
+    cache_k_rows.copy_(k)
+    cache_v_rows.copy_(v)
+    if s >= CHUNKED_ATTN_THRESHOLD:
+        return _sdpa_chunked(q, k, v, causal=True)
+    return _sdpa(q, k, v, _causal_mask5(s, s, q.device))
 
 
 def attention_decode(

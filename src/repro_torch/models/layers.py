@@ -69,15 +69,27 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     )
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x [..., S, H, Hd], positions [..., S] -> rotated x (pairwise halves), fp32 math."""
-    inv = rope_freqs(x.shape[-1], theta, device=x.device)
+def rope_table(positions: torch.Tensor, head_dim: int, theta: float
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rotation's (cos, sin) [..., S, head_dim // 2] fp32 at ``positions``
+    [..., S]: computed once, they serve every layer that ropes at those
+    positions (``apply_rope_table``)."""
+    inv = rope_freqs(head_dim, theta, device=positions.device)
     ang = positions[..., None].to(torch.float32) * inv  # [..., S, hd/2]
-    cos = torch.cos(ang)[..., None, :]                  # broadcast over heads
-    sin = torch.sin(ang)[..., None, :]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope_table(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x [..., S, H, Hd] rotated by a ``rope_table`` (pairwise halves), fp32 math."""
+    cos, sin = cos[..., None, :], sin[..., None, :]     # broadcast over heads
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x [..., S, H, Hd], positions [..., S] -> rotated x (pairwise halves), fp32 math."""
+    return apply_rope_table(x, *rope_table(positions, x.shape[-1], theta))
 
 
 # --------------------------------------------------------------------------

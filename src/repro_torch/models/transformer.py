@@ -38,7 +38,11 @@ the serving engine attached (``utils.trace.current_tracer``; none without
 one): ``model.embed``, then per layer ``model.attn`` and ``model.mlp`` (an
 attention family's layer, the hybrid's shared block) or ``model.mamba``,
 each with the layer's index, then ``model.head`` (the final norm and the
-head call, the coded head's decoder-cache gather included).
+head call, the coded head's decoder-cache gather included).  A prefill's
+``model.attn`` also carries ``path``, the route of its attention
+(``attention.prefill_path``: ``kernel``, or why not).  A prefill's
+self-attention layers write the cache through ``attention_prefill``, from
+one rope table a forward.
 
 Training: ``lm_forward`` (with the vlm image and the summed MoE aux loss)
 and ``lm_loss`` (chunked cross-entropy).  With ``cfg.remat`` every group
@@ -59,21 +63,23 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.attention import (
     attention_decode,
     attention_full,
+    attention_prefill,
     cross_attention,
     cross_attention_cached,
     init_attn,
     init_cross_attn,
     precompute_cross_kv,
+    prefill_path,
 )
 from repro_torch.models.config import ModelConfig, coded_blocks
 from repro_torch.models.layers import (
     Params,
-    apply_rope,
     dense_init,
     embed_init,
     init_mlp,
     mlp_apply,
     rmsnorm,
+    rope_table,
 )
 from repro_torch.models.moe import init_moe, moe_apply
 from repro_torch.models.ssm import init_mamba_block, init_mamba_state, mamba_block_apply
@@ -260,26 +266,37 @@ def _ffn(gp: Params, j: int, h2: torch.Tensor, cfg: ModelConfig):
     return mlp_apply(gp[f"mlp_{j}"], h2, cfg.mlp), None
 
 
+def _attn_span(tr, layer: int, x, cfg: ModelConfig, prefill: bool):
+    """A layer's ``model.attn`` span (NULL without a tracer); a serving
+    prefill's carries its attention's route, ``path``."""
+    if not tr:
+        return NULL
+    if prefill:
+        return tr.span("model.attn", layer=layer, path=prefill_path(x, cfg.resolved_head_dim))
+    return tr.span("model.attn", layer=layer)
+
+
 def _group_full(gp: Params, x, positions, img, *, cfg: ModelConfig, kv: Params | None = None,
-                g: int = 0, tr=None):
+                g: int = 0, tr=None, rope=None):
     """One group over the full sequence: (x, its MoE aux loss).  The vlm
     cross-attention runs where an image is given.  With ``kv`` (the cache's
-    blocks) each layer's roped K and V are written into group ``g`` of it,
-    as the prefill's cache.  ``tr``: the tracer of a serving prefill."""
+    blocks) each layer's self-attention is ``attention_prefill``, which
+    writes its roped K and V into group ``g`` of it, as the prefill's
+    cache, rotating by ``rope`` (the forward's ``rope_table``).  ``tr``:
+    the tracer of a serving prefill."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     r = group_period(cfg)
+    s = x.shape[1]
     for j in range(r):
-        with tr.span("model.attn", layer=g * r + j) if tr else NULL:
+        with _attn_span(tr, g * r + j, x, cfg, kv is not None):
             h = rmsnorm(x, gp[f"ln1_{j}"], cfg.norm_eps)
             attn = gp[f"attn_{j}"]
-            if kv is not None:
-                s = h.shape[1]
-                k = torch.einsum("bsd,dhk->bshk", h, attn["w_k"].to(h.dtype))
-                v = torch.einsum("bsd,dhk->bshk", h, attn["w_v"].to(h.dtype))
-                kv[f"attn_{j}"]["k"][g, :, :s] = apply_rope(k, positions,
-                                                            cfg.rope_theta).to(KV_DTYPE)
-                kv[f"attn_{j}"]["v"][g, :, :s] = v.to(KV_DTYPE)
-            x = x + attention_full(attn, h, positions, cfg.rope_theta, n_real=_n_real(cfg))
+            if kv is None:
+                x = x + attention_full(attn, h, positions, cfg.rope_theta, n_real=_n_real(cfg))
+            else:
+                c = kv[f"attn_{j}"]
+                x = x + attention_prefill(attn, h, rope, c["k"][g, :, :s], c["v"][g, :, :s],
+                                          n_real=_n_real(cfg))
             if cfg.family == "vlm" and j == r - 1 and img is not None:
                 hx = rmsnorm(x, gp[f"lnx_{j}"], cfg.norm_eps)
                 x = x + cross_attention(gp[f"xattn_{j}"], hx, img)
@@ -477,19 +494,22 @@ def lm_prefill(
     positions = torch.arange(s, device=tokens.device)[None, :]
     cache = lm_init_cache(cfg, b, s_max, tokens.device)
     cache["pos"].fill_(s)
+    rope = (None if cfg.family == "ssm"
+            else rope_table(positions, cfg.resolved_head_dim, cfg.rope_theta))
     if cfg.family in ("ssm", "hybrid"):
-        x = _prefill_mamba(params, cfg, x, positions, cache, ssd_kernel_mode, tr)
+        x = _prefill_mamba(params, cfg, x, rope, cache, ssd_kernel_mode, tr)
     else:
-        x = _prefill_groups(params, cfg, x, positions, img, cache, tr)
+        x = _prefill_groups(params, cfg, x, positions, img, cache, rope, tr)
     with tr.span("model.head") if tr else NULL:
         hidden = rmsnorm(x, params["final_norm"], cfg.norm_eps)
         logits = _last_logits(params, hidden, cfg, head_mask, head_kernel_mode, head_mesh)
     return logits, cache
 
 
-def _prefill_groups(params, cfg, x, positions, img, cache, tr=None) -> torch.Tensor:
-    """The attention families' groups, each writing its K/V into the cache;
-    a vlm group also its image cross K/V (``precompute_cross_kv``)."""
+def _prefill_groups(params, cfg, x, positions, img, cache, rope, tr=None) -> torch.Tensor:
+    """The attention families' groups, each writing its K/V into the cache
+    (roped by ``rope``, the forward's ``rope_table``); a vlm group also its
+    image cross K/V (``precompute_cross_kv``)."""
     r, n_groups = group_period(cfg), cfg.n_layers // group_period(cfg)
     blocks = cache["blocks"]
     if img is not None:
@@ -499,7 +519,7 @@ def _prefill_groups(params, cfg, x, positions, img, cache, tr=None) -> torch.Ten
                                     for n in ("ck", "cv")}
     for g in range(n_groups):
         gp = _layer(params["blocks"], g)
-        x, _ = _group_full(gp, x, positions, img, cfg=cfg, kv=blocks, g=g, tr=tr)
+        x, _ = _group_full(gp, x, positions, img, cfg=cfg, kv=blocks, g=g, tr=tr, rope=rope)
         if cfg.family == "vlm":
             xa = blocks[f"xattn_{r - 1}"]
             ck, cv = precompute_cross_kv(gp[f"xattn_{r - 1}"], img)
@@ -536,12 +556,12 @@ def _uses_shared_attn(cfg: ModelConfig, i: int) -> bool:
     return cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0
 
 
-def _prefill_mamba(params, cfg, x, positions, cache, ssd_kernel_mode, tr=None) -> torch.Tensor:
+def _prefill_mamba(params, cfg, x, rope, cache, ssd_kernel_mode, tr=None) -> torch.Tensor:
     """The Mamba blocks (and, for hybrid, the shared block after every
-    ``attn_every``-th, each application writing its own K/V slice).  Each
-    block's final state and conv tail (which may be shorter than W-1 rows)
-    go into the cache."""
-    adt, s = x.dtype, x.shape[1]
+    ``attn_every``-th, each application writing its own K/V slice, roped by
+    ``rope``, the forward's ``rope_table``).  Each block's final state and
+    conv tail (which may be shorter than W-1 rows) go into the cache."""
+    s = x.shape[1]
     states, app = [], 0
     for i, gp in enumerate(_mamba_layers(params, cfg)):
         with tr.span("model.mamba", layer=i) if tr else NULL:
@@ -550,26 +570,25 @@ def _prefill_mamba(params, cfg, x, positions, cache, ssd_kernel_mode, tr=None) -
             x = x + h
         states.append(st)
         if _uses_shared_attn(cfg, i):
-            sp = params["shared_attn"]
-            hh = rmsnorm(x, sp["ln1"], cfg.norm_eps)
-            k = torch.einsum("bsd,dhk->bshk", hh, sp["attn"]["w_k"].to(adt))
-            v = torch.einsum("bsd,dhk->bshk", hh, sp["attn"]["w_v"].to(adt))
-            cache["shared_attn"]["k"][app, :, :s] = apply_rope(
-                k, positions, cfg.rope_theta).to(KV_DTYPE)
-            cache["shared_attn"]["v"][app, :, :s] = v.to(KV_DTYPE)
-            x = _shared_attn_apply(sp, cfg, x, positions, tr, i)
+            kv = cache["shared_attn"]
+            x = _shared_attn_apply(params["shared_attn"], cfg, x, None, tr, i,
+                                   kv=(rope, kv["k"][app, :, :s], kv["v"][app, :, :s]))
             app += 1
     cache["blocks"] = _mamba_cache(cfg, states)
     return x
 
 
 def _shared_attn_apply(sp: Params, cfg: ModelConfig, x, positions, tr=None,
-                       layer: int = 0) -> torch.Tensor:
+                       layer: int = 0, kv=None) -> torch.Tensor:
     """The zamba2 shared block over the full sequence; ``tr``: the tracer
-    of a serving prefill."""
-    with tr.span("model.attn", layer=layer) if tr else NULL:
+    of a serving prefill.  With ``kv`` = (rope table, cache K rows, cache V
+    rows), a prefill's application: ``attention_prefill`` writes its rows."""
+    with _attn_span(tr, layer, x, cfg, kv is not None):
         h = rmsnorm(x, sp["ln1"], cfg.norm_eps)
-        x = x + attention_full(sp["attn"], h, positions, cfg.rope_theta)
+        if kv is None:
+            x = x + attention_full(sp["attn"], h, positions, cfg.rope_theta)
+        else:
+            x = x + attention_prefill(sp["attn"], h, *kv)
     with tr.span("model.mlp", layer=layer) if tr else NULL:
         h2 = rmsnorm(x, sp["ln2"], cfg.norm_eps)
         return x + mlp_apply(sp["mlp"], h2, cfg.mlp)

@@ -11,7 +11,10 @@ in another order; for fp16 inputs of ``coded_matvec`` (fp32 sums in both)
 the reference's fp16 bound, 2e-3.  The SSD kernels, fp32 or bf16 inputs
 (cast to fp32 in both; bf16 runs on the tensor cores with each fp32
 operand in three bf16 pieces): the reference's rtol 1e-4 and atol 1e-5,
-the atol scaled by max|plain|.
+the atol scaled by max|plain|.  The prefill attention kernel (bf16): cache
+rows bit-equal to its plain version's; its output's error against an fp32
+SDPA no larger than the plain bf16 SDPA's plus one rounding of the output
+(2^-9 of max|out|).
 """
 import numpy as np
 import pytest
@@ -35,6 +38,7 @@ from repro_torch.kernels.lt_encode import (
     lt_encode_cuda,
 )
 from repro_torch.kernels.masked_pinv import masked_pinv_cuda
+from repro_torch.kernels.prefill_attn import prefill_attn_cuda
 from repro_torch.kernels.ssd_scan import ssd_chunk_cuda, ssd_combine_cuda
 
 # (r, m, b): the reference's coded_matvec sweep (tests/test_kernels.py), then
@@ -1695,6 +1699,9 @@ def _wrapper_calls(dev):
         (gaussian_encode_cuda, (rnd(5, 3), rnd(3, 40))),
         (lt_encode_cuda, (rnd(3, 40), idx, torch.ones(2, 2, device=dev))),
         (masked_pinv_cuda, (torch.ones(6, device=dev), rnd(6, 4).double())),
+        (prefill_attn_cuda, (rnd(1, 5, 2, 64).bfloat16(), rnd(1, 5, 1, 64).bfloat16(),
+                             rnd(1, 5, 1, 64).bfloat16(), rnd(1, 5, 32), rnd(1, 5, 32),
+                             rnd(1, 5, 1, 64).bfloat16(), rnd(1, 5, 1, 64).bfloat16())),
         (ssd_chunk_cuda, cells),
         (ssd_combine_cuda, (cells[3], torch.cumsum(cells[1], 1), rnd(3, 8, 4))),
     ]
@@ -2003,3 +2010,114 @@ def test_cuda_auto_raises_where_cuda_raises():
             with pytest.raises(err):
                 call(mode)
         assert counts == {n: w.launches for n, w in kernel_wrappers().items()}
+
+
+# --------------------------------------------------------------------------
+# the serving prefill's attention (kernels/prefill_attn.py)
+# --------------------------------------------------------------------------
+# prompt lengths: one token, either side of a 64-row tile, the longprompt
+# cell's median and longest prompts and its cache (4160), ragged ones
+PREFILL_LENGTHS = (1, 63, 64, 65, 1000, 1024, 3000, 4096, 4160)
+
+
+def _prefill_inputs(dev, b, s, h, kvh, hd, seed):
+    from repro_torch.models.layers import rope_table
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(b, s, n, hd, generator=g, device=dev).to(torch.bfloat16)
+               for n in (h, kvh, kvh))
+    return q, k, v, rope_table(torch.arange(s, device=dev)[None], hd, 5e5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("h,kvh", [(32, 2), (4, 4)])
+@pytest.mark.parametrize("s", PREFILL_LENGTHS)
+def test_cuda_prefill_attn_matches_plain(s, h, kvh, hd):
+    """The prefill kernel (GQA 16:1, glm4-9b's heads, and 1:1) against its
+    plain version on the same projections: the cache rows [:S] bit-equal
+    (the same fp32 rotation, each product and sum rounded alone), the rows
+    past S untouched; one attention launch and one prologue.  The output's
+    largest error against an fp32 SDPA of the same roped inputs is no larger
+    than the plain bf16 ``_sdpa``'s, within one rounding of the output to
+    bf16 (2^-9 of max|out|): the kernel keeps the logits in fp32 where the
+    plain version rounds them to bf16, so its error is about that last
+    rounding alone (0.005-0.010 against the plain's 0.008-0.016 at max|out|
+    2.6-3.9, measured on an H100); where the logits' rounding costs the
+    plain version little (S = 65, 1:1, Hd 64: 0.0080 against 0.0077), which
+    of the two lands nearer is the output rounding's draw."""
+    from repro_torch.models.attention import _attention_prefill_plain, _causal_mask5, _sdpa
+    from repro_torch.models.layers import apply_rope_table
+
+    dev = _cuda()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    q, k, v, rope = _prefill_inputs(dev, 1, s, h, kvh, hd, s + hd + h)
+    cache = torch.full((4, 1, s + 7, kvh, hd), 3.0, dtype=torch.bfloat16, device=dev)
+    before = (prefill_attn_cuda.launches, prefill_attn_cuda.prologue_launches)
+    with torch.no_grad():
+        got = prefill_attn_cuda(q, k, v, *rope, cache[0, :, :s], cache[1, :, :s])
+        torch.cuda.synchronize()
+        assert (prefill_attn_cuda.launches - before[0],
+                prefill_attn_cuda.prologue_launches - before[1]) == (1, 1)
+        plain = _attention_prefill_plain(q, k, v, rope, cache[2, :, :s], cache[3, :, :s])
+        ref = _sdpa(apply_rope_table(q, *rope).float(), apply_rope_table(k, *rope).float(),
+                    v.float(), _causal_mask5(s, s, dev))
+    assert torch.equal(cache[0], cache[2]) and torch.equal(cache[1], cache[3])
+    assert bool((cache[:, :, s:] == 3).all())
+    assert got.shape == plain.shape and got.dtype == torch.bfloat16
+    kernel_err = float((got.float() - ref).abs().max())
+    plain_err = float((plain.float() - ref).abs().max())
+    assert kernel_err <= plain_err + 2.0 ** -9 * float(ref.abs().max()), (kernel_err, plain_err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,kvh,hd", [(2, 100, 8, 2, 64), (3, 130, 4, 1, 128)])
+def test_cuda_prefill_attn_batches(b, s, h, kvh, hd):
+    """B > 1 with one rope table for every row and cache rows that are a
+    view of a longer cache (batches s_max rows apart): each batch's output
+    and cache rows are those of a B = 1 call on its own."""
+    dev = _cuda()
+    q, k, v, rope = _prefill_inputs(dev, b, s, h, kvh, hd, b * s)
+    cache = torch.zeros((2, b, s + 9, kvh, hd), dtype=torch.bfloat16, device=dev)
+    one = torch.zeros((2, 1, s, kvh, hd), dtype=torch.bfloat16, device=dev)
+    with torch.no_grad():
+        got = prefill_attn_cuda(q, k, v, *rope, cache[0, :, :s], cache[1, :, :s])
+        for i in range(b):
+            want = prefill_attn_cuda(q[i:i + 1], k[i:i + 1], v[i:i + 1], *rope, one[0], one[1])
+            assert torch.equal(got[i:i + 1], want)
+            assert torch.equal(cache[0, i, :s], one[0, 0]) and torch.equal(cache[1, i, :s], one[1, 0])
+
+
+@pytest.mark.gpu
+def test_cuda_engine_serves_the_same_tokens_through_the_prefill_kernel(monkeypatch):
+    """A 2-layer engine at head_dim 128: every prefill layer launches the
+    kernel once (and its prologue once), and the tokens equal those of the
+    same engine with the prefill on the plain path; the decode reads the
+    cache rows the kernel wrote."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, transformer
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import Request, ServeEngine
+
+    dev = _cuda()
+    cfg = get_config("glm4-9b", smoke=True).scaled(head_dim=128, n_layers=2, coded=True,
+                                                   coded_parity=2)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (130, 64, 33, 5, 1)]
+    out = {}
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            for mod in (attention, transformer):
+                monkeypatch.setattr(mod, "prefill_path", lambda x, hd: "plain")
+        eng = ServeEngine(model, params, n_slots=2, s_max=160, device=dev)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=8))
+        before = (prefill_attn_cuda.launches, prefill_attn_cuda.prologue_launches)
+        out[route] = {r.uid: r.out_tokens for r in eng.run()}
+        want = cfg.n_layers * len(prompts) if route == "kernel" else 0
+        assert (prefill_attn_cuda.launches - before[0],
+                prefill_attn_cuda.prologue_launches - before[1]) == (want, want)
+    assert len(out["kernel"]) == len(prompts)
+    assert out["kernel"] == out["plain"]

@@ -348,9 +348,10 @@ def test_kernel_wrappers_refuse_grad_requiring_inputs():
 
     x = torch.ones(4, 4, requires_grad=True)
     for name, wrapper in kernel_wrappers().items():
-        args = [x, torch.ones(4, 4), torch.ones(4, 4), torch.ones(4, 4)]
+        args = [x] + [torch.ones(4, 4)] * 6
         n_args = {"coded_matvec": 2, "coded_matvec_decode": 3, "gaussian_encode": 2,
-                  "lt_encode": 3, "masked_pinv": 2, "ssd_chunk": 4, "ssd_combine": 3}[name]
+                  "lt_encode": 3, "masked_pinv": 2, "prefill_attn": 7, "ssd_chunk": 4,
+                  "ssd_combine": 3}[name]
         with pytest.raises(RuntimeError, match=wrapper.__name__):
             wrapper(*args[:n_args])
         with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
